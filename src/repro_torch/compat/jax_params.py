@@ -1,0 +1,48 @@
+"""Carry the JAX package's parameters across to the port.
+
+The JAX package keeps a decoder's weights as a nested tree with the
+stacked-layer layout of ``tests/golden/compat/qwen3-4b_reference.npz``:
+``embed`` ``(vocab, d)``, ``final_norm.scale``, ``seg0_p0.attn.wq``
+``(repeats, d, H * hd)`` and so on.  The port uses the same layout, so
+carrying weights across is a check of names and shapes plus a copy.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix="") -> dict:
+    if not isinstance(tree, Mapping):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flatten(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def params_from_numpy(tree, cfg, device=None) -> dict:
+    """The port's params for ``cfg`` from a parameter tree of numpy arrays
+    (nested dicts, or flat dotted names), e.g.
+    ``jax.tree.map(np.asarray, jax_session.params)``.
+
+    Names and shapes must match :func:`transformer.param_shapes` exactly;
+    a missing, extra or mis-shaped leaf raises :class:`ValueError`."""
+    from repro_torch.models import transformer
+
+    flat = _flatten(tree)
+    want = transformer.param_shapes(cfg)
+    missing, extra = sorted(set(want) - set(flat)), sorted(set(flat) - set(want))
+    if missing or extra:
+        raise ValueError(f"parameter names differ from {cfg.arch_id}'s: "
+                         f"missing {missing}, unexpected {extra}")
+    out = {}
+    for name, (shape, _) in want.items():
+        arr = np.asarray(flat[name], np.float32)
+        if arr.shape != tuple(shape):
+            raise ValueError(f"{name}: shape {arr.shape}, expected "
+                             f"{tuple(shape)}")
+        out[name] = torch.from_numpy(arr.copy()).to(device or "cpu")
+    return transformer.unflatten(out)

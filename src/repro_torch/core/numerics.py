@@ -1,0 +1,97 @@
+"""Numerics configuration + matmul dispatch: the "compiler integration" layer.
+
+Every projection of the model zoo routes through :func:`nmatmul`, which
+resolves its :class:`NumericsConfig` from the ambient
+:func:`~repro_torch.core.scope.numerics_scope`.
+
+Modes
+-----
+``exact``
+    bf16 operands, fp32 accumulation (``compute_dtype`` / ``accum_dtype``).
+    Computed as an fp32 matmul of the bf16-rounded operands cast back up
+    to fp32: every bf16 x bf16 product is exact in fp32, so this is the
+    reference's bf16 dot with fp32 accumulation (``torch.matmul`` on bf16
+    tensors would round its result to bf16).
+``segmented``
+    Split-float (hi/lo bf16) matmul with term skipping, ``seg_passes`` =
+    1, 2 or 3 tensor-core passes, backed by
+    :mod:`repro_torch.kernels.dispatch` and selected by ``backend``:
+
+    ``auto``    the Hopper kernel for CUDA tensors, the plain PyTorch
+                version for CPU tensors (the default)
+    ``hopper``  force the hand-written CUDA kernel (CUDA tensors only)
+    ``torch``   force the plain PyTorch version
+``emulated``
+    The bit-level multiplier path; it arrives in a later slice of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import scope as _scope
+
+BACKENDS = ("auto", "hopper", "torch")
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+           "float32": torch.float32}
+
+
+@dataclasses.dataclass(frozen=True)
+class NumericsConfig:
+    mode: str = "exact"             # exact | emulated | segmented
+    multiplier: str = "AC5-5"       # registry name, for emulated mode
+    seg_passes: int = 3             # segmented mode: 1=ACL-like, 3=AC-like
+    seg_n: int = 5                  # segment width for emulated AC modes
+    backend: str = "auto"           # kernel backend: auto|hopper|torch
+    compute_dtype: str = "bfloat16"  # exact-mode operand dtype
+    accum_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(
+                f"unknown backend {self.backend!r}; expected one of {BACKENDS}")
+
+
+EXACT = NumericsConfig(mode="exact")
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype named by a config string (``bfloat16``, ...)."""
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise ValueError(f"unsupported dtype {name!r}; expected one of "
+                         f"{sorted(_DTYPES)}") from None
+
+
+def nmatmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Numerics-aware matmul: ``x (..., K) @ w (K, N)`` under the ambient
+    numerics scope.
+
+    The config comes from the innermost ``numerics_scope`` (EXACT outside
+    any scope).  A non-config ambient value is duck-typed as a policy and
+    resolved per call site with ``amb.lookup(path)`` against the full path
+    of the active ``layer_scope`` stack.
+    """
+    amb = _scope.current_numerics()
+    if amb is None:
+        cfg = EXACT
+    elif isinstance(amb, NumericsConfig):
+        cfg = amb
+    else:
+        cfg = amb.lookup(_scope.current_path())
+    if cfg.mode == "exact":
+        cdt = torch_dtype(cfg.compute_dtype)
+        adt = torch_dtype(cfg.accum_dtype)
+        return torch.matmul(x.to(cdt).to(adt), w.to(cdt).to(adt))
+    if cfg.mode == "segmented":
+        from repro_torch.kernels import dispatch  # lazy: kernels import core
+
+        return dispatch.matmul(x, w, cfg.seg_passes, backend=cfg.backend)
+    if cfg.mode == "emulated":
+        raise NotImplementedError(
+            "mode='emulated' (the bit-level AFPM multipliers) arrives in a "
+            "later slice of the PyTorch port, with the afpm_bitwise kernel")
+    raise ValueError(f"unknown numerics mode {cfg.mode!r}")

@@ -1,0 +1,64 @@
+"""Backend dispatch for the kernel substrate.
+
+``matmul`` is the one audited entry point of the segmented matmul, with a
+``backend`` knob (``repro_torch.core.numerics.NumericsConfig.backend``):
+
+  ``auto``    the Hopper kernel for CUDA tensors, the plain version for CPU
+  ``hopper``  the Hopper kernel; a CPU tensor raises
+  ``torch``   the plain PyTorch version (``ref.afpm_matmul_ref``)
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.numerics import BACKENDS
+
+from . import ref
+from .afpm_matmul import afpm_matmul
+
+
+def resolve_backend(backend: str, x: torch.Tensor) -> str:
+    """Resolve a backend request for operand ``x`` to ``hopper | torch``."""
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    if backend == "auto":
+        return "hopper" if x.is_cuda else "torch"
+    if backend == "hopper" and not x.is_cuda:
+        raise ValueError("backend='hopper' needs CUDA tensors; use 'torch' "
+                         "(or 'auto') for CPU tensors")
+    return backend
+
+
+def shape_bucket(*dims: int) -> str:
+    """Bucket a shape by its largest extent: small / medium / large."""
+    m = max(dims) if dims else 0
+    if m <= 256:
+        return "small"
+    if m <= 1024:
+        return "medium"
+    return "large"
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, passes: int = 3, *,
+           backend: str = "auto") -> torch.Tensor:
+    """Segmented approximate matmul ``x (..., K) @ w (K, N)`` -> fp32.
+
+    Validation and 1-D promotion happen here, before the backend branch,
+    so every backend accepts the same inputs; leading batch dims of ``x``
+    are kept (the kernel flattens them into its rows)."""
+    backend = resolve_backend(backend, x)
+    if x.dim() < 1 or w.dim() != 2:
+        raise ValueError(f"need x (..., K) @ w (K, N); got "
+                         f"{tuple(x.shape)} @ {tuple(w.shape)}")
+    if x.shape[-1] != w.shape[0]:
+        raise ValueError(f"contraction mismatch {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
+    vec = x.dim() == 1
+    if vec:
+        x = x[None, :]
+    if backend == "torch":
+        out = ref.afpm_matmul_ref(x, w, passes)
+    else:
+        out = afpm_matmul(x.contiguous(), w.contiguous(), passes)
+    return out[0] if vec else out

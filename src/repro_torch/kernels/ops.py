@@ -1,0 +1,12 @@
+"""Public wrappers of the kernels (``repro.kernels.ops`` counterpart).
+
+PyTorch runs eagerly, so these are thin shells over the audited entry
+points in :mod:`repro_torch.kernels.dispatch`."""
+from __future__ import annotations
+
+from . import dispatch
+
+
+def afpm_matmul(x, w, passes: int = 3, *, backend: str = "auto"):
+    """Segmented approximate matmul; batch dims on ``x`` are kept."""
+    return dispatch.matmul(x, w, passes, backend=backend)

@@ -1,0 +1,73 @@
+"""Serving entry point: batched greedy decoding over the continuous-batching
+engine (:mod:`repro_torch.serving`).
+
+The same weights served under exact / segmented3 / segmented2 /
+segmented1 numerics.  ``serve()`` routes every prompt through one
+accuracy tier of :class:`repro_torch.serving.Engine` with ``batch`` KV
+slots and returns the greedy continuations.
+
+    python -m repro_torch.launch.serve --numerics segmented3 --batch 2
+
+runs on the GPU; ``--device cpu`` runs the plain PyTorch path.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+from repro_torch.session import Session, SessionError
+
+
+def serve(arch: str = "qwen3-4b", batch: int = 4, prompt_len: int = 32,
+          gen_len: int = 16, numerics: str = "exact", seed: int = 0,
+          params=None, cfg=None, device=None):
+    """Serve ``arch`` (or a ready ``cfg`` + ``params``) through the
+    continuous-batching engine; returns the ``(batch, gen_len)`` greedy
+    continuations.  ``numerics`` is a preset name; ``cfg`` (an
+    ``ArchConfig``) serves that config as given, e.g. at full width."""
+    from repro_torch.serving import TierSpec
+
+    sess = Session(cfg if cfg is not None else arch, policy=numerics,
+                   seed=seed, params=params, device=device)
+    eng = sess.serving_engine((TierSpec("serve", policy=sess.numerics),),
+                              slots=batch, max_len=prompt_len + gen_len)
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, sess.config.vocab, (batch, prompt_len))
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, tier="serve", max_new_tokens=gen_len)
+            for p in prompts]
+    eng.run()
+    dt = time.perf_counter() - t0
+    print(f"[serve] {sess.arch_id} numerics={numerics} on {sess.device}: "
+          f"{batch}x{gen_len} tokens in {dt:.2f}s "
+          f"({batch * gen_len / dt:.1f} tok/s, continuous batching)")
+    return np.stack([r.result() for r in reqs])
+
+
+def main(argv=None) -> int:
+    from repro_torch.serving import ServingError
+
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
+    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--numerics", default="exact",
+                    choices=["exact", "segmented3", "segmented2", "segmented1"])
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the plain "
+                         "PyTorch path)")
+    args = ap.parse_args(argv)
+    try:
+        serve(args.arch, batch=args.batch, gen_len=args.gen_len,
+              numerics=args.numerics, device=args.device)
+    except (SessionError, ServingError, RuntimeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

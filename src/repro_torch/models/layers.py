@@ -1,0 +1,89 @@
+"""Shared building blocks: init helpers, norms, embeddings, RoPE, MLPs.
+
+Parameters are plain nested dicts of tensors with the JAX package's
+layout (``wq`` is ``(d, H * hd)``; stacked layers carry a leading
+``repeats`` axis), so the two packages can exchange weights directly.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.numerics import layer_scope, nmatmul
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 and cast back to fp32: operands for an fp32
+    matmul whose products are exact, i.e. a bf16 dot accumulated in fp32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def normal(gen: torch.Generator, shape, scale: float,
+           device) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32) * scale
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + params["scale"].to(torch.float32))).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# embeddings
+# ---------------------------------------------------------------------------
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens, table)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (rotates split halves, not interleaved pairs)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., S, H, D); positions: (..., S)."""
+    D = x.shape[-1]
+    half = D // 2
+    freqs = rope_freqs(D, theta, x.device)
+    ang = positions[..., :, None, None].to(torch.float32) * freqs
+    cos = torch.cos(ang).to(x.dtype)
+    sin = torch.sin(ang).to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# gated MLP
+# ---------------------------------------------------------------------------
+
+def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
+    """Gated MLP ``wo(wi(x) * silu(wg(x)))`` under the ambient numerics
+    scope (relative call-site paths ``wi``/``wg``/``wo``)."""
+    with layer_scope("wi"):
+        h = nmatmul(x, params["wi"])
+    with layer_scope("wg"):
+        g = nmatmul(x, params["wg"])
+    h = h * F.silu(g)
+    with layer_scope("wo"):
+        return nmatmul(h.to(x.dtype), params["wo"])
+
+
+def softcap(x: torch.Tensor, cap):
+    if cap is None:
+        return x
+    return torch.tanh(x / cap) * cap

@@ -1,0 +1,242 @@
+"""Model assembly: the dense LM decoder stack (qwen3-4b in this slice).
+
+Depth is organized as ``segments``: ``(repeats, pattern)`` pairs whose
+params are stacked on a leading ``repeats`` axis, as in the JAX package
+(the weights carry over unchanged); the port runs the repeats in a Python
+loop where JAX used ``lax.scan``.
+
+Public API:
+  init(cfg, seed, device)                      -> params (nested dict)
+  prefill(params, cfg, batch, max_len)         -> (last_logits, state)
+  decode_step(params, cfg, batch, state, pos)  -> (logits, state)
+  init_state(cfg, batch, max_len, dtype, device) -> serving state
+
+Serving state is updated in place by ``decode_step`` (the returned state
+is the same object), which saves a copy of every layer's cache per step.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.numerics import NumericsConfig, torch_dtype
+from repro_torch.numerics import layer_scope, nmatmul, numerics_scope
+
+from . import attention as attn
+from .layers import bf16_round, embed_lookup, mlp_apply, normal, rmsnorm, softcap
+
+
+def _check_supported(cfg):
+    """The port's model layer covers dense GQA decoders; the other
+    families arrive in later slices."""
+    for _, pattern in cfg.segments:
+        for spec in pattern:
+            if spec.kind != "dense" or spec.attn not in ("global", "local") \
+                    or spec.shared:
+                raise NotImplementedError(
+                    f"{cfg.arch_id}: layer {spec} arrives in a later slice "
+                    f"of the PyTorch port (dense GQA blocks only)")
+    if cfg.encoder_layers or cfg.mrope_sections or cfg.moe or cfg.mla \
+            or cfg.ssm:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: encoder, M-RoPE, MoE, MLA and SSM arrive in a "
+            f"later slice of the PyTorch port")
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def param_shapes(cfg) -> dict:
+    """Flat ``{dotted name: (shape, init)}`` in the JAX package's layout;
+    ``init`` is ``("normal", scale)`` or ``("zeros",)``."""
+    _check_supported(cfg)
+    d, H, KH, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.resolved_head_dim)
+    ff = cfg.dense_ff
+    out = {"embed": ((cfg.vocab, d), ("normal", 1.0)),
+           "final_norm.scale": ((d,), ("zeros",))}
+    for si, (repeats, pattern) in enumerate(cfg.segments):
+        for pi, _spec in enumerate(pattern):
+            pre, r = f"seg{si}_p{pi}", repeats
+            blk = {
+                "ln1.scale": ((r, d), ("zeros",)),
+                "ln2.scale": ((r, d), ("zeros",)),
+                "attn.wq": ((r, d, H * hd), ("normal", d ** -0.5)),
+                "attn.wk": ((r, d, KH * hd), ("normal", d ** -0.5)),
+                "attn.wv": ((r, d, KH * hd), ("normal", d ** -0.5)),
+                "attn.wo": ((r, H * hd, d), ("normal", (H * hd) ** -0.5)),
+                "mlp.wi": ((r, d, ff), ("normal", d ** -0.5)),
+                "mlp.wg": ((r, d, ff), ("normal", d ** -0.5)),
+                "mlp.wo": ((r, ff, d), ("normal", ff ** -0.5)),
+            }
+            if cfg.qk_norm:
+                blk["attn.q_norm.scale"] = ((r, hd), ("zeros",))
+                blk["attn.k_norm.scale"] = ((r, hd), ("zeros",))
+            out.update({f"{pre}.{k}": v for k, v in blk.items()})
+    if not cfg.tie_embeddings:
+        out["unembed"] = ((d, cfg.vocab), ("normal", d ** -0.5))
+    return out
+
+
+def unflatten(flat: dict) -> dict:
+    """``{"a.b.c": t}`` -> ``{"a": {"b": {"c": t}}}``."""
+    tree: dict = {}
+    for name, value in flat.items():
+        node = tree
+        *parents, leaf = name.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
+def init(cfg, seed: int = 0, device=None) -> dict:
+    """Seeded random parameters, drawn on ``device`` by a
+    :class:`torch.Generator` (the JAX package's PRNG stream cannot be
+    reproduced; equivalence tests load its weights instead)."""
+    device = torch.device(device or "cpu")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    flat = {}
+    for name, (shape, how) in param_shapes(cfg).items():
+        if how[0] == "zeros":
+            flat[name] = torch.zeros(shape, dtype=torch.float32, device=device)
+        else:
+            flat[name] = normal(gen, shape, how[1], device)
+    return unflatten(flat)
+
+
+# ---------------------------------------------------------------------------
+# serving state
+# ---------------------------------------------------------------------------
+
+def init_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+               device=None) -> dict:
+    """Serving state: per-block caches stacked over repeats,
+    ``{"layers": [{pi: {"k", "v": (repeats, batch, max_len, KH, hd)}}]}``."""
+    _check_supported(cfg)
+    hd = cfg.resolved_head_dim
+    layers = []
+    for repeats, pattern in cfg.segments:
+        shape = (repeats, batch, max_len, cfg.n_kv_heads, hd)
+        layers.append({pi: {"k": torch.zeros(shape, dtype=dtype, device=device),
+                            "v": torch.zeros(shape, dtype=dtype, device=device)}
+                       for pi in range(len(pattern))})
+    return {"layers": layers}
+
+
+# ---------------------------------------------------------------------------
+# decoder stack
+# ---------------------------------------------------------------------------
+
+def _block_apply(params, x, cfg, spec, positions, cache=None, q_offset=0):
+    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    with layer_scope("attn"):
+        h, new_cache = attn.gqa_apply(params["attn"], h, cfg, spec, positions,
+                                      cache=cache, q_offset=q_offset)
+    x = x + h
+    h = rmsnorm(params["ln2"], x, cfg.norm_eps)
+    with layer_scope("mlp"):
+        h = mlp_apply(params["mlp"], h).to(x.dtype)
+    return x + h, new_cache
+
+
+def _take(tree, r):
+    return {k: (_take(v, r) if isinstance(v, dict) else v[r])
+            for k, v in tree.items()}
+
+
+def _positions_for(B: int, S: int, offset, device) -> torch.Tensor:
+    """(B, S) absolute positions from a scalar offset, or from per-row
+    ``(B,)`` offsets (continuous batching: each request at its own
+    position)."""
+    pos = torch.arange(S, device=device)[None, :]
+    if isinstance(offset, torch.Tensor) and offset.dim():
+        pos = pos + offset.to(device)[:, None]
+    else:
+        pos = pos + int(offset)
+    return pos.expand(B, S)
+
+
+def backbone(params, cfg, batch, caches=None, q_offset=0):
+    """Embeds -> decoder stack -> final norm, under ``cfg.numerics``.
+
+    Without ``caches`` (prefill) every block returns its fresh k/v, stacked
+    over repeats; with ``caches`` (decode / chunked prefill) each block
+    updates its cache in place.  Returns ``(hidden, caches)``."""
+    _check_supported(cfg)
+    dt = torch_dtype(cfg.dtype)
+    with numerics_scope(cfg.numerics):
+        tokens = batch["tokens"]
+        x = embed_lookup(params["embed"], tokens).to(dt)
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+        B, S = x.shape[:2]
+        positions = _positions_for(B, S, q_offset, x.device)
+        new_caches = []
+        layer = 0
+        for si, (repeats, pattern) in enumerate(cfg.segments):
+            P = len(pattern)
+            collected = {pi: [] for pi in range(P)}
+            for r in range(repeats):
+                for pi, spec in enumerate(pattern):
+                    p = _take(params[f"seg{si}_p{pi}"], r)
+                    c = (None if caches is None
+                         else _take(caches[si][pi], r))
+                    with layer_scope(f"blocks.{layer + r * P + pi}"):
+                        x, nc = _block_apply(p, x, cfg, spec, positions,
+                                             cache=c, q_offset=q_offset)
+                    collected[pi].append(nc)
+            layer += repeats * P
+            if caches is None:
+                new_caches.append({
+                    pi: {k: torch.stack([c[k] for c in cs])
+                         for k in ("k", "v")}
+                    for pi, cs in collected.items()})
+            else:
+                new_caches.append(caches[si])
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return x, new_caches
+
+
+def logits_fn(params, cfg, hidden):
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    if isinstance(cfg.numerics, NumericsConfig):
+        # a plain config keeps the head a bf16 dot (fp32 accumulation)
+        # outside nmatmul, as the reference does
+        logits = torch.matmul(bf16_round(hidden), bf16_round(w))
+    else:
+        # a policy resolves the head as ``lm_head`` like any projection
+        with numerics_scope(cfg.numerics), layer_scope("lm_head"):
+            logits = nmatmul(hidden, w)
+    if cfg.tie_embeddings:
+        # the tied table has unit-variance rows: d**-0.5 puts the logits
+        # at the untied head's scale
+        logits = logits * (cfg.d_model ** -0.5)
+    return softcap(logits, cfg.logit_softcap)
+
+
+def prefill(params, cfg, batch, max_len=None):
+    """Process the prompt; returns (last-token logits, serving state)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    max_len = max_len or S
+    hidden, run = backbone(params, cfg, batch)
+    state = init_state(cfg, B, max_len, dtype=torch_dtype(cfg.dtype),
+                       device=hidden.device)
+    for seg, run_seg in zip(state["layers"], run):
+        for pi, cache in seg.items():
+            for k in ("k", "v"):
+                cache[k][:, :, :S] = run_seg[pi][k].to(cache[k].dtype)
+    return logits_fn(params, cfg, hidden[:, -1:]), state
+
+
+def decode_step(params, cfg, batch, state, pos):
+    """One step over ``batch['token']`` (B, S) at absolute position ``pos``.
+
+    ``pos`` is a scalar for a lockstep batch (``Session.generate``; with
+    S > 1 this is a chunked prefill) or a ``(B,)`` tensor when each row
+    sits at its own position (the serving engine).  ``state`` is updated
+    in place and returned."""
+    hidden, _ = backbone(params, cfg, {"tokens": batch["token"]},
+                         caches=state["layers"], q_offset=pos)
+    return logits_fn(params, cfg, hidden), state
