@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Three phases, each printing one line; any failed check ends the run with
-a nonzero exit and no result line:
+Five phases, each printing one line (phase 5 a table); any failed check
+ends the run with a nonzero exit and no result line:
 
 1. device: the card, its power limit, torch and the kernels' build time
    (every kernel is built from ``src/repro_torch/kernels/csrc/`` here);
@@ -17,7 +17,22 @@ a nonzero exit and no result line:
    the continuous-batching engine under the premium/standard/bulk tiers;
    every request completes, the kernel ran 7 x 36 times per segmented
    forward, and a standard-tier request's tokens equal a solo
-   ``Session.generate`` bit for bit.
+   ``Session.generate`` bit for bit;
+4. bitwise: the bit-level AFPM kernel against its plain PyTorch version on
+   the card, bit for bit (NaNs by NaN-ness): the four golden cases of
+   ``tests/golden/afpm_golden.json``, every AFPM registry entry and two
+   ablation configs on seeded inputs full of specials at (512, 512), a
+   ragged (3, 1001, 7) and a broadcast 0-d scalar; timed at (512, 512) and
+   (8192, 8192) beside the plain version, ``torch.mul`` of the same shapes
+   (the same bytes, not the same function) and the card's bound, with the
+   instructions per element counted from the kernel's SASS (timings to
+   ``chiprun_out/chip_smoke_bitwise.json``);
+5. table3: the paper's Table III image pipeline through the kernel: at
+   size 96 with 2 pairs its 24 PSNRs equal the JAX package's own CPU run
+   (``benchmarks/BENCH_cpu_ci.json``) to 1e-9 dB; at 512 x 512 with 3
+   pairs (the size of the paper's test images) the kernel route and the
+   plain route give bit-identical images for all 12 designs, and the
+   kernel route launches the kernel exactly 192 times.
 
 Then one JSON line on the kernels, the card's name and power limit, and
 the result line.  Per-shape kernel timings go to
@@ -26,7 +41,9 @@ the result line.  Per-shape kernel timings go to
 from __future__ import annotations
 
 import json
+import os
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -41,6 +58,13 @@ D, FF, KVD = 2560, 9728, 1024
 LAYER_PROJ = [(D, 4096), (D, KVD), (D, KVD), (4096, D), (D, FF), (D, FF),
               (FF, D)]
 SHAPES = sorted(set(LAYER_PROJ))
+GOLDEN = ROOT / "tests" / "golden" / "afpm_golden.json"
+BENCH_CPU = ROOT / "benchmarks" / "BENCH_cpu_ci.json"
+# the timed AFPM designs and the template arguments (ACL, FULL, COND, COMP,
+# SKIP_BD) of the kernel instantiation each runs, as they appear in the
+# mangled name
+K2_TIMED = {"AC5-5": "ILb0ELb1ELb1ELb1ELb1E", "ACL5": "ILb1ELb1ELb0ELb0ELb1E"}
+K2_SHAPES = [(512, 512), (8192, 8192)]
 
 
 def smi(query: str) -> str:
@@ -62,16 +86,21 @@ def card_peaks(name: str):
     raise RuntimeError(f"no published peaks known for {name!r}")
 
 
-def timed_ms(fn, iters: int, flush) -> float:
+def timed_ms(fn, iters: int, flush, device_only: bool = False) -> float:
     """Mean device ms of ``fn`` over ``iters`` launches, each one timed by
     CUDA events after an L2 flush (the serving path reads every weight
-    once a forward, cold); one warmup call first."""
+    once a forward, cold); one warmup call first.  With ``device_only``
+    the card first spins for about half a millisecond, so the host has
+    enqueued ``fn``'s launches before the start event runs: the time then
+    leaves out the host's call overhead (most of a small kernel's call)."""
     import torch
 
     fn()
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        if device_only:
+            torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -80,6 +109,29 @@ def timed_ms(fn, iters: int, flush) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def sass_loop_ops(lib: pathlib.Path, key: str) -> int:
+    """Instructions in the grid-stride loop body of the kernel whose mangled
+    name holds ``key``: the span closed by its one backward branch in
+    ``cuobjdump -sass`` of the built library, NOPs excluded.  Every element
+    runs the body once; a forward branch inside it may skip a few."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
+                           str(lib)], check=True, capture_output=True,
+                          text=True).stdout
+    body = next(f for f in sass.split("Function : ")[1:]
+                if key in f.split("\n", 1)[0])
+    ins = [(int(a, 16), t.strip()) for a, t in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    spans = [(int(m.group(1), 16), a) for a, t in ins
+             for m in [re.search(r"\bBRA\s+0x([0-9a-f]+)", t)]
+             if m and int(m.group(1), 16) < a]
+    if not spans:
+        raise AssertionError(f"no loop found in the SASS of {key}")
+    lo, hi = max(spans, key=lambda sp: sp[1] - sp[0])
+    return sum(1 for a, t in ins if lo <= a <= hi and not t.startswith("NOP"))
 
 
 def phase_device():
@@ -250,6 +302,200 @@ def phase_serve():
     return launches
 
 
+def bit_mismatches(got, want):
+    """(elements whose fp32 bits differ, NaNs compared by NaN-ness only;
+    the largest absolute difference where both are finite)."""
+    import numpy as np
+
+    def bits(t):
+        return t.detach().contiguous().cpu().numpy().view(np.uint32) \
+            if hasattr(t, "detach") else np.asarray(t, np.uint32)
+
+    g, w = bits(got), bits(want)
+    if g.shape != w.shape:
+        return max(g.size, w.size), float("inf")
+    nan = lambda b: (((b >> 23) & 0xFF) == 255) & ((b & 0x7FFFFF) != 0)
+    gv, wv = g.view(np.float32), w.view(np.float32)
+    fin = np.isfinite(gv) & np.isfinite(wv)
+    err = float(np.max(np.abs(gv[fin].astype(np.float64) - wv[fin]), initial=0.0))
+    return int((~((g == w) | (nan(g) & nan(w)))).sum()), err
+
+
+def special_inputs(rng, shape):
+    """Seeded fp32 over the whole exponent range with zeros, +-subnormals,
+    +-inf, NaN and the min/max normals mixed in, on the card."""
+    import numpy as np
+    import torch
+
+    n = int(np.prod(shape))
+    with np.errstate(over="ignore"):
+        v = (rng.standard_normal(n) * 10.0 ** rng.integers(-40, 39, n)).astype(np.float32)
+    f = np.finfo(np.float32)
+    specials = np.array([0.0, -0.0, 1e-40, -1e-40, 1e-45, np.inf, -np.inf, np.nan,
+                         f.tiny, -f.tiny, f.max, -f.max], np.float32)
+    idx = rng.integers(0, n, max(n // 8, 1))
+    v[idx] = rng.choice(specials, idx.size)
+    return torch.from_numpy(v.reshape(shape)).cuda()
+
+
+def phase_bitwise(peaks):
+    import numpy as np
+    import torch
+
+    from repro_torch.core.afpm import AFPMConfig
+    from repro_torch.core.registry import afpm_config, available
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels import afpm_bitwise as k2
+
+    bad, n_cases, worst = [], 0, 0.0
+
+    def check(got, want, *what):
+        nonlocal n_cases, worst
+        m, err = bit_mismatches(got, want)
+        worst = max(worst, err)
+        n_cases += 1
+        if m:
+            bad.append((*what, m))
+
+    for case in json.loads(GOLDEN.read_text())["cases"]:
+        cfg = AFPMConfig(n=case["n"], mode=case["mode"], fmt=case["fmt"])
+        x = torch.from_numpy(np.asarray(case["x_bits"], np.uint32).view(np.float32)).cuda()
+        y = torch.from_numpy(np.asarray(case["y_bits"], np.uint32).view(np.float32)).cuda()
+        got = k2.afpm_bitwise(x, y, cfg)
+        check(got, case["out_bits"], case["label"], "golden")
+        check(got, k2.afpm_bitwise_plain(x, y, cfg), case["label"], "plain")
+    rng = np.random.default_rng(0)
+    cfgs = [(name, afpm_config(name)) for name in available() if afpm_config(name)]
+    cfgs += [("AC5-5/conditional=False", AFPMConfig(n=5, conditional=False)),
+             ("AC5-5/skip_bd=False", AFPMConfig(n=5, skip_bd=False))]
+    for label, cfg in cfgs:
+        for shape in [(512, 512), (3, 1001, 7)]:
+            x, y = special_inputs(rng, shape), special_inputs(rng, shape)
+            check(k2.afpm_bitwise(x, y, cfg), k2.afpm_bitwise_plain(x, y, cfg),
+                  label, shape)
+        x = special_inputs(rng, (257, 129))
+        for s in (0.6, -1e-40, float("inf")):
+            scalar = torch.tensor(s, dtype=torch.float32, device="cuda")
+            check(dispatch.multiply(x, scalar, cfg, backend="hopper"),
+                  dispatch.multiply(x, scalar, cfg, backend="torch"),
+                  label, "0-d", s)
+    torch.cuda.synchronize()
+    if bad:
+        raise AssertionError(f"afpm_bitwise differs from its plain version: {bad}")
+
+    # timing: one Table III operand (512 x 512) and a size that reaches the
+    # memory rate.  Bound = max(12 bytes an element over the data-sheet
+    # rate, loop-body SASS instructions an element over the card's instruction
+    # rate: 4 schedulers an SM, one warp instruction each a clock).  The
+    # INT32 rate (64 lanes an SM) is reported beside it: it is no bound,
+    # since IMAD and its moves and shifts run on the FMA pipe.
+    bw, _ = peaks
+    props = torch.cuda.get_device_properties(0)
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    instr_rate = props.multi_processor_count * 128 * clock_hz
+    int32_rate = props.multi_processor_count * 64 * clock_hz
+    lib = _build.library_path("afpm_bitwise")
+    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for name, key in K2_TIMED.items():
+        cfg = afpm_config(name)
+        ops = sass_loop_ops(lib, key)
+        for shape in K2_SHAPES:
+            x = torch.randn(shape, generator=gen, device="cuda")
+            y = torch.randn(shape, generator=gen, device="cuda")
+            n = x.numel()
+            bytes_ms = 12 * n / bw * 1e3
+            ops_ms = ops * n / instr_rate * 1e3
+            big = n > 1 << 20
+            rows.append(dict(
+                design=name, shape=list(shape), ops_per_element=ops,
+                kernel_ms=timed_ms(lambda: k2.afpm_bitwise(x, y, cfg), 20, flush, True),
+                kernel_call_ms=timed_ms(lambda: k2.afpm_bitwise(x, y, cfg), 20, flush),
+                plain_ms=timed_ms(lambda: k2.afpm_bitwise_plain(x, y, cfg),
+                                  3 if big else 10, flush, True),
+                torch_mul_ms=timed_ms(lambda: torch.mul(x, y), 20, flush, True),
+                bytes_ms=bytes_ms, ops_ms=ops_ms,
+                int32_ms=ops * n / int32_rate * 1e3,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations"))
+            del x, y
+    torch.cuda.empty_cache()
+    (ROOT / "chiprun_out" / "chip_smoke_bitwise.json").write_text(json.dumps(
+        {"card": smi("name,power.limit"), "instr_rate": instr_rate,
+         "int32_rate": int32_rate,
+         "sm_count": props.multi_processor_count, "rows": rows}, indent=1))
+    print(f"[bitwise] afpm_bitwise: {n_cases} cases bit-exact (NaN-ness for "
+          f"NaNs; 4 golden cases against their bits and the plain version, the "
+          f"rest against the plain version on the card); instruction rate "
+          f"{instr_rate / 1e12:.2f} T/s; " + "; ".join(
+              f"{r['design']} {r['shape'][0]}x{r['shape'][1]} kernel "
+              f"{r['kernel_ms']:.4f} ms (call {r['kernel_call_ms']:.4f}) plain "
+              f"{r['plain_ms']:.4f} ms torch.mul (same bytes, not the same "
+              f"function) {r['torch_mul_ms']:.4f} ms bound {r['bound_ms']:.4f} "
+              f"ms ({r['bound_by']}; {r['ops_per_element']} SASS instr/elem, "
+              f"{r['int32_ms']:.4f} ms at the INT32 rate)" for r in rows))
+    # the kernels line: one Table III operand, AC5-5
+    row = next(r for r in rows if r["design"] == "AC5-5"
+               and r["shape"] == [512, 512])
+    return dict(row, mismatched_bits=sum(b[-1] for b in bad), max_abs_err=worst)
+
+
+def phase_table3():
+    import numpy as np
+
+    from repro_torch.bench import table3_image as t3
+    from repro_torch.core.registry import afpm_config
+    from repro_torch.kernels import afpm_bitwise as k2
+    from repro_torch.kernels import afpm_matmul as k1
+
+    bench = json.loads(BENCH_CPU.read_text())["metrics"]
+    small = t3.run(n_images=2, size=96)
+    worst = 0.0
+    for name, row in small.psnr.items():
+        for kind, got in (("blend", row[0]), ("edge", row[2])):
+            want = bench[f"table3_{name}_psnr_{kind}"]["value"]
+            if not abs(got - want) <= 1e-9:
+                raise AssertionError(f"Table III {name} {kind} at 96: {got!r} dB "
+                                     f"on the card, {want!r} in {BENCH_CPU.name}")
+            worst = max(worst, abs(got - want))
+
+    n_img, size = 3, 512
+    k1.afpm_matmul.launches = 0
+    k2.afpm_bitwise.launches = 0
+    t0 = time.perf_counter()
+    full = t3.run(n_images=n_img, size=size, backend="auto")
+    full_s = time.perf_counter() - t0
+    launches = k2.afpm_bitwise.launches
+    # products of one design: 2 per blend pair; per edge image one per
+    # nonzero Sobel tap of each direction plus the two squares
+    afpm = [n for n in t3.MULTS if afpm_config(n) is not None]
+    per_edge = int(np.count_nonzero(t3.SOBEL_X) + np.count_nonzero(t3.SOBEL_Y)) + 2
+    expected = len(afpm) * (2 * n_img + per_edge * n_img)
+    if launches != expected or expected != 192:
+        raise AssertionError(f"afpm_bitwise launched {launches} times in the "
+                             f"Table III run, expected {expected} (192)")
+    plain = t3.run(n_images=n_img, size=size, backend="torch")
+    diff = {name: sum(int((a.view(np.uint32) != b.view(np.uint32)).sum())
+                      for a, b in zip(full.outputs[name], plain.outputs[name]))
+            for name in t3.MULTS}
+    if any(diff.values()) or full.psnr != plain.psnr:
+        raise AssertionError(f"Table III kernel route != plain route: {diff}")
+    for r in full.psnr.values():
+        if not all(np.isfinite(v) and v > 0 for v in r):
+            raise AssertionError(f"Table III PSNRs not finite: {full.psnr}")
+    print(f"[table3] size 96 x 2 pairs: 24 PSNRs == {BENCH_CPU.name} (worst "
+          f"{worst:.3g} dB); size {size} x {n_img} pairs: kernel route == plain "
+          f"route bit for bit for {len(t3.MULTS)} designs; afpm_bitwise "
+          f"launches {launches} = {len(afpm)} designs x ({2 * n_img} blend + "
+          f"{per_edge * n_img} edge products); run {full_s:.2f} s")
+    for line in t3.report(full):
+        print("[table3] " + line)
+    plain_s = ", ".join(f"{n} {plain.seconds[n]:.4f}" for n in afpm)
+    print(f"[table3] plain route seconds (AFPM designs): {plain_s}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -262,6 +508,9 @@ def main() -> int:
     phase_device()
     k = phase_kernel(peaks)
     launches = phase_serve()
+    torch.cuda.empty_cache()
+    b = phase_bitwise(peaks)
+    b_launches = phase_table3()
     print(json.dumps({"kernels": [{
         "name": "afpm_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/afpm_matmul.cu",
@@ -270,7 +519,18 @@ def main() -> int:
         "max_abs_err": k["max_abs_err"], "max_ulp_err": k["max_ulp_err"],
         "ms": k["kernel_ms"], "kernel_ms": k["kernel_ms"],
         "plain_ms": k["plain_ms"], "library_ms": k["library_ms"],
-        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"]}]}))
+        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"]}, {
+        "name": "afpm_bitwise", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/afpm_bitwise.cu",
+        "replaces": "src/repro/kernels/afpm_bitwise.py:29",
+        "launches": b_launches,
+        "max_abs_err": b["max_abs_err"], "mismatched_bits": b["mismatched_bits"],
+        "shape": b["shape"], "design": b["design"],
+        "ms": b["kernel_ms"], "kernel_ms": b["kernel_ms"],
+        "plain_ms": b["plain_ms"], "library_ms": None,
+        "torch_mul_ms": b["torch_mul_ms"],
+        "ops_per_element": b["ops_per_element"],
+        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}]}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

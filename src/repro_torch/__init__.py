@@ -4,11 +4,15 @@ The package keeps ``repro``'s module layout and public names, so each
 module's counterpart is easy to find, but it is written in PyTorch idiom
 and imports neither ``jax`` nor anything of ``repro``.  Entry points
 (:class:`repro_torch.session.Session`, the serving engine,
-:func:`repro_torch.launch.serve.serve`) run on ``cuda`` unless the caller
+:func:`repro_torch.launch.serve.serve`, the Table III benchmark
+:func:`repro_torch.bench.table3_image.run`) run on ``cuda`` unless the caller
 passes ``device="cpu"``; on a host with no CUDA they raise instead of
 carrying on on the CPU.
 
-The one TPU kernel on this slice's path, the segmented split-float matmul,
-is a hand-written CUDA C++ kernel (``kernels/csrc/afpm_matmul.cu``) built
-with ``nvcc`` at first use; on CPU tensors its plain PyTorch version runs.
+Two of the reference's TPU kernels are hand-written CUDA C++ kernels here,
+built with ``nvcc`` at first use: the segmented split-float matmul of the
+serving path (``kernels/csrc/afpm_matmul.cu``) and the paper's bit-level
+AC-n-n / ACL-n multiplier of the image-processing path and Table III
+(``kernels/csrc/afpm_bitwise.cu``).  On CPU tensors their plain PyTorch
+versions run.
 """

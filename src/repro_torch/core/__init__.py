@@ -1,1 +1,2 @@
-"""Numerics core: ambient scopes and the numerics-aware matmul."""
+"""Numerics core: ambient scopes, the numerics-aware matmul, float formats,
+the bit-level multipliers (AFPM and baselines), their registry and metrics."""

@@ -22,7 +22,17 @@ Modes
     ``hopper``  force the hand-written CUDA kernel (CUDA tensors only)
     ``torch``   force the plain PyTorch version
 ``emulated``
-    The bit-level multiplier path; it arrives in a later slice of the port.
+    Every scalar product goes through the bit-level multiplier selected by
+    ``multiplier`` (AC-n-n / ACL-n through
+    :func:`~repro_torch.core.afpm.afpm_matmul_emulated`, any other registry
+    name through its registered function), summed in fp32 in chunks of 64
+    along K.  As in the reference, the products come from the plain
+    datapath, not from the bit-level kernel.  O(M*N*K) elementwise work --
+    small models only.
+
+:func:`apply_elementwise` is the image-processing path: an elementwise
+product under a named multiplier, the AFPM family through the bit-level
+Hopper kernel (:func:`repro_torch.kernels.dispatch.multiply`).
 """
 from __future__ import annotations
 
@@ -31,6 +41,8 @@ import dataclasses
 import torch
 
 from . import scope as _scope
+from .afpm import AFPMConfig, afpm_matmul_emulated, chunked_emulated_matmul
+from .registry import get_elementwise, get_multiplier
 
 BACKENDS = ("auto", "hopper", "torch")
 
@@ -52,6 +64,10 @@ class NumericsConfig:
         if self.backend not in BACKENDS:
             raise ValueError(
                 f"unknown backend {self.backend!r}; expected one of {BACKENDS}")
+
+    def afpm(self) -> AFPMConfig:
+        mode = "acl" if self.multiplier.lower().startswith("acl") else "ac"
+        return AFPMConfig(n=self.seg_n, mode=mode)
 
 
 EXACT = NumericsConfig(mode="exact")
@@ -91,7 +107,19 @@ def nmatmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
         return dispatch.matmul(x, w, cfg.seg_passes, backend=cfg.backend)
     if cfg.mode == "emulated":
-        raise NotImplementedError(
-            "mode='emulated' (the bit-level AFPM multipliers) arrives in a "
-            "later slice of the PyTorch port, with the afpm_bitwise kernel")
+        name = cfg.multiplier.lower()
+        if name.startswith(("ac", "acl")) and not name.startswith("ac-"):
+            return afpm_matmul_emulated(x, w, cfg.afpm())
+        # generic registry multiplier: chunked elementwise matmul
+        return chunked_emulated_matmul(x, w, get_multiplier(cfg.multiplier))
     raise ValueError(f"unknown numerics mode {cfg.mode!r}")
+
+
+def apply_elementwise(x, y, multiplier: str, backend: str = "auto"):
+    """Elementwise product under a named multiplier (image-processing path).
+
+    AFPM-family multipliers route through the kernel substrate (the Hopper
+    kernel for CUDA tensors); everything else runs its registered plain
+    PyTorch function.
+    """
+    return get_elementwise(multiplier, backend=backend)(x, y)

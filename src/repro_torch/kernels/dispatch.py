@@ -1,19 +1,23 @@
 """Backend dispatch for the kernel substrate.
 
-``matmul`` is the one audited entry point of the segmented matmul, with a
-``backend`` knob (``repro_torch.core.numerics.NumericsConfig.backend``):
+One audited entry point per kernel (``matmul`` for the segmented matmul,
+``multiply`` for the bit-level AFPM multiply), each with a ``backend`` knob
+(``repro_torch.core.numerics.NumericsConfig.backend``):
 
   ``auto``    the Hopper kernel for CUDA tensors, the plain version for CPU
   ``hopper``  the Hopper kernel; a CPU tensor raises
-  ``torch``   the plain PyTorch version (``ref.afpm_matmul_ref``)
+  ``torch``   the plain PyTorch version (``ref.afpm_matmul_ref``,
+              ``ref.afpm_bitwise_ref``), on either device
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.afpm import AFPMConfig
 from repro_torch.core.numerics import BACKENDS
 
 from . import ref
+from .afpm_bitwise import afpm_bitwise
 from .afpm_matmul import afpm_matmul
 
 
@@ -62,3 +66,27 @@ def matmul(x: torch.Tensor, w: torch.Tensor, passes: int = 3, *,
     else:
         out = afpm_matmul(x.contiguous(), w.contiguous(), passes)
     return out[0] if vec else out
+
+
+def _as_operand(t, device) -> torch.Tensor:
+    """``t`` as an fp32 tensor; a Python number or a 0-d CPU tensor joins
+    the other operand's device, as PyTorch's own scalar rule allows."""
+    if not isinstance(t, torch.Tensor) or (t.dim() == 0 and t.device.type == "cpu"):
+        return torch.as_tensor(t, dtype=torch.float32, device=device)
+    return t.to(torch.float32)
+
+
+def multiply(x, y, cfg: AFPMConfig = AFPMConfig(), *,
+             backend: str = "auto") -> torch.Tensor:
+    """Elementwise bit-level AFPM multiply under ``cfg`` -> fp32.
+
+    Operands are broadcast first (a 0-d scalar included), so every backend
+    takes the same inputs; the kernel itself needs equal shapes."""
+    tensors = [t for t in (x, y) if isinstance(t, torch.Tensor)]
+    shaped = [t for t in tensors if t.dim() > 0] or tensors
+    dev = shaped[0].device if shaped else torch.device("cpu")
+    x, y = torch.broadcast_tensors(_as_operand(x, dev), _as_operand(y, dev))
+    backend = resolve_backend(backend, x)
+    if backend == "torch":
+        return ref.afpm_bitwise_ref(x, y, cfg)
+    return afpm_bitwise(x.contiguous(), y.contiguous(), cfg)

@@ -1,15 +1,21 @@
 """Plain PyTorch versions of the kernels: the semantics each kernel matches.
 
-The bf16 x bf16 products are computed as fp32 matmuls of the bf16-rounded
-operands cast back up to fp32.  Each such product is exact in fp32 and the
+In the segmented matmul the bf16 x bf16 products are computed as fp32
+matmuls of the bf16-rounded operands cast back up to fp32.  Each such
+product is exact in fp32 and the
 sum accumulates in fp32, which is the reference's bf16 dot with fp32
 accumulation.  On CUDA this needs full-fp32 matmuls
 (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default;
 the port's entry points set it).
+
+``afpm_bitwise_ref`` is the bit-level AFPM datapath itself
+(:func:`repro_torch.core.afpm.afpm_mult_f32`), integer throughout.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.afpm import AFPMConfig, afpm_mult_f32
 
 
 def split_hi_lo_ref(x: torch.Tensor):
@@ -37,3 +43,9 @@ def afpm_matmul_ref(x: torch.Tensor, w: torch.Tensor,
     if passes >= 3:
         out = out + torch.matmul(xh.to(f), wl.to(f))
     return out
+
+
+def afpm_bitwise_ref(x: torch.Tensor, y: torch.Tensor,
+                     cfg: AFPMConfig) -> torch.Tensor:
+    """Elementwise bit-level AFPM multiply: the core datapath itself."""
+    return afpm_mult_f32(x, y, cfg)

@@ -8,7 +8,7 @@
 from __future__ import annotations
 
 from repro_torch.core.numerics import (BACKENDS, EXACT, NumericsConfig,
-                                       nmatmul)
+                                       apply_elementwise, nmatmul)
 from repro_torch.core.scope import (current_numerics, current_path,
                                     layer_scope, numerics_scope)
 
@@ -16,6 +16,7 @@ __all__ = [
     "BACKENDS",
     "EXACT",
     "NumericsConfig",
+    "apply_elementwise",
     "current_numerics",
     "current_path",
     "layer_scope",

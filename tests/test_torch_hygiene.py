@@ -3,8 +3,8 @@
 - no module under ``src/repro_torch/``, and not ``chip_smoke.py``, imports
   ``jax`` or anything of the JAX package ``repro``;
 - the entry points run on CUDA unless asked for the CPU: without CUDA,
-  ``Session``, the engine's runner and ``serve`` raise instead of carrying
-  on on the CPU.
+  ``Session``, the engine's runner, ``serve`` and the Table III driver
+  raise instead of carrying on on the CPU.
 """
 import ast
 import pathlib
@@ -35,6 +35,7 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
+    from repro_torch.bench import table3_image
     from repro_torch.launch.serve import serve
     from repro_torch.serving import TransformerRunner
     from repro_torch.session import Session
@@ -44,6 +45,8 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
         Session("qwen3-4b")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve(batch=1, prompt_len=4, gen_len=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        table3_image.run(n_images=1, size=8)
     cpu = Session("qwen3-4b", device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TransformerRunner(cpu.config, cpu.params, 1, 8)
@@ -52,3 +55,5 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
                              device="cpu").device.type == "cpu"
     out = serve(batch=1, prompt_len=4, gen_len=2, device="cpu")
     assert out.shape == (1, 2)
+    t = table3_image.run(n_images=1, size=8, device="cpu")
+    assert sorted(t.psnr) == sorted(table3_image.MULTS)

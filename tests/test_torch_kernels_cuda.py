@@ -6,11 +6,20 @@ torch and numpy, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 """
+import json
+import pathlib
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.afpm import AFPMConfig
+from repro_torch.core.registry import afpm_config
+from repro_torch.kernels import afpm_bitwise as k2
 from repro_torch.kernels import afpm_matmul as k1
+from repro_torch.kernels import dispatch
+
+GOLDEN = pathlib.Path(__file__).resolve().parent / "golden" / "afpm_golden.json"
 
 # ulps of the largest output magnitude (as in tests/test_backend_fuzz.py):
 # the kernel and the plain version sum over K in different orders
@@ -54,3 +63,80 @@ def test_afpm_matmul_kernel_rejects_what_it_does_not_take():
         k1.afpm_matmul(x, w.t())
     with pytest.raises(ValueError, match="one CUDA device"):
         k1.afpm_matmul(x, w.cpu())
+
+
+def _is_nan(bits):
+    return (((bits >> 23) & 0xFF) == 255) & ((bits & 0x7FFFFF) != 0)
+
+
+def _assert_same_bits(got, want, what):
+    """Bit for bit; NaNs by NaN-ness only."""
+    g = got.cpu().numpy().view(np.uint32)
+    w = want.cpu().numpy().view(np.uint32) if torch.is_tensor(want) else want
+    ok = (g == w) | (_is_nan(g) & _is_nan(w))
+    assert ok.all(), (what, int((~ok).sum()))
+
+
+def _inputs(rng, shape):
+    """fp32 over the whole exponent range, with zeros, subnormals, infs,
+    NaNs and the extreme normals mixed in."""
+    n = int(np.prod(shape))
+    with np.errstate(over="ignore"):
+        v = (rng.standard_normal(n) * 10.0 ** rng.integers(-40, 39, n)).astype(np.float32)
+    f32 = np.finfo(np.float32)
+    specials = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-40, -1e-40,
+                         f32.tiny, -f32.tiny, f32.max, -f32.max], np.float32)
+    idx = rng.integers(0, n, n // 8)
+    v[idx] = rng.choice(specials, idx.size)
+    return torch.from_numpy(v.reshape(shape)).cuda()
+
+
+@pytest.mark.cuda
+def test_afpm_bitwise_kernel_golden_vectors():
+    _need_card()
+    for case in json.loads(GOLDEN.read_text())["cases"]:
+        cfg = AFPMConfig(n=case["n"], mode=case["mode"], fmt=case["fmt"])
+        x = torch.from_numpy(np.asarray(case["x_bits"], np.uint32).view(np.float32)).cuda()
+        y = torch.from_numpy(np.asarray(case["y_bits"], np.uint32).view(np.float32)).cuda()
+        got = k2.afpm_bitwise(x, y, cfg)
+        torch.cuda.synchronize()
+        _assert_same_bits(got, np.asarray(case["out_bits"], np.uint32), case["label"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["AC3-3", "AC5-5", "AC7-7", "ACL4", "ACL8",
+                                  "AC-fp16", "AC-afp24", "AC-bf16"])
+def test_afpm_bitwise_kernel_matches_plain(name, rng):
+    _need_card()
+    cfg = afpm_config(name)
+    for shape in [(512, 512), (3, 1001, 7)]:
+        x, y = _inputs(rng, shape), _inputs(rng, shape)
+        before = k2.afpm_bitwise.launches
+        got = k2.afpm_bitwise(x, y, cfg)
+        torch.cuda.synchronize()
+        assert k2.afpm_bitwise.launches == before + 1
+        _assert_same_bits(got, k2.afpm_bitwise_plain(x, y, cfg), (name, shape))
+    for kw in [dict(n=5, conditional=False), dict(n=5, skip_bd=False),
+               dict(n=5, compensation=False), dict(n=11), dict(n=23, mode="acl")]:
+        x, y = _inputs(rng, (4097,)), _inputs(rng, (4097,))
+        _assert_same_bits(k2.afpm_bitwise(x, y, AFPMConfig(**kw)),
+                          k2.afpm_bitwise_plain(x, y, AFPMConfig(**kw)), kw)
+
+
+@pytest.mark.cuda
+def test_afpm_bitwise_kernel_rejects_what_it_does_not_take():
+    _need_card()
+    x = torch.ones(4, 8, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.afpm_bitwise(x[:, ::2], x[:, ::2])
+    with pytest.raises(ValueError, match="shape mismatch"):
+        k2.afpm_bitwise(x, x[0])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        k2.afpm_bitwise(x, x.cpu())
+    with pytest.raises(ValueError, match="hopper"):
+        dispatch.multiply(x.cpu(), x.cpu(), backend="hopper")
+    # the dispatcher broadcasts first, a 0-d scalar included, and launches
+    before = k2.afpm_bitwise.launches
+    got = dispatch.multiply(x, torch.tensor(3.0), backend="hopper")
+    assert k2.afpm_bitwise.launches == before + 1
+    _assert_same_bits(got, k2.afpm_bitwise_plain(x, torch.full_like(x, 3.0)), "0-d")

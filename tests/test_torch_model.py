@@ -120,9 +120,13 @@ def test_nmatmul_ambient_resolution(rng):
 
     with numerics_scope(Policy()):
         assert torch.equal(nmatmul(x, w), x @ w)
+    # emulated mode runs the bit-level multiplier (AC5-5 by default) on
+    # every product; tests/test_torch_afpm_bitwise.py holds it against JAX
+    from repro_torch.core.afpm import AFPMConfig, afpm_matmul_emulated
+
     with numerics_scope(NumericsConfig(mode="emulated")):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            nmatmul(x, w)
+        assert torch.equal(nmatmul(x, w),
+                           afpm_matmul_emulated(x, w, AFPMConfig(n=5)))
 
 
 def test_session_rejects_policies_of_later_slices(tmp_path):
