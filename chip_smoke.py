@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Five phases, each printing one line (phase 5 a table); any failed check
+Seven phases, each printing one line (phase 5 a table); any failed check
 ends the run with a nonzero exit and no result line:
 
 1. device: the card, its power limit, torch and the kernels' build time
@@ -32,7 +32,24 @@ ends the run with a nonzero exit and no result line:
    (``benchmarks/BENCH_cpu_ci.json``) to 1e-9 dB; at 512 x 512 with 3
    pairs (the size of the paper's test images) the kernel route and the
    plain route give bit-identical images for all 12 designs, and the
-   kernel route launches the kernel exactly 192 times.
+   kernel route launches the kernel exactly 192 times;
+6. ssd: the SSD chunked-scan kernel against its plain PyTorch version on
+   the card, within 64 ulps of the largest output: the full-width
+   mamba2-130m shapes (batch 1 and 4; L = 40, 77 and 150, padded to 256,
+   as the serve phase's prompts give them, and 2048;
+   H 24, P 64, N 128, chunk 128) and the reduced config's ragged shape
+   (N 16, P 8, Q 16, L 50), batch 4 equal to batch 1 row by row bit for
+   bit; timed at the serve path's prefill shapes and at L = 2048 beside
+   the plain version and the card's bound (no PyTorch call computes the
+   scan, so there is no library time);
+7. mamba2: full-width mamba2-130m (24 SSD layers, seeded random weights)
+   served by the engine under the premium/standard/bulk tiers with
+   whole-prompt prefill; every request completes, the scan kernel ran 24
+   times per prefill and the segmented matmul 48 times per segmented
+   forward, a standard-tier request's tokens equal a solo
+   ``Session.generate``, and the prefill logits of a full-width prompt of
+   each served length through the kernels agree with the plain route's on
+   the card.
 
 Then one JSON line on the kernels, the card's name and power limit, and
 the result line.  Per-shape kernel timings go to
@@ -58,6 +75,13 @@ D, FF, KVD = 2560, 9728, 1024
 LAYER_PROJ = [(D, 4096), (D, KVD), (D, KVD), (4096, D), (D, FF), (D, FF),
               (FF, D)]
 SHAPES = sorted(set(LAYER_PROJ))
+# logits of the kernel route against the plain route, in units of the
+# largest |logit| (phase 7): the scan kernel agrees with its plain version
+# within a few fp32 ulps, but the model's activations are bf16, so such a
+# difference can flip a bf16 rounding (2**-8 of an element) in any of 24
+# layers, and the flips add up through the residual stream
+LOGIT_BOUND = 2.0 ** -6
+SERVE_LENGTHS = (40, 77, 150)
 GOLDEN = ROOT / "tests" / "golden" / "afpm_golden.json"
 BENCH_CPU = ROOT / "benchmarks" / "BENCH_cpu_ci.json"
 # the timed AFPM designs and the template arguments (ACL, FULL, COND, COMP,
@@ -74,23 +98,26 @@ def smi(query: str) -> str:
 
 
 def card_peaks(name: str):
-    """(bytes/s, dense bf16 FLOP/s) from NVIDIA's data sheets."""
+    """(bytes/s, dense bf16 FLOP/s, fp32 FLOP/s outside the tensor cores)
+    from NVIDIA's data sheets."""
     if "H200" in name:
-        return 4.8e12, 989e12
+        return 4.8e12, 989e12, 67e12
     if "H100" in name and "PCIe" in name:
-        return 2.0e12, 756e12
+        return 2.0e12, 756e12, 51e12
     if "H100" in name and "NVL" in name:
-        return 3.9e12, 835e12
+        return 3.9e12, 835e12, 60e12
     if "H100" in name:
-        return 3.35e12, 989e12
+        return 3.35e12, 989e12, 67e12
     raise RuntimeError(f"no published peaks known for {name!r}")
 
 
-def timed_ms(fn, iters: int, flush, device_only: bool = False) -> float:
+def timed_ms(fn, iters: int, flush, device_only: bool = False,
+             spin_cycles: int = 1_000_000) -> float:
     """Mean device ms of ``fn`` over ``iters`` launches, each one timed by
     CUDA events after an L2 flush (the serving path reads every weight
     once a forward, cold); one warmup call first.  With ``device_only``
-    the card first spins for about half a millisecond, so the host has
+    the card first spins for ``spin_cycles`` clocks (half a millisecond by
+    default; more for a function of many launches), so the host has
     enqueued ``fn``'s launches before the start event runs: the time then
     leaves out the host's call overhead (most of a small kernel's call)."""
     import torch
@@ -100,7 +127,7 @@ def timed_ms(fn, iters: int, flush, device_only: bool = False) -> float:
     for _ in range(iters):
         flush.zero_()
         if device_only:
-            torch.cuda._sleep(1_000_000)
+            torch.cuda._sleep(spin_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -183,7 +210,7 @@ def phase_kernel(peaks):
 
     # timing at the main path's shapes: bf16 activations (the full-width
     # model's dtype), decode M = 4 slots and prefill-chunk M = 32
-    bw, flops = peaks
+    bw, flops, _ = peaks
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
     rows = []
     for K, N in SHAPES:
@@ -389,7 +416,7 @@ def phase_bitwise(peaks):
     # rate: 4 schedulers an SM, one warp instruction each a clock).  The
     # INT32 rate (64 lanes an SM) is reported beside it: it is no bound,
     # since IMAD and its moves and shifts run on the FMA pipe.
-    bw, _ = peaks
+    bw = peaks[0]
     props = torch.cuda.get_device_properties(0)
     clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
     instr_rate = props.multi_processor_count * 128 * clock_hz
@@ -496,6 +523,207 @@ def phase_table3():
     return launches
 
 
+def ssd_inputs(gen, b, L, H, P, N):
+    """Seeded fp32 SSD operands on the card, dt in [0.01, 0.21)."""
+    import torch
+
+    r = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    dt = torch.rand((b, L, H), generator=gen, device="cuda") * 0.2 + 0.01
+    A = -(torch.rand((H,), generator=gen, device="cuda") * 1.5 + 0.5)
+    return r(b, L, H, P), dt, A, r(b, L, N), r(b, L, N)
+
+
+def phase_ssd(peaks):
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import ssd_scan as k3
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    H, P, N, chunk = 24, 64, 128, 128
+    # every prefill length the serve phase gives the kernel, and 2048
+    cases = [(b, L, H, P, N, chunk) for b in (1, 4)
+             for L in (*SERVE_LENGTHS, 2048)]
+    cases.append((1, 50, 16, 8, 16, 16))   # reduced config, ragged
+    worst_ulp, worst_abs = 0.0, 0.0
+    for b, L, h, p, n, q in cases:
+        x, dt, A, B, C = ssd_inputs(gen, b, L, h, p, n)
+        got = dispatch.ssd(x, dt, A, B, C, chunk=q, backend="hopper")
+        want = dispatch.ssd(x, dt, A, B, C, chunk=q, backend="torch")
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"ssd_scan {(b, L, h, p, n, q)}: bad output")
+        err = (got - want).abs().max().item()
+        ulp = err / float(np.spacing(np.float32(want.abs().max().item())))
+        if ulp > ULP_BOUND:
+            raise AssertionError(f"ssd_scan {(b, L, h, p, n, q)}: {ulp:.1f} "
+                                 f"ulps of the largest output > {ULP_BOUND}")
+        worst_ulp, worst_abs = max(worst_ulp, ulp), max(worst_abs, err)
+        if b > 1:   # an element depends only on its (batch row, head)
+            for i in range(b):
+                one = dispatch.ssd(x[i], dt[i], A, B[i], C[i], chunk=q,
+                                   backend="hopper")
+                if not torch.equal(one, got[i]):
+                    raise AssertionError(f"ssd_scan {(b, L)}: row {i} at "
+                                         f"batch 1 != at batch {b}")
+
+    # timing: the kernel as the serve path calls it (one layer's scan of a
+    # batch-1 prefill, L padded to a multiple of Q = min(128, L)) and at
+    # L = 2048.  kernel_ms times the wrapper behind a device spin, so it
+    # holds the kernel and its chunk_decay prologue on the card, not the
+    # host's call; the plain version (some 20 launches a chunk) behind a
+    # spin of about 20 ms, long enough for the host to enqueue all of its
+    # launches.  The bound is for the kernel's own input (padded L):
+    # the causal FMAs (k3.fmas) at the fp32 rate, or x, y, dt, B and C
+    # moved once.
+    bw, _, fp32 = peaks
+    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+    rows = []
+    for b, L in [(1, n) for n in SERVE_LENGTHS] + [(1, 2048), (4, 2048)]:
+        Q = min(chunk, L)
+        Lp = -(-L // Q) * Q
+        x, dt, A, B, C = ssd_inputs(gen, b, Lp, H, P, N)
+        ops_ms = 2 * k3.fmas(b, Lp, H, P, N, Q) / fp32 * 1e3
+        bytes_ms = 4 * (2 * b * Lp * H * P + b * Lp * H + H
+                        + 2 * b * Lp * N) / bw * 1e3
+        rows.append(dict(
+            batch=b, L=L, L_padded=Lp, Q=Q,
+            kernel_ms=timed_ms(lambda: k3.ssd_scan(x, dt, A, B, C, Q), 20,
+                               flush, True),
+            plain_ms=timed_ms(lambda: k3.ssd_scan_plain(x, dt, A, B, C, Q),
+                              5, flush, True, spin_cycles=40_000_000),
+            ops_ms=ops_ms, bytes_ms=bytes_ms, bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes"))
+    (ROOT / "chiprun_out" / "chip_smoke_ssd.json").write_text(json.dumps(
+        {"card": smi("name,power.limit"), "rows": rows}, indent=1))
+    print(f"[ssd] ssd_scan: {len(cases)} cases within {ULP_BOUND} ulps of the "
+          f"largest output (worst {worst_ulp:.2f} ulps, {worst_abs:.3g} abs), "
+          f"batch 4 == batch 1 row by row; " + "; ".join(
+              f"b{r['batch']} L {r['L']} (padded {r['L_padded']}, Q {r['Q']}) "
+              f"kernel {r['kernel_ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})" for r in rows))
+    row = next(r for r in rows if r["L"] == SERVE_LENGTHS[2] and r["batch"] == 1)
+    return dict(row, max_abs_err=worst_abs, max_ulp_err=worst_ulp)
+
+
+def phase_mamba2():
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.kernels import ssd_scan as k3
+    from repro_torch.models import transformer
+    from repro_torch.serving import DEFAULT_TIERS
+    from repro_torch.session import Session
+
+    cfg = get_arch("mamba2-130m")
+    assert (cfg.n_layers, cfg.d_model, cfg.vocab) == (24, 768, 50280)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sess = Session(cfg, seed=0)
+    sess.params  # seeded random init on the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = sess.serving_engine(slots=4, max_len=256)
+    if any(lane.runner.chunked for lane in eng._lanes.values()):
+        raise AssertionError("mamba2 lanes should prefill whole prompts")
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i in range(6):
+        tier = DEFAULT_TIERS[i % 3].name
+        plen = SERVE_LENGTHS[(i + i // 3) % 3]
+        reqs.append(eng.submit(rng.integers(0, cfg.vocab, plen), tier=tier,
+                               max_new_tokens=16))
+
+    k1.afpm_matmul.launches = 0
+    k3.ssd_scan.launches = 0
+    t0 = time.perf_counter()
+    stats = eng.run()
+    serve_s = time.perf_counter() - t0
+    launches, k1_launches = k3.ssd_scan.launches, k1.afpm_matmul.launches
+
+    bad = [r.id for r in reqs if not r.done or len(r.result()) != 16]
+    if bad:
+        raise AssertionError(f"requests did not finish with 16 tokens: {bad}")
+    prefills = sum(st.n_prefill_chunks for st in stats.values())
+    if prefills != len(reqs) or launches != cfg.n_layers * prefills:
+        raise AssertionError(f"ssd_scan launched {launches} times, expected "
+                             f"{cfg.n_layers} x {prefills} prefills")
+    segmented = [t.name for t in DEFAULT_TIERS if t.policy != "exact"]
+    forwards = sum(stats[n].n_prefill_chunks + stats[n].n_decode_steps
+                   for n in segmented)
+    if k1_launches != 2 * cfg.n_layers * forwards:
+        raise AssertionError(f"afpm_matmul launched {k1_launches} times, "
+                             f"expected 48 x {forwards} segmented forwards")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    std = [r for r in reqs if r.tier == "standard"]
+    solo_sess = sess.replace(policy="segmented3")
+    for r in std:
+        solo = solo_sess.generate(prompts=r.prompt[None], gen_len=16)
+        if not np.array_equal(solo.tokens[0], r.result()):
+            raise AssertionError(
+                f"standard request {r.id}: engine {r.result().tolist()} != "
+                f"solo generate {solo.tokens[0].tolist()}")
+
+    # the kernel route against the plain route on the card, one full-width
+    # prompt of each served length, under exact (only the scan differs) and
+    # standard
+    prompts = {len(r.prompt): r.prompt for r in reqs}
+    logit_err = {"exact": 0.0, "segmented3": 0.0}
+    with torch.inference_mode():
+        for plen in SERVE_LENGTHS:
+            prompt = torch.as_tensor(prompts[plen][None], device="cuda")
+            for policy in logit_err:
+                out = {}
+                for backend in ("auto", "torch"):
+                    s = sess.replace(policy=policy, backend=backend)
+                    before = k3.ssd_scan.launches
+                    out[backend], _ = transformer.prefill(
+                        s.params, s.config, {"tokens": prompt})
+                    ran = k3.ssd_scan.launches - before
+                    if ran != (cfg.n_layers if backend == "auto" else 0):
+                        raise AssertionError(
+                            f"{policy}/{backend}: ssd_scan ran {ran} times "
+                            f"in one prefill")
+                want = out["torch"]
+                if out["auto"].shape != (1, 1, cfg.vocab) \
+                        or not torch.isfinite(out["auto"]).all():
+                    raise AssertionError(f"prefill logits bad: "
+                                         f"{tuple(out['auto'].shape)}")
+                rel = ((out["auto"] - want).abs().max()
+                       / want.abs().max()).item()
+                if rel > LOGIT_BOUND:
+                    raise AssertionError(
+                        f"{policy}, {plen} tokens: kernel-route logits "
+                        f"differ from the plain route by {rel:.3g} of the "
+                        f"largest > {LOGIT_BOUND}")
+                logit_err[policy] = max(logit_err[policy], rel)
+
+    parts = []
+    for t in DEFAULT_TIERS:
+        st = stats[t.name]
+        dec_tokens = st.n_tokens - st.n_finished
+        parts.append(f"{t.name}({t.policy}) decode "
+                     f"{dec_tokens / st.decode_s:.1f} tok/s "
+                     f"{1e3 * st.decode_s / st.n_decode_steps:.2f} ms/step "
+                     f"prefill {1e3 * st.prefill_s / st.n_prefill_chunks:.2f} "
+                     f"ms/request")
+    print(f"[mamba2] mamba2-130m full width ({cfg.param_count() / 1e6:.1f} M "
+          f"params, init {init_s:.1f} s): 6 requests x 16 tokens in "
+          f"{serve_s:.2f} s; {'; '.join(parts)}; ssd_scan launches {launches}"
+          f" = {cfg.n_layers} x {prefills} prefills; afpm_matmul launches "
+          f"{k1_launches} = 48 x {forwards} segmented forwards; standard "
+          f"tokens == solo generate; kernel vs plain route prefill logits "
+          f"(prompts of {'/'.join(map(str, SERVE_LENGTHS))} tokens) at most "
+          f"{logit_err['exact']:.3g} (exact) and {logit_err['segmented3']:.3g}"
+          f" (standard) of the largest (bound {LOGIT_BOUND:.3g}); peak memory "
+          f"{peak_gb:.2f} GB")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -511,6 +739,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     b = phase_bitwise(peaks)
     b_launches = phase_table3()
+    torch.cuda.empty_cache()
+    c = phase_ssd(peaks)
+    c_launches = phase_mamba2()
     print(json.dumps({"kernels": [{
         "name": "afpm_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/afpm_matmul.cu",
@@ -530,7 +761,16 @@ def main() -> int:
         "plain_ms": b["plain_ms"], "library_ms": None,
         "torch_mul_ms": b["torch_mul_ms"],
         "ops_per_element": b["ops_per_element"],
-        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}]}))
+        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:77",
+        "launches": c_launches,
+        "max_abs_err": c["max_abs_err"], "max_ulp_err": c["max_ulp_err"],
+        "batch": c["batch"], "L": c["L"], "L_padded": c["L_padded"],
+        "ms": c["kernel_ms"], "kernel_ms": c["kernel_ms"],
+        "plain_ms": c["plain_ms"], "library_ms": None,
+        "bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}]}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,8 +1,8 @@
-"""Architecture configs of the port (``qwen3-4b`` in this slice).
+"""Architecture configs of the port (``qwen3-4b`` and ``mamba2-130m``).
 
 Use ``repro_torch.configs.get_arch(arch_id)`` / ``list_archs()``.
 """
-from . import base, qwen3_4b
+from . import base, mamba2_130m, qwen3_4b
 from .base import ArchConfig, LayerSpec, get_arch, list_archs
 
 __all__ = ["ArchConfig", "LayerSpec", "base", "get_arch", "list_archs"]

@@ -101,11 +101,29 @@ class ArchConfig:
         return self.dense_d_ff or self.d_ff
 
     def param_count(self) -> int:
-        """Parameter count of a dense decoder (embeddings + blocks)."""
+        """Parameter count: embeddings plus blocks (dense GQA and SSD
+        blocks; the families the port serves)."""
         d, hd = self.d_model, self.resolved_head_dim
         total = self.vocab * d * (1 if self.tie_embeddings else 2)
-        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
-        return total + self.n_layers * (attn + 3 * d * self.dense_ff)
+        for repeats, pattern in self.segments:
+            seg = 0
+            for spec in pattern:
+                if spec.kind == "ssm":
+                    s = self.ssm
+                    din = s.expansion * d
+                    nheads = din // s.head_dim
+                    seg += d * (2 * din + 2 * s.state_size + nheads) + din * d
+                    seg += s.conv_width * din + 2 * nheads
+                elif spec.kind == "dense":
+                    if spec.attn != "none":
+                        seg += (d * hd * (self.n_heads + 2 * self.n_kv_heads)
+                                + self.n_heads * hd * d)
+                    seg += 3 * d * self.dense_ff
+                else:
+                    raise ValueError(f"param_count: layer kind {spec.kind!r} "
+                                     f"arrives in a later slice of the port")
+            total += seg * (1 if all(s.shared for s in pattern) else repeats)
+        return total
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests."""

@@ -91,13 +91,7 @@ def nmatmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     resolved per call site with ``amb.lookup(path)`` against the full path
     of the active ``layer_scope`` stack.
     """
-    amb = _scope.current_numerics()
-    if amb is None:
-        cfg = EXACT
-    elif isinstance(amb, NumericsConfig):
-        cfg = amb
-    else:
-        cfg = amb.lookup(_scope.current_path())
+    cfg = _scope.resolve_here()
     if cfg.mode == "exact":
         cdt = torch_dtype(cfg.compute_dtype)
         adt = torch_dtype(cfg.accum_dtype)

@@ -19,6 +19,7 @@ __all__ = [
     "current_path",
     "layer_scope",
     "numerics_scope",
+    "resolve_here",
 ]
 
 
@@ -63,3 +64,19 @@ def current_path(leaf: str = "") -> str:
     if leaf:
         parts.append(leaf)
     return ".".join(parts)
+
+
+def resolve_here(leaf: str = ""):
+    """The concrete :class:`~repro_torch.core.numerics.NumericsConfig` at
+    the current scope (+ optional ``leaf``): the ambient config itself, or
+    ``amb.lookup(path)`` for a duck-typed policy; EXACT outside any
+    scope."""
+    # deferred: numerics imports scope
+    from .numerics import EXACT, NumericsConfig
+
+    amb = current_numerics()
+    if amb is None:
+        return EXACT
+    if isinstance(amb, NumericsConfig):
+        return amb
+    return amb.lookup(current_path(leaf))

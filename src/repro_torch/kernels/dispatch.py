@@ -1,13 +1,15 @@
 """Backend dispatch for the kernel substrate.
 
 One audited entry point per kernel (``matmul`` for the segmented matmul,
-``multiply`` for the bit-level AFPM multiply), each with a ``backend`` knob
+``multiply`` for the bit-level AFPM multiply, ``ssd`` for the SSD chunked
+scan), each with a ``backend`` knob
 (``repro_torch.core.numerics.NumericsConfig.backend``):
 
   ``auto``    the Hopper kernel for CUDA tensors, the plain version for CPU
   ``hopper``  the Hopper kernel; a CPU tensor raises
   ``torch``   the plain PyTorch version (``ref.afpm_matmul_ref``,
-              ``ref.afpm_bitwise_ref``), on either device
+              ``ref.afpm_bitwise_ref``, ``ref.ssd_scan_chunked_ref``), on
+              either device
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from repro_torch.core.numerics import BACKENDS
 from . import ref
 from .afpm_bitwise import afpm_bitwise
 from .afpm_matmul import afpm_matmul
+from .ssd_scan import ssd_scan
 
 
 def resolve_backend(backend: str, x: torch.Tensor) -> str:
@@ -42,6 +45,25 @@ def shape_bucket(*dims: int) -> str:
     if m <= 1024:
         return "medium"
     return "large"
+
+
+# Static SSD chunk table, the JAX package's: ``hopper`` takes its ``pallas``
+# rows and ``torch`` its ``xla`` rows.  A tuned table waits for the
+# autotuner.
+SCAN_CHUNKS = {
+    ("hopper", "small"): 128,
+    ("hopper", "medium"): 128,
+    ("hopper", "large"): 256,
+    ("torch", "small"): 128,
+    ("torch", "medium"): 128,
+    ("torch", "large"): 256,
+}
+
+
+def scan_chunk(backend: str, L: int) -> int:
+    """The SSD chunk for a resolved backend (``hopper | torch``) and
+    sequence length ``L``."""
+    return SCAN_CHUNKS[(backend, shape_bucket(L))]
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, passes: int = 3, *,
@@ -90,3 +112,37 @@ def multiply(x, y, cfg: AFPMConfig = AFPMConfig(), *,
     if backend == "torch":
         return ref.afpm_bitwise_ref(x, y, cfg)
     return afpm_bitwise(x.contiguous(), y.contiguous(), cfg)
+
+
+def ssd(x, dt, A, B, C, *, chunk=None, backend: str = "auto") -> torch.Tensor:
+    """Mamba2 SSD chunked scan ``(L,H,P),(L,H),(H,),(L,N),(L,N) -> (L,H,P)``
+    fp32, with an optional leading batch dimension on ``x``, ``dt``, ``B``
+    and ``C``.
+
+    ``chunk=None`` takes :func:`scan_chunk` for the resolved backend.  Any
+    length is accepted: with ``Q = min(chunk, L)``, a length that is not a
+    multiple of ``Q`` is padded with dt = 0 steps (exact: no decay
+    increment and no input weight), and the padding is sliced off after.
+    """
+    backend = resolve_backend(backend, x)
+    f = torch.float32
+    x, dt, A, B, C = (t.to(f) for t in (x, dt, A, B, C))
+    vec = x.dim() == 3
+    if vec:
+        x, dt, B, C = x[None], dt[None], B[None], C[None]
+    L = x.shape[1]
+    if chunk is None:
+        chunk = scan_chunk(backend, L)
+    Q = min(chunk, L) if L else chunk
+    pad = (-L) % Q
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt, B, C = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                    for t in (dt, B, C))
+    if backend == "torch":
+        out = ref.ssd_scan_chunked_ref(x, dt, A, B, C, Q)
+    else:
+        out = ssd_scan(x, dt, A, B, C, Q)
+    if pad:
+        out = out[:, :L]
+    return out[0] if vec else out

@@ -18,3 +18,10 @@ def afpm_multiply(x, y, cfg: AFPMConfig = AFPMConfig(), *,
                   backend: str = "auto"):
     """Elementwise bit-level AFPM multiply (broadcasting)."""
     return dispatch.multiply(x, y, cfg, backend=backend)
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk=None, backend: str = "auto"):
+    """Chunked Mamba2 SSD scan: (L,H,P),(L,H),(H,),(L,N),(L,N) -> (L,H,P),
+    with an optional leading batch dimension; any length (dt = 0 padding).
+    ``chunk=None`` takes the substrate's chunk for the resolved backend."""
+    return dispatch.ssd(x, dt, A, B, C, chunk=chunk, backend=backend)

@@ -10,6 +10,11 @@ the port's entry points set it).
 
 ``afpm_bitwise_ref`` is the bit-level AFPM datapath itself
 (:func:`repro_torch.core.afpm.afpm_mult_f32`), integer throughout.
+
+The SSD scan has two plain versions: ``ssd_scan_ref``, the sequential
+recurrence (the oracle), and ``ssd_scan_chunked_ref``, the chunked
+algorithm the kernel runs, with the same per-chunk dots.  Both take an
+optional leading batch dimension (the reference ``vmap``s over it).
 """
 from __future__ import annotations
 
@@ -49,3 +54,89 @@ def afpm_bitwise_ref(x: torch.Tensor, y: torch.Tensor,
                      cfg: AFPMConfig) -> torch.Tensor:
     """Elementwise bit-level AFPM multiply: the core datapath itself."""
     return afpm_mult_f32(x, y, cfg)
+
+
+def chunk_decay(dt: torch.Tensor, A: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Per-chunk log cumulative decay ``l[t] = A_h * cumsum(dt)[t]``, the
+    cumsum restarting at every chunk boundary.
+
+    Computed once, outside the kernel and outside the chunked version, so
+    both consume the same bits (the reference hoists it for the same
+    reason: inside a fused body ``A * cumsum(dt)`` may be contracted
+    differently in each lowering).
+
+    dt: (..., L, H), A: (H,) -> l: (..., L, H); L must be a multiple of
+    ``chunk``."""
+    *lead, L, H = dt.shape
+    if L % chunk:
+        raise ValueError(f"seq len {L} not divisible by chunk {chunk}")
+    dtc = dt.to(torch.float32).reshape(*lead, L // chunk, chunk, H)
+    l = A.to(torch.float32) * torch.cumsum(dtc, dim=-2)
+    return l.reshape(*lead, L, H)
+
+
+def ssd_scan_ref(x, dt, A, B, C) -> torch.Tensor:
+    """Mamba2 SSD scan oracle, a plain sequential recurrence.
+
+    x (..., L, H, P), dt (..., L, H), A (H,), B and C (..., L, N), shared
+    by every head -> y (..., L, H, P) fp32.  Per head h, state S (N, P):
+    ``S_t = exp(A_h dt_t) S_{t-1} + dt_t B_t^T x_t`` and ``y_t = C_t S_t``.
+    """
+    f = torch.float32
+    x, dt, A, B, C = (t.to(f) for t in (x, dt, A, B, C))
+    *lead, L, H, P = x.shape
+    N = B.shape[-1]
+    decay = torch.exp(A * dt)                                  # (..., L, H)
+    S = torch.zeros((*lead, H, N, P), dtype=f, device=x.device)
+    ys = []
+    for t in range(L):
+        inp = B[..., t, None, :, None] * x[..., t, :, None, :]  # (..., H, N, P)
+        S = decay[..., t, :, None, None] * S \
+            + dt[..., t, :, None, None] * inp
+        ys.append(torch.einsum("...n,...hnp->...hp", C[..., t, :], S))
+    return torch.stack(ys, dim=-3)
+
+
+def ssd_scan_chunked_ref(x, dt, A, B, C, chunk: int = 128) -> torch.Tensor:
+    """Chunked SSD: the kernel's algorithm with the reference's per-chunk
+    dots, each a (batched) fp32 matmul.
+
+    Same shapes as :func:`ssd_scan_ref`; ``L`` must be a multiple of
+    ``Q = min(chunk, L)``.  Per chunk and head, with ``l = chunk_decay``:
+    ``M = where(t >= s, (C B^T) * exp(min(l_t - l_s, 0)) * dt_s, 0)``,
+    ``y = M @ x + (C * exp(l)) @ S`` and
+    ``S = exp(l_Q) S + (B * dt exp(l_Q - l))^T @ x``.
+    """
+    f = torch.float32
+    x, dt, B, C = (t.to(f) for t in (x, dt, B, C))
+    *lead, L, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(chunk, L)
+    if L % Q:
+        raise ValueError(f"seq len {L} not divisible by chunk {Q}")
+    l = chunk_decay(dt, A, Q)
+    # head-major per chunk: (..., H, Q, .)
+    xh = x.movedim(-2, -3)                      # (..., H, L, P)
+    dth = dt.movedim(-1, -2)                    # (..., H, L)
+    lh = l.movedim(-1, -2)                      # (..., H, L)
+    causal = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    S = torch.zeros((*lead, H, N, P), dtype=f, device=x.device)
+    ys = []
+    for c0 in range(0, L, Q):
+        xq = xh[..., c0:c0 + Q, :]              # (..., H, Q, P)
+        dq = dth[..., c0:c0 + Q]                # (..., H, Q)
+        lq = lh[..., c0:c0 + Q]                 # (..., H, Q)
+        Bq = B[..., None, c0:c0 + Q, :]         # (..., 1, Q, N)
+        Cq = C[..., None, c0:c0 + Q, :]
+        CB = Cq @ Bq.transpose(-1, -2)          # (..., 1, Q, Q)
+        # clamp: only t >= s is used, where l_t - l_s <= 0; the clamp keeps
+        # the masked upper triangle finite
+        ratio = torch.exp(torch.clamp(lq[..., :, None] - lq[..., None, :],
+                                      max=0.0))
+        M = torch.where(causal, CB * ratio * dq[..., None, :], 0.0)
+        y = M @ xq + (Cq * torch.exp(lq)[..., None]) @ S
+        w = dq * torch.exp(lq[..., -1:] - lq)
+        S = torch.exp(lq[..., -1])[..., None, None] * S \
+            + (Bq * w[..., None]).transpose(-1, -2) @ xq
+        ys.append(y)
+    return torch.cat(ys, dim=-2).movedim(-3, -2)  # (..., L, H, P)

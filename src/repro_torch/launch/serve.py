@@ -7,6 +7,7 @@ accuracy tier of :class:`repro_torch.serving.Engine` with ``batch`` KV
 slots and returns the greedy continuations.
 
     python -m repro_torch.launch.serve --numerics segmented3 --batch 2
+    python -m repro_torch.launch.serve --arch mamba2-130m --batch 2
 
 runs on the GPU; ``--device cpu`` runs the plain PyTorch path.
 """
@@ -51,7 +52,9 @@ def main(argv=None) -> int:
     from repro_torch.serving import ServingError
 
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
-    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--arch", default="qwen3-4b",
+                    help="qwen3-4b or mamba2-130m (reduced, CPU-sized "
+                         "configs)")
     ap.add_argument("--numerics", default="exact",
                     choices=["exact", "segmented3", "segmented2", "segmented1"])
     ap.add_argument("--batch", type=int, default=4)

@@ -1,4 +1,5 @@
-"""Model assembly: the dense LM decoder stack (qwen3-4b in this slice).
+"""Model assembly: the LM decoder stack, dense GQA blocks (qwen3-4b) and
+attention-free SSD blocks (mamba2-130m).
 
 Depth is organized as ``segments``: ``(repeats, pattern)`` pairs whose
 params are stacked on a leading ``repeats`` axis, as in the JAX package
@@ -13,6 +14,8 @@ Public API:
 
 Serving state is updated in place by ``decode_step`` (the returned state
 is the same object), which saves a copy of every layer's cache per step.
+An SSD block's cache is its conv tail and SSM state (no sequence axis);
+prefill computes them in closed form.
 """
 from __future__ import annotations
 
@@ -22,23 +25,24 @@ from repro_torch.core.numerics import NumericsConfig, torch_dtype
 from repro_torch.numerics import layer_scope, nmatmul, numerics_scope
 
 from . import attention as attn
+from . import ssm as ssm_mod
 from .layers import bf16_round, embed_lookup, mlp_apply, normal, rmsnorm, softcap
 
 
-def _check_supported(cfg):
-    """The port's model layer covers dense GQA decoders; the other
-    families arrive in later slices."""
+def check_supported(cfg):
+    """The port's model layer covers dense GQA decoders and attention-free
+    SSD stacks; the other families arrive in later slices."""
     for _, pattern in cfg.segments:
         for spec in pattern:
-            if spec.kind != "dense" or spec.attn not in ("global", "local") \
-                    or spec.shared:
+            dense = spec.kind == "dense" and spec.attn in ("global", "local")
+            ssd = spec.kind == "ssm" and spec.attn == "none"
+            if not (dense or ssd) or spec.shared or (ssd and cfg.ssm is None):
                 raise NotImplementedError(
                     f"{cfg.arch_id}: layer {spec} arrives in a later slice "
-                    f"of the PyTorch port (dense GQA blocks only)")
-    if cfg.encoder_layers or cfg.mrope_sections or cfg.moe or cfg.mla \
-            or cfg.ssm:
+                    f"of the PyTorch port (dense GQA and SSD blocks only)")
+    if cfg.encoder_layers or cfg.mrope_sections or cfg.moe or cfg.mla:
         raise NotImplementedError(
-            f"{cfg.arch_id}: encoder, M-RoPE, MoE, MLA and SSM arrive in a "
+            f"{cfg.arch_id}: encoder, M-RoPE, MoE and MLA arrive in a "
             f"later slice of the PyTorch port")
 
 
@@ -48,16 +52,23 @@ def _check_supported(cfg):
 
 def param_shapes(cfg) -> dict:
     """Flat ``{dotted name: (shape, init)}`` in the JAX package's layout;
-    ``init`` is ``("normal", scale)`` or ``("zeros",)``."""
-    _check_supported(cfg)
+    ``init`` is ``("normal", scale)``, ``("zeros",)`` or
+    ``("log_linspace", lo, hi)`` (the same in every repeat)."""
+    check_supported(cfg)
     d, H, KH, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                     cfg.resolved_head_dim)
     ff = cfg.dense_ff
     out = {"embed": ((cfg.vocab, d), ("normal", 1.0)),
            "final_norm.scale": ((d,), ("zeros",))}
     for si, (repeats, pattern) in enumerate(cfg.segments):
-        for pi, _spec in enumerate(pattern):
+        for pi, spec in enumerate(pattern):
             pre, r = f"seg{si}_p{pi}", repeats
+            if spec.kind == "ssm":
+                blk = {"ln1.scale": ((r, d), ("zeros",))}
+                blk.update({f"ssm.{k}": ((r, *shape), how) for k, (shape, how)
+                            in ssm_mod.ssm_param_shapes(cfg).items()})
+                out.update({f"{pre}.{k}": v for k, v in blk.items()})
+                continue
             blk = {
                 "ln1.scale": ((r, d), ("zeros",)),
                 "ln2.scale": ((r, d), ("zeros",)),
@@ -101,6 +112,10 @@ def init(cfg, seed: int = 0, device=None) -> dict:
     for name, (shape, how) in param_shapes(cfg).items():
         if how[0] == "zeros":
             flat[name] = torch.zeros(shape, dtype=torch.float32, device=device)
+        elif how[0] == "log_linspace":
+            row = torch.log(torch.linspace(how[1], how[2], shape[-1],
+                                           dtype=torch.float32, device=device))
+            flat[name] = row.expand(shape).contiguous()
         else:
             flat[name] = normal(gen, shape, how[1], device)
     return unflatten(flat)
@@ -110,19 +125,30 @@ def init(cfg, seed: int = 0, device=None) -> dict:
 # serving state
 # ---------------------------------------------------------------------------
 
+def block_cache(cfg, spec, repeats: int, batch: int, max_len: int, dtype,
+                device) -> dict:
+    """Zero cache of one block pattern entry, stacked over ``repeats``."""
+    if spec.kind == "ssm":
+        one = ssm_mod.ssm_cache_init(cfg, batch, dtype, device="meta")
+        return {k: torch.zeros((repeats, *v.shape), dtype=v.dtype,
+                               device=device) for k, v in one.items()}
+    shape = (repeats, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def init_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> dict:
     """Serving state: per-block caches stacked over repeats,
-    ``{"layers": [{pi: {"k", "v": (repeats, batch, max_len, KH, hd)}}]}``."""
-    _check_supported(cfg)
-    hd = cfg.resolved_head_dim
-    layers = []
-    for repeats, pattern in cfg.segments:
-        shape = (repeats, batch, max_len, cfg.n_kv_heads, hd)
-        layers.append({pi: {"k": torch.zeros(shape, dtype=dtype, device=device),
-                            "v": torch.zeros(shape, dtype=dtype, device=device)}
-                       for pi in range(len(pattern))})
-    return {"layers": layers}
+    ``{"layers": [{pi: cache}]}``; an attention block's cache is
+    ``{"k", "v": (repeats, batch, max_len, KH, hd)}`` in ``dtype``, an SSD
+    block's ``{"conv": (repeats, batch, W-1, d_inner)}`` in ``dtype`` and
+    ``{"state": (repeats, batch, H, N, P)}`` in fp32."""
+    check_supported(cfg)
+    return {"layers": [
+        {pi: block_cache(cfg, spec, repeats, batch, max_len, dtype, device)
+         for pi, spec in enumerate(pattern)}
+        for repeats, pattern in cfg.segments]}
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +157,12 @@ def init_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 
 def _block_apply(params, x, cfg, spec, positions, cache=None, q_offset=0):
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    if spec.kind == "ssm":
+        with layer_scope("ssm"):
+            h, new_cache = ssm_mod.ssm_apply(params["ssm"], h, cfg,
+                                             cache=cache,
+                                             want_state=cache is None)
+        return x + h, new_cache
     with layer_scope("attn"):
         h, new_cache = attn.gqa_apply(params["attn"], h, cfg, spec, positions,
                                       cache=cache, q_offset=q_offset)
@@ -161,10 +193,11 @@ def _positions_for(B: int, S: int, offset, device) -> torch.Tensor:
 def backbone(params, cfg, batch, caches=None, q_offset=0):
     """Embeds -> decoder stack -> final norm, under ``cfg.numerics``.
 
-    Without ``caches`` (prefill) every block returns its fresh k/v, stacked
-    over repeats; with ``caches`` (decode / chunked prefill) each block
-    updates its cache in place.  Returns ``(hidden, caches)``."""
-    _check_supported(cfg)
+    Without ``caches`` (prefill) every block returns its fresh cache (k/v,
+    or an SSD block's conv tail and final state), stacked over repeats;
+    with ``caches`` (decode / chunked prefill) each block updates its cache
+    in place.  Returns ``(hidden, caches)``."""
+    check_supported(cfg)
     dt = torch_dtype(cfg.dtype)
     with numerics_scope(cfg.numerics):
         tokens = batch["tokens"]
@@ -189,8 +222,7 @@ def backbone(params, cfg, batch, caches=None, q_offset=0):
             layer += repeats * P
             if caches is None:
                 new_caches.append({
-                    pi: {k: torch.stack([c[k] for c in cs])
-                         for k in ("k", "v")}
+                    pi: {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
                     for pi, cs in collected.items()})
             else:
                 new_caches.append(caches[si])
@@ -223,10 +255,13 @@ def prefill(params, cfg, batch, max_len=None):
     hidden, run = backbone(params, cfg, batch)
     state = init_state(cfg, B, max_len, dtype=torch_dtype(cfg.dtype),
                        device=hidden.device)
-    for seg, run_seg in zip(state["layers"], run):
+    for seg, run_seg, (_, pattern) in zip(state["layers"], run, cfg.segments):
         for pi, cache in seg.items():
-            for k in ("k", "v"):
-                cache[k][:, :, :S] = run_seg[pi][k].to(cache[k].dtype)
+            for k, leaf in cache.items():
+                if pattern[pi].kind == "ssm":   # no sequence axis
+                    leaf.copy_(run_seg[pi][k])
+                else:
+                    leaf[:, :, :S] = run_seg[pi][k].to(leaf.dtype)
     return logits_fn(params, cfg, hidden[:, -1:]), state
 
 

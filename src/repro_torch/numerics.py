@@ -10,7 +10,8 @@ from __future__ import annotations
 from repro_torch.core.numerics import (BACKENDS, EXACT, NumericsConfig,
                                        apply_elementwise, nmatmul)
 from repro_torch.core.scope import (current_numerics, current_path,
-                                    layer_scope, numerics_scope)
+                                    layer_scope, numerics_scope,
+                                    resolve_here)
 
 __all__ = [
     "BACKENDS",
@@ -22,4 +23,5 @@ __all__ = [
     "layer_scope",
     "nmatmul",
     "numerics_scope",
+    "resolve_here",
 ]

@@ -11,6 +11,8 @@ engine step:
    both available; admission is head-of-line in scheduler order;
 2. **prefill**: every admitted-but-unprefilled prompt advances ONE
    ``prefill_chunk``-sized chunk (its last chunk lands the first token);
+   a lane whose runner is not ``chunked`` (per-slot recurrent state, as
+   in an SSD stack) prefills the whole prompt at once instead;
 3. **decode**: every lane with active requests runs ONE ``decode_step``
    over its whole pool: gather through the per-row page tables, step,
    scatter the new cache rows back (inactive rows land in the null page);
@@ -54,6 +56,11 @@ class ModelRunner:
     per prefill chunk.  Page tables are int vectors of physical page ids,
     null-filled past the request's allocation; ``tables`` in
     :meth:`decode` stacks one per row, ``(n_slots, max_pages)``.
+
+    ``chunked`` says which prefill the engine calls: True,
+    :meth:`prefill_chunk_step` chunk by chunk; False (a model with
+    per-slot recurrent state, which a chunk cannot re-enter),
+    :meth:`prefill_full` once for the whole prompt.
     """
 
     n_slots: int
@@ -61,6 +68,7 @@ class ModelRunner:
     page_size: int
     n_pages: int
     prefill_chunk: int
+    chunked: bool = True
 
     @property
     def max_pages(self) -> int:
@@ -74,6 +82,12 @@ class ModelRunner:
         """Prefill prompt positions ``[start, end)`` into the pages of
         ``table_row``; returns the first generated token when ``end``
         completes the prompt, else None."""
+        raise NotImplementedError
+
+    def prefill_full(self, slot: int, prompt, table_row):
+        """Prefill the whole prompt at batch 1 into decode row ``slot`` and
+        the pages of ``table_row`` (covering ``pages_for(len(prompt))``
+        full pages); returns the first generated token."""
         raise NotImplementedError
 
     def decode(self, tokens, pos, tables):
@@ -92,10 +106,12 @@ class TransformerRunner(ModelRunner):
     model's ``decode_step`` under the lane's config.
 
     PyTorch runs eagerly, so nothing is compiled per shape (the JAX
-    package's per-chunk-shape jit cache has no counterpart).  Every
-    forward is ``decode_step`` over a dense view gathered through the page
-    tables: a decode step over all rows, or one prefill chunk of one
-    request (chunked prefill).
+    package's per-chunk-shape jit cache has no counterpart).  A decode
+    step is ``decode_step`` over a dense view gathered through the page
+    tables, over all rows.  A prompt is prefilled chunk by chunk the same
+    way when every cache leaf is paged; a per-slot (recurrent) leaf makes
+    the runner not ``chunked``, and a prompt is then prefilled whole
+    (``prefill``, then ``write_state`` into its row).
     """
 
     #: Default tokens per KV page.
@@ -131,6 +147,12 @@ class TransformerRunner(ModelRunner):
         self.pool = kvcache.paged_pool_init(
             cfg, n_slots, self.n_pages, self.page_size,
             dtype=torch_dtype(cfg.dtype), device=self.device)
+        # a chunk re-enters decode_step, which only sequence-axis (paged)
+        # caches support; any per-slot recurrent leaf forces whole-prompt
+        # prefill
+        self.chunked = all(pi in self._layout[si]
+                           for si, seg in enumerate(self.pool["layers"])
+                           for pi in seg)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int64), device=self.device)
@@ -149,6 +171,19 @@ class TransformerRunner(ModelRunner):
         if end == prompt.shape[0]:
             return int(logits[0, -1].argmax())
         return None
+
+    @torch.inference_mode()
+    def prefill_full(self, slot: int, prompt, table_row):
+        prompt = np.asarray(prompt, np.int64)
+        # buffer exactly the pages the prompt occupies: write_state
+        # scatters every buffered position through the table
+        ml = self.pages_for(prompt.shape[0]) * self.page_size
+        logits, state = transformer.prefill(
+            self.params, self.cfg, {"tokens": self._tensor(prompt)[None]},
+            max_len=ml)
+        kvcache.write_state(self.pool, self._layout, state, slot,
+                            self._tensor(table_row), self.page_size)
+        return int(logits[0, -1].argmax())
 
     @torch.inference_mode()
     def decode(self, tokens, pos, tables):
@@ -380,15 +415,24 @@ class Engine:
         return row
 
     def _prefill_one(self, events, lane, req):
-        """Advance one request's prefill by one chunk; lands the first
-        token when the prompt completes."""
+        """Advance one request's prefill by one chunk (or the whole prompt
+        when the runner is not chunked); lands the first token when the
+        prompt completes."""
         runner = lane.runner
         L = req.prompt.shape[0]
-        end = min(req.prefill_pos + runner.prefill_chunk, L)
-        self._grow_pages(lane, req, end)
-        t0 = time.perf_counter()
-        token = runner.prefill_chunk_step(
-            req.prompt, req.prefill_pos, end, self._table_row(runner, req))
+        if runner.chunked:
+            end = min(req.prefill_pos + runner.prefill_chunk, L)
+            self._grow_pages(lane, req, end)
+            t0 = time.perf_counter()
+            token = runner.prefill_chunk_step(
+                req.prompt, req.prefill_pos, end, self._table_row(runner, req))
+        else:
+            # the runner buffers pages_for(L) full pages: cover them all
+            end = L
+            self._grow_pages(lane, req, runner.pages_for(L) * runner.page_size)
+            t0 = time.perf_counter()
+            token = runner.prefill_full(req.slot, req.prompt,
+                                        self._table_row(runner, req))
         lane.stats.prefill_s += time.perf_counter() - t0
         req.prefill_pos = end
         lane.stats.n_prefill_chunks += 1

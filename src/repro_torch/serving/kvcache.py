@@ -179,18 +179,23 @@ def paged_pool_init(cfg, n_slots: int, n_pages: int, page_size: int,
                     dtype=torch.bfloat16, device=None):
     """The resident paged pool for ``cfg``: attention-cache leaves become
     ``(repeats, n_pages + 1, page_size, ...)`` (index ``n_pages`` is the
-    null page)."""
+    null page), sequence-free leaves (SSD conv tail and state) stay
+    per-slot ``(repeats, n_slots, ...)``."""
     if page_size < 1:
         raise ServingError(f"page_size must be >= 1, got {page_size}")
     if n_pages < 1:
         raise ServingError(f"page pool needs at least 1 page, got {n_pages}")
-    layout = paged_layout(cfg)
-    if any(len(paged) != len(pattern)
-           for paged, (_, pattern) in zip(layout, cfg.segments)):
-        raise ServingError(f"{cfg.arch_id}: per-slot (recurrent) cache "
-                           f"phases arrive in a later slice of the port")
-    return transformer.init_state(cfg, n_pages + 1, page_size, dtype=dtype,
-                                  device=device)
+    transformer.check_supported(cfg)
+    layers = []
+    for paged, (repeats, pattern) in zip(paged_layout(cfg), cfg.segments):
+        layers.append({
+            pi: (transformer.block_cache(cfg, spec, repeats, n_pages + 1,
+                                         page_size, dtype, device)
+                 if pi in paged else
+                 transformer.block_cache(cfg, spec, repeats, n_slots, 1,
+                                         dtype, device))
+            for pi, spec in enumerate(pattern)})
+    return {"layers": layers}
 
 
 def _each(pool, layout, dense, paged_fn, slot_fn):
@@ -229,7 +234,8 @@ def scatter_token(pool, layout, dense, tables, pos, page_size: int):
     at ``pos[row]`` of the dense state lands in page
     ``tables[row, pos // page_size]`` at offset ``pos % page_size``.
     Inactive rows carry null tables, so their rows land in the null page.
-    Per-slot leaves take the new dense leaves wholesale."""
+    Per-slot leaves take the new dense leaves wholesale (nothing to do
+    when the step updated the pool's own leaves in place)."""
     tables = tables.to(torch.long)
     pos = pos.to(device=tables.device, dtype=torch.long)
     rows = torch.arange(tables.shape[0], device=tables.device)
@@ -239,7 +245,8 @@ def scatter_token(pool, layout, dense, tables, pos, page_size: int):
     def upd(pl, dl):
         pl[:, pidx, off] = dl[:, rows, pos].to(pl.dtype)
 
-    _each(pool, layout, dense, upd, lambda pl, dl: pl.copy_(dl))
+    _each(pool, layout, dense, upd,
+          lambda pl, dl: None if dl is pl else pl.copy_(dl))
     return pool
 
 

@@ -5,6 +5,9 @@
 >>> out = s.generate(batch=2, prompt_len=16, gen_len=8)
 >>> eng = s.serving_engine(slots=4, max_len=64)
 
+``arch`` is ``qwen3-4b`` (dense GQA) or ``mamba2-130m`` (SSD blocks, whose
+every prefill runs the SSD scan kernel on the card).
+
 ``policy`` accepts a :class:`~repro_torch.core.numerics.NumericsConfig` or
 a preset name (``exact`` / ``segmented1|2|3``).  Per-layer policies
 (``NumericsPolicy`` objects and policy JSON files) arrive in a later slice

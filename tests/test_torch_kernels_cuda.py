@@ -18,6 +18,7 @@ from repro_torch.core.registry import afpm_config
 from repro_torch.kernels import afpm_bitwise as k2
 from repro_torch.kernels import afpm_matmul as k1
 from repro_torch.kernels import dispatch
+from repro_torch.kernels import ssd_scan as k3
 
 GOLDEN = pathlib.Path(__file__).resolve().parent / "golden" / "afpm_golden.json"
 
@@ -140,3 +141,97 @@ def test_afpm_bitwise_kernel_rejects_what_it_does_not_take():
     got = dispatch.multiply(x, torch.tensor(3.0), backend="hopper")
     assert k2.afpm_bitwise.launches == before + 1
     _assert_same_bits(got, k2.afpm_bitwise_plain(x, torch.full_like(x, 3.0)), "0-d")
+
+
+def _ssd_inputs(rng, b, L, H, P, N, strided=False):
+    """fp32 SSD operands on the card; ``strided`` takes x, B, C and dt as
+    slices of one fused projection, as the SSM block hands them over."""
+    if strided:
+        proj = rng.standard_normal((b, L, H * P + 2 * N + H)).astype(np.float32)
+        proj = torch.from_numpy(proj).cuda()
+        x = proj[..., :H * P].reshape(b, L, H, P)
+        B = proj[..., H * P:H * P + N]
+        C = proj[..., H * P + N:H * P + 2 * N]
+        dt = proj[..., H * P + 2 * N:].abs() * 0.1 + 0.01
+    else:
+        x = torch.from_numpy(rng.standard_normal((b, L, H, P)).astype(np.float32)).cuda()
+        B = torch.from_numpy(rng.standard_normal((b, L, N)).astype(np.float32)).cuda()
+        C = torch.from_numpy(rng.standard_normal((b, L, N)).astype(np.float32)).cuda()
+        dt = torch.from_numpy(rng.uniform(0.01, 0.2, (b, L, H)).astype(np.float32)).cuda()
+    A = torch.from_numpy(-rng.uniform(0.5, 2.0, H).astype(np.float32)).cuda()
+    return x, dt, A, B, C
+
+
+def _assert_within_ulps(got, want, what):
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    assert got.shape == want.shape and torch.isfinite(got).all(), what
+    assert err <= ULP_BOUND * np.spacing(np.float32(scale)), (what, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [
+    # (batch, L, H, P, N, chunk, strided): the full-width mamba2-130m
+    # prefill shapes, chunk 256, and the reduced config's shapes
+    (1, 256, 24, 64, 128, 128, False),
+    (4, 40, 24, 64, 128, 128, True),
+    # a 77-token prompt: Q = 77, four 16-row sub-tiles and a 13-row one
+    (1, 77, 24, 64, 128, 77, False),
+    (1, 512, 24, 64, 128, 256, False),
+    (2, 64, 16, 8, 16, 16, True),
+    (1, 96, 3, 8, 4, 32, False),
+])
+def test_ssd_scan_kernel_matches_plain(dims, rng):
+    _need_card()
+    b, L, H, P, N, chunk, strided = dims
+    x, dt, A, B, C = _ssd_inputs(rng, b, L, H, P, N, strided)
+    before = k3.ssd_scan.launches
+    got = k3.ssd_scan(x, dt, A, B, C, chunk)
+    torch.cuda.synchronize()
+    assert k3.ssd_scan.launches == before + 1
+    _assert_within_ulps(got, k3.ssd_scan_plain(x, dt, A, B, C, chunk), dims)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_pads_any_length_and_is_batch_invariant(rng):
+    _need_card()
+    x, dt, A, B, C = _ssd_inputs(rng, 4, 150, 24, 64, 128)
+    got = dispatch.ssd(x, dt, A, B, C, chunk=128, backend="hopper")
+    want = dispatch.ssd(x, dt, A, B, C, chunk=128, backend="torch")
+    torch.cuda.synchronize()
+    _assert_within_ulps(got, want, "L=150 padded to 256")
+    # an element depends only on its (batch row, head): batch 1 == batch 4
+    for i in range(4):
+        one = dispatch.ssd(x[i], dt[i], A, B[i], C[i], chunk=128,
+                           backend="hopper")
+        assert torch.equal(one, got[i]), i
+    # the reduced config's ragged shape: N 16, P 8, Q 16, L 50
+    x, dt, A, B, C = _ssd_inputs(rng, 1, 50, 16, 8, 16)
+    _assert_within_ulps(dispatch.ssd(x, dt, A, B, C, chunk=16, backend="hopper"),
+                        k3.ssd_scan_plain(*_pad_dt0(x, dt, A, B, C, 64), 16)[:, :50],
+                        "L=50 padded to 64")
+
+
+def _pad_dt0(x, dt, A, B, C, L):
+    pad = L - x.shape[1]
+    f = torch.nn.functional.pad
+    return (f(x, (0, 0, 0, 0, 0, pad)), f(dt, (0, 0, 0, pad)), A,
+            f(B, (0, 0, 0, pad)), f(C, (0, 0, 0, pad)))
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_rejects_what_it_does_not_take(rng):
+    _need_card()
+    x, dt, A, B, C = _ssd_inputs(rng, 1, 32, 2, 8, 4)
+    with pytest.raises(TypeError):
+        k3.ssd_scan(x.to(torch.bfloat16), dt, A, B, C, 16)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        k3.ssd_scan(x, dt, A.cpu(), B, C, 16)
+    gappy = torch.zeros(1, 32, 8, device="cuda")[..., ::2]
+    gappy.copy_(B)
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.ssd_scan(x, dt, A, gappy, C, 16)
+    with pytest.raises(ValueError, match="divisible"):
+        k3.ssd_scan(x[:, :30], dt[:, :30], A, B[:, :30], C[:, :30], 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        k3.ssd_scan(*_ssd_inputs(rng, 1, 1024, 1, 128, 128), 1024)
