@@ -9,10 +9,16 @@ ends the run with a nonzero exit and no result line:
 1. device: the card, its power limit, torch and the kernels' build time
    (every kernel is built from ``src/repro_torch/kernels/csrc/`` here);
 2. kernel: the segmented matmul kernel against its plain PyTorch version
-   at the full-width qwen3-4b projection shapes, passes 1/2/3, fp32 and
-   bf16 activations, within 64 ulps of the largest output; timed with CUDA
-   events (L2 flushed before every launch) beside the plain version, a
-   bf16 ``torch.matmul`` yardstick and the card's bound;
+   at the full-width qwen3-4b and mamba2-130m projection shapes, passes
+   1/2/3, fp32 and bf16 activations, within 64 ulps of the largest output;
+   every row of a call equal to the same row at M = 1, bit for bit, for
+   every M the serve phases give it and 300; timed at M = 1, 4, 32 and 150
+   (and 2048 once) with CUDA events behind a device spin (L2 flushed
+   before every call by writing 64 MB) beside the plain version, a bf16
+   ``torch.matmul`` yardstick, a ``torch.sum`` of the weight (its bytes
+   read once, at the decode layer's shapes), the launch floor and the
+   card's bound, with the call's host time and the wrapper's host
+   microseconds a call (timings to ``chiprun_out/chip_smoke_kernels.json``);
 3. serve: full-width qwen3-4b (36 layers, seeded random weights) served by
    the continuous-batching engine under the premium/standard/bulk tiers;
    every request completes, the kernel ran 7 x 36 times per segmented
@@ -75,6 +81,12 @@ D, FF, KVD = 2560, 9728, 1024
 LAYER_PROJ = [(D, 4096), (D, KVD), (D, KVD), (4096, D), (D, FF), (D, FF),
               (FF, D)]
 SHAPES = sorted(set(LAYER_PROJ))
+# (K, N) of mamba2-130m's segmented projections: in_proj, out_proj
+MAMBA2_PROJ = [(768, 3352), (1536, 768)]
+# every M the serve phases give the segmented matmul (decode 1 and 4,
+# prefill tails 8 / 13 / 22, chunks of 32, whole prompts 40 / 77 / 150) and
+# 300, which takes the kernel's whole mode at (2560, 4096)
+INVARIANCE_M = (1, 4, 8, 13, 22, 32, 40, 77, 150, 300)
 # logits of the kernel route against the plain route, in units of the
 # largest |logit| (phase 7): the scan kernel agrees with its plain version
 # within a few fp32 ulps, but the model's activations are bf16, so such a
@@ -179,6 +191,24 @@ def phase_device():
           f"{len(_build.sources())} kernel libraries in {build_s:.1f} s")
 
 
+def host_us_per_call(fn, calls: int = 200) -> float:
+    """Mean host microseconds a call of ``fn`` takes with the card busy:
+    the calls are enqueued behind a device spin, so none waits for the
+    card and the mean is the host's own cost (validation, allocation, the
+    ctypes call, the launch)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)   # about 0.1 s of spin
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / calls * 1e6
+
+
 def phase_kernel(peaks):
     import numpy as np
     import torch
@@ -187,7 +217,7 @@ def phase_kernel(peaks):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst_ulp, worst_abs, n_cases = 0.0, 0.0, 0
-    cases = [((M, K), (K, N)) for K, N in SHAPES for M in (4, 32)]
+    cases = [((M, K), (K, N)) for K, N in SHAPES + MAMBA2_PROJ for M in (4, 32)]
     cases.append(((3, 5, 2500), (2500, 1000)))   # ragged, batched
     for xs, ws in cases:
         x = torch.randn(xs, generator=gen, device="cuda")
@@ -208,28 +238,75 @@ def phase_kernel(peaks):
                 worst_ulp, worst_abs = max(worst_ulp, ulp), max(worst_abs, err)
                 n_cases += 1
 
-    # timing at the main path's shapes: bf16 activations (the full-width
-    # model's dtype), decode M = 4 slots and prefill-chunk M = 32
+    # batch invariance: every row of a call equals the same row alone
+    # (M = 1) bit for bit, at every M the serve path gives the kernel and
+    # 300, in split and whole mode, with 64- and 128-column tiles
+    n_rows = 0
+    for K, N in [(D, 4096), (D, 1024), (FF, D)]:
+        w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
+        x32 = torch.randn((max(INVARIANCE_M), K), generator=gen, device="cuda")
+        for x in (x32, x32.to(torch.bfloat16)):
+            for passes in (1, 2, 3):
+                alone = torch.cat([k1.afpm_matmul(x[i:i + 1], w, passes)
+                                   for i in range(x.shape[0])])
+                for M in INVARIANCE_M:
+                    got = k1.afpm_matmul(x[:M], w, passes)
+                    same = (got.view(torch.int32)
+                            == alone[:M].view(torch.int32)).all(1)
+                    if not bool(same.all()):
+                        raise AssertionError(
+                            f"afpm_matmul ({M}, {K}) @ ({K}, {N}) passes="
+                            f"{passes} {x.dtype}: rows "
+                            f"{torch.nonzero(~same).flatten()[:8].tolist()} "
+                            f"differ from the same rows at M = 1")
+                    n_rows += M
+
+    # timing: bf16 activations (the full-width models' dtype) at decode
+    # M = 1 (solo) and 4 (engine), a 32-row prefill chunk and a 150-token
+    # prompt, for the qwen3-4b and mamba2-130m projections; M = 2048 once.
+    # kernel_ms, library_ms and plain_ms are device time (behind a device
+    # spin) after the L2 is flushed by writing 64 MB, as phases [bitwise]
+    # and [ssd] time K2 and K3; kernel_call_ms holds the host's call too
+    # (no device spin), PR 11's method.  read_ms, at the decode layer's
+    # shapes, is one torch.sum of the weight timed alike: the same bytes
+    # read once by a plain PyTorch reduction, the rate a read of them gets
+    # after this flush
     bw, flops, _ = peaks
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
     rows = []
-    for K, N in SHAPES:
-        w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
+    timed = [(K, N, M, passes) for K, N in SHAPES + MAMBA2_PROJ
+             for M in (1, 4, 32, 150) for passes in (1, 3)]
+    timed.append((D, FF, 2048, 3))
+    weights = {}
+    for K, N, M, passes in timed:
+        if (K, N) not in weights:
+            weights = {(K, N): torch.randn((K, N), generator=gen,
+                                           device="cuda") * K ** -0.5}
+        w = weights[(K, N)]
         wb = w.to(torch.bfloat16)
-        for M in (4, 32):
-            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
-            for passes in (1, 3):
-                lib = lambda: [torch.matmul(x, wb) for _ in range(passes)]
-                bytes_ms = (K * N * 4 + M * K * 2 + M * N * 4) / bw * 1e3
-                ops_ms = 2 * passes * M * N * K / flops * 1e3
-                rows.append(dict(
-                    M=M, K=K, N=N, passes=passes,
-                    kernel_ms=timed_ms(lambda: k1.afpm_matmul(x, w, passes), 20, flush),
-                    plain_ms=timed_ms(lambda: k1.afpm_matmul_plain(x, w, passes), 10, flush),
-                    library_ms=timed_ms(lib, 20, flush),
-                    bytes_ms=bytes_ms, ops_ms=ops_ms,
-                    bound_ms=max(bytes_ms, ops_ms),
-                    bound_by="bytes" if bytes_ms >= ops_ms else "operations"))
+        x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        lib = lambda: [torch.matmul(x, wb) for _ in range(passes)]
+        kern = lambda: k1.afpm_matmul(x, w, passes)
+        bytes_ms = (K * N * 4 + M * K * 2 + M * N * 4) / bw * 1e3
+        ops_ms = 2 * passes * M * N * K / flops * 1e3
+        p = k1.plan(M, K, N)
+        rows.append(dict(
+            M=M, K=K, N=N, passes=passes, plan=p._asdict(),
+            kernel_ms=timed_ms(kern, 20, flush, True),
+            kernel_call_ms=timed_ms(kern, 20, flush),
+            plain_ms=timed_ms(lambda: k1.afpm_matmul_plain(x, w, passes), 10,
+                              flush, True),
+            library_ms=timed_ms(lib, 20, flush, True),
+            host_us=host_us_per_call(kern) if M == 4 and passes == 3 else None,
+            read_ms=(timed_ms(w.sum, 20, flush, True)
+                     if M == 4 and passes == 3 else None),
+            bytes_ms=bytes_ms, ops_ms=ops_ms,
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations"))
+    del weights, w, wb, x
+    one = torch.zeros(1, device="cuda")
+    floor_ms = timed_ms(lambda: one.add_(1), 50, flush, True)
+
     # the kernels line: one decode layer of the standard tier (7 projections,
     # M = 4 slots, passes = 3)
     def layer_sum(key):
@@ -237,17 +314,36 @@ def phase_kernel(peaks):
                         and r["M"] == 4 and r["passes"] == 3)
                    for kn in LAYER_PROJ)
 
-    layer = {k: layer_sum(k) for k in ("kernel_ms", "plain_ms", "library_ms")}
+    layer = {k: layer_sum(k) for k in ("kernel_ms", "kernel_call_ms",
+                                       "plain_ms", "library_ms", "read_ms")}
+    layer["host_us"] = layer_sum("host_us") / len(LAYER_PROJ)
+    layer["launch_floor_ms"] = floor_ms
     b_ms, o_ms = layer_sum("bytes_ms"), layer_sum("ops_ms")
     layer["bound_ms"] = max(b_ms, o_ms)
     layer["bound_by"] = "bytes" if b_ms >= o_ms else "operations"
+    big = rows[-1]
     (ROOT / "chiprun_out" / "chip_smoke_kernels.json").write_text(
-        json.dumps({"card": smi("name,power.limit"), "rows": rows}, indent=1))
+        json.dumps({"card": smi("name,power.limit"), "layer": layer,
+                    "rows": rows}, indent=1))
     print(f"[kernel] afpm_matmul: {n_cases} cases within {ULP_BOUND} ulps "
-          f"(worst {worst_ulp:.2f} ulps, {worst_abs:.3g} abs); one decode "
-          f"layer (M=4, passes=3): kernel {layer['kernel_ms']:.4f} ms, plain "
+          f"(worst {worst_ulp:.2f} ulps, {worst_abs:.3g} abs); {n_rows} rows "
+          f"at M in {INVARIANCE_M} equal to M = 1 bit for bit; one decode "
+          f"layer (M=4, passes=3): kernel {layer['kernel_ms']:.4f} ms on the "
+          f"device, {layer['kernel_call_ms']:.4f} ms with the host's call, "
+          f"host {layer['host_us']:.1f} us a call; plain "
           f"{layer['plain_ms']:.4f} ms, bf16 torch.matmul x3 "
-          f"{layer['library_ms']:.4f} ms, bound {layer['bound_ms']:.4f} ms")
+          f"{layer['library_ms']:.4f} ms, torch.sum of the weights "
+          f"{layer['read_ms']:.4f} ms, bound {layer['bound_ms']:.4f} ms "
+          f"({layer['bound_by']}), launch floor {floor_ms:.4f} ms a call (a "
+          f"one-element torch.add, timed alike); M=2048 at ({D}, {FF}): kernel "
+          f"{big['kernel_ms']:.4f} ms, torch.matmul x3 {big['library_ms']:.4f}"
+          f" ms, bound {big['bound_ms']:.4f} ms ({big['bound_by']})")
+    for r in rows:
+        print(f"[kernel]   M {r['M']:4d} K {r['K']:4d} N {r['N']:4d} passes "
+              f"{r['passes']}: kernel {r['kernel_ms']:.4f} (call "
+              f"{r['kernel_call_ms']:.4f}) library {r['library_ms']:.4f} "
+              f"plain {r['plain_ms']:.4f} bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
     return dict(max_abs_err=worst_abs, max_ulp_err=worst_ulp, **layer)
 
 
@@ -749,6 +845,7 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": k["max_abs_err"], "max_ulp_err": k["max_ulp_err"],
         "ms": k["kernel_ms"], "kernel_ms": k["kernel_ms"],
+        "kernel_call_ms": k["kernel_call_ms"], "host_us": k["host_us"],
         "plain_ms": k["plain_ms"], "library_ms": k["library_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"]}, {
         "name": "afpm_bitwise", "route": "cuda",

@@ -146,3 +146,76 @@ def test_dispatch_input_rules(rng):
     assert t_dispatch.matmul(torch.ones(8), w, backend="torch").shape == (4,)
     assert [t_dispatch.shape_bucket(*d) for d in [(256,), (257, 3), (1025,)]] \
         == ["small", "medium", "large"]
+
+
+# (K, N) of every projection the serving path gives the kernel: qwen3-4b's
+# wq, wk/wv, wo, mlp.wi/wg, mlp.wo and mamba2-130m's in_proj, out_proj
+SERVED_KN = [(2560, 4096), (2560, 1024), (4096, 2560), (2560, 9728),
+             (9728, 2560), (768, 3352), (1536, 768)]
+# decode (solo, engine), prefill tails, chunks, whole prompts, and more
+SERVED_M = [1, 4, 8, 13, 22, 32, 40, 77, 150, 300, 2048]
+
+
+@pytest.mark.parametrize("K", [0, 1, 7, 31, 32, 511, 512, 513, 768, 2500,
+                               2560, 4096, 9728])
+def test_kernel_chunks_depend_on_K_alone(K):
+    """The canonical split of K is fixed by K: contiguous chunks of KCHUNK
+    covering [0, K), and every plan either splits at exactly those points
+    or walks them all in one CTA, whatever M and N are."""
+    bounds = t_kernel.chunk_bounds(K)
+    assert bounds[0][0] == 0 and bounds[-1][1] == K
+    assert all(b == a + t_kernel.KCHUNK for a, b in bounds[:-1])
+    assert all(bounds[i][1] == bounds[i + 1][0] for i in range(len(bounds) - 1))
+    for M in SERVED_M:
+        for N in (5, 768, 1024, 9728):
+            p = t_kernel.plan(M, K, N)
+            assert p.grid[1] == (len(bounds) if p.split else 1)
+            assert not p.split or len(bounds) > 1
+
+
+@pytest.mark.parametrize("kn", SERVED_KN)
+def test_plan_covers_every_served_shape(kn):
+    K, N = kn
+    for M in SERVED_M:
+        p = t_kernel.plan(M, K, N)
+        assert p.mt in (1, 2, 4, 8)
+        gx, gy, gz = p.grid
+        assert p.bn in (t_kernel.BN, t_kernel.WIDE_BN)
+        assert gx * p.bn >= N > (gx - 1) * p.bn
+        assert gz * 8 * p.mt >= M > (gz - 1) * 8 * p.mt
+        assert max(gy, gz) <= t_kernel.MAX_GRID_YZ
+        if p.split:
+            assert gy * M * N * 4 <= t_kernel.MAX_SPLIT_BYTES
+        if M <= 32 and K * N * 4 > 40e6:
+            # the 42-100 MB projections at decode and prefill chunks give
+            # two CTAs an SM or more (the 3-10 MB ones are bound by one
+            # CTA's latency, not by how many run)
+            assert gx * gy * gz >= 2 * t_kernel.SMS, (M, kn, p)
+
+
+def test_plan_takes_wide_tiles_only_where_the_grid_fills_the_card():
+    """128-column tiles (8 warps) up to 32 rows, and only where the grid
+    they give still has two CTAs an SM; the 100 MB projections at decode
+    take them, the 3-42 MB ones keep 64 columns."""
+    for K, N in SERVED_KN:
+        for M in SERVED_M:
+            p = t_kernel.plan(M, K, N)
+            wide_ctas = -(-N // t_kernel.WIDE_BN) * p.grid[1] * p.grid[2]
+            assert (p.bn == t_kernel.WIDE_BN) == (
+                p.mt <= 4 and wide_ctas >= 2 * t_kernel.SMS), (M, K, N, p)
+    assert t_kernel.plan(4, 2560, 9728).bn == t_kernel.WIDE_BN
+    assert t_kernel.plan(4, 9728, 2560).bn == t_kernel.WIDE_BN
+    assert t_kernel.plan(4, 2560, 4096).bn == t_kernel.BN
+    assert t_kernel.plan(150, 2560, 9728).bn == t_kernel.BN
+
+
+def test_plan_states_its_limits():
+    with pytest.raises(ValueError, match="grid"):
+        t_kernel.plan(1, t_kernel.KCHUNK * t_kernel.MAX_GRID_YZ + 1, 8)
+    with pytest.raises(ValueError, match="grid"):
+        t_kernel.plan(t_kernel.MAX_TILE_ROWS * t_kernel.MAX_GRID_YZ + 1, 8, 8)
+    with pytest.raises(ValueError, match="out of range"):
+        t_kernel.plan(1, 2 ** 31, 8)
+    # the largest split workspace stays within its cap; beyond it, whole mode
+    p = t_kernel.plan(64, 9728 * 8, 9728)
+    assert not p.split and p.grid[1] == 1

@@ -53,6 +53,70 @@ def test_afpm_matmul_kernel_matches_plain(passes, rng):
             assert got.shape == want.shape and err <= tol, (xs, xx.dtype, err)
 
 
+# every M the serving path gives the kernel (decode 1 and 4, prefill tails
+# 8 / 13 / 22, chunks of 32, whole prompts 40 / 77 / 150) and 300, which
+# takes whole mode at (2560, 4096); every other (M, shape) is split mode.
+# (9728, 2560) takes 128-column tiles up to M = 32
+INVARIANCE_M = (1, 4, 8, 13, 22, 32, 40, 77, 150, 300)
+INVARIANCE_KN = [(2560, 4096), (2560, 1024), (9728, 2560)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 2, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_afpm_matmul_kernel_rows_do_not_depend_on_M(passes, dtype, rng):
+    """Every row of a call equals the same row computed alone (M = 1), bit
+    for bit: the engine's batched decode and chunked prefill must give a
+    solo generate's tokens."""
+    _need_card()
+    plans = [k1.plan(M, K, N) for K, N in INVARIANCE_KN for M in INVARIANCE_M]
+    whole = [(M, K, N) for K, N in INVARIANCE_KN
+             for M in INVARIANCE_M if not k1.plan(M, K, N).split]
+    assert whole == [(300, 2560, 4096)], whole   # both modes are exercised
+    assert {p.bn for p in plans} == {k1.BN, k1.WIDE_BN}
+    for K, N in INVARIANCE_KN:
+        x = torch.from_numpy(rng.standard_normal((max(INVARIANCE_M), K))
+                             .astype(np.float32)).cuda().to(getattr(torch, dtype))
+        w = torch.from_numpy((rng.standard_normal((K, N)) / np.sqrt(K))
+                             .astype(np.float32)).cuda()
+        alone = torch.cat([k1.afpm_matmul(x[i:i + 1], w, passes)
+                           for i in range(x.shape[0])])
+        for M in INVARIANCE_M:
+            got = k1.afpm_matmul(x[:M], w, passes)
+            torch.cuda.synchronize()
+            same = (got.view(torch.int32) == alone[:M].view(torch.int32)).all(1)
+            assert same.all(), ((K, N), M, torch.nonzero(~same).flatten()[:8])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 3])
+def test_afpm_matmul_kernel_ragged_and_unaligned(passes, rng):
+    """K not a multiple of 32 or of 4, N not a multiple of 4 or 8, and x
+    and w at a storage offset of one element (base not 16-byte aligned):
+    the masked path of the same kernel."""
+    _need_card()
+
+    def at_offset(a):   # a contiguous copy whose base is 4 bytes off
+        buf = torch.empty(a.numel() + 1, dtype=a.dtype, device="cuda")
+        view = buf[1:].view(a.shape)
+        view.copy_(a)
+        return view
+
+    for M in (1, 4, 13, 77):
+        for K in (7, 2500):
+            for N in (5, 1000, 1030):
+                x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).cuda()
+                w = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)).cuda()
+                for xx, ww in [(x, w), (at_offset(x), w), (x, at_offset(w)),
+                               (at_offset(x.to(torch.bfloat16)), w)]:
+                    assert xx.is_contiguous() and ww.is_contiguous()
+                    got = k1.afpm_matmul(xx, ww, passes)
+                    torch.cuda.synchronize()
+                    _assert_within_ulps(got, k1.afpm_matmul_plain(xx, ww, passes),
+                                        (M, K, N, xx.dtype, xx.storage_offset(),
+                                         ww.storage_offset()))
+
+
 @pytest.mark.cuda
 def test_afpm_matmul_kernel_rejects_what_it_does_not_take():
     _need_card()
