@@ -45,8 +45,10 @@ ends the run with a nonzero exit and no result line:
    as the serve phase's prompts give them, and 2048;
    H 24, P 64, N 128, chunk 128) and the reduced config's ragged shape
    (N 16, P 8, Q 16, L 50), batch 4 equal to batch 1 row by row bit for
-   bit; timed at the serve path's prefill shapes and at L = 2048 beside
-   the plain version and the card's bound (no PyTorch call computes the
+   bit and two calls equal bit for bit; timed at the serve path's prefill
+   shapes and at L = 2048 beside the plain version, the card's bound (the
+   FMAs ``y`` needs, ``ssd_scan.fmas``, or the bytes) and phase 2's launch
+   floor, with the kernels a call launches (no PyTorch call computes the
    scan, so there is no library time);
 7. mamba2: full-width mamba2-130m (24 SSD layers, seeded random weights)
    served by the engine under the premium/standard/bulk tiers with
@@ -629,11 +631,11 @@ def ssd_inputs(gen, b, L, H, P, N):
     return r(b, L, H, P), dt, A, r(b, L, N), r(b, L, N)
 
 
-def phase_ssd(peaks):
+def phase_ssd(peaks, floor_ms):
     import numpy as np
     import torch
 
-    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import dispatch, ref
     from repro_torch.kernels import ssd_scan as k3
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -656,6 +658,10 @@ def phase_ssd(peaks):
             raise AssertionError(f"ssd_scan {(b, L, h, p, n, q)}: {ulp:.1f} "
                                  f"ulps of the largest output > {ULP_BOUND}")
         worst_ulp, worst_abs = max(worst_ulp, ulp), max(worst_abs, err)
+        again = dispatch.ssd(x, dt, A, B, C, chunk=q, backend="hopper")
+        if not torch.equal(again, got):   # no float is summed by atomics
+            raise AssertionError(f"ssd_scan {(b, L, h, p, n, q)}: two calls "
+                                 f"differ")
         if b > 1:   # an element depends only on its (batch row, head)
             for i in range(b):
                 one = dispatch.ssd(x[i], dt[i], A, B[i], C[i], chunk=q,
@@ -670,9 +676,11 @@ def phase_ssd(peaks):
     # holds the kernel and its chunk_decay prologue on the card, not the
     # host's call; the plain version (some 20 launches a chunk) behind a
     # spin of about 20 ms, long enough for the host to enqueue all of its
-    # launches.  The bound is for the kernel's own input (padded L):
-    # the causal FMAs (k3.fmas) at the fp32 rate, or x, y, dt, B and C
-    # moved once.
+    # launches.  The bound is for the kernel's own input (padded L): the
+    # FMAs y needs (k3.fmas: C B^T once a chunk, no carry on the first
+    # chunk, no state update on the last) at the fp32 rate, or x, y, dt, B
+    # and C moved once.  decay_ms is the wrapper's plain prologue alone
+    # (ref.chunk_decay: a cumsum and a product), timed alike.
     bw, _, fp32 = peaks
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
     rows = []
@@ -683,10 +691,14 @@ def phase_ssd(peaks):
         ops_ms = 2 * k3.fmas(b, Lp, H, P, N, Q) / fp32 * 1e3
         bytes_ms = 4 * (2 * b * Lp * H * P + b * Lp * H + H
                         + 2 * b * Lp * N) / bw * 1e3
+        pl = k3.plan(Lp, Q, H, P, N)
         rows.append(dict(
-            batch=b, L=L, L_padded=Lp, Q=Q,
+            batch=b, L=L, L_padded=Lp, Q=Q, plan=pl._asdict(),
+            kernels_a_call=pl.kernels, launch_floor_ms=floor_ms,
             kernel_ms=timed_ms(lambda: k3.ssd_scan(x, dt, A, B, C, Q), 20,
                                flush, True),
+            decay_ms=timed_ms(lambda: ref.chunk_decay(dt, A, Q), 20, flush,
+                              True),
             plain_ms=timed_ms(lambda: k3.ssd_scan_plain(x, dt, A, B, C, Q),
                               5, flush, True, spin_cycles=40_000_000),
             ops_ms=ops_ms, bytes_ms=bytes_ms, bound_ms=max(ops_ms, bytes_ms),
@@ -695,10 +707,16 @@ def phase_ssd(peaks):
         {"card": smi("name,power.limit"), "rows": rows}, indent=1))
     print(f"[ssd] ssd_scan: {len(cases)} cases within {ULP_BOUND} ulps of the "
           f"largest output (worst {worst_ulp:.2f} ulps, {worst_abs:.3g} abs), "
-          f"batch 4 == batch 1 row by row; " + "; ".join(
-              f"b{r['batch']} L {r['L']} (padded {r['L_padded']}, Q {r['Q']}) "
-              f"kernel {r['kernel_ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})" for r in rows))
+          f"batch 4 == batch 1 row by row, two calls equal bit for bit; a "
+          f"call launches {rows[0]['kernels_a_call']} kernels after "
+          f"chunk_decay's 2 ops; launch floor {floor_ms:.4f} ms a launch "
+          f"(phase 2); " + "; ".join(
+              f"b{r['batch']} L {r['L']} (padded {r['L_padded']}, Q {r['Q']}, "
+              f"{r['plan']['grid_a']} + {r['plan']['grid_b']} CTAs a row) kernel "
+              f"{r['kernel_ms']:.4f} ms (chunk_decay {r['decay_ms']:.4f}) plain "
+              f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}; operations {r['ops_ms']:.4f}, bytes "
+              f"{r['bytes_ms']:.4f})" for r in rows))
     row = next(r for r in rows if r["L"] == SERVE_LENGTHS[2] and r["batch"] == 1)
     return dict(row, max_abs_err=worst_abs, max_ulp_err=worst_ulp)
 
@@ -836,7 +854,7 @@ def main() -> int:
     b = phase_bitwise(peaks)
     b_launches = phase_table3()
     torch.cuda.empty_cache()
-    c = phase_ssd(peaks)
+    c = phase_ssd(peaks, k["launch_floor_ms"])
     c_launches = phase_mamba2()
     print(json.dumps({"kernels": [{
         "name": "afpm_matmul", "route": "cuda",

@@ -244,6 +244,10 @@ def _assert_within_ulps(got, want, what):
     (1, 512, 24, 64, 128, 256, False),
     (2, 64, 16, 8, 16, 16, True),
     (1, 96, 3, 8, 4, 32, False),
+    # rows of 35 floats: x and B are not 16-byte aligned, 4-byte copies
+    (1, 96, 3, 8, 4, 32, True),
+    # a chunk of 1024: shared memory grows by only 8 bytes a step of Q
+    (1, 1024, 1, 128, 128, 1024, False),
 ])
 def test_ssd_scan_kernel_matches_plain(dims, rng):
     _need_card()
@@ -297,5 +301,49 @@ def test_ssd_scan_kernel_rejects_what_it_does_not_take(rng):
         k3.ssd_scan(x, dt, A, gappy, C, 16)
     with pytest.raises(ValueError, match="divisible"):
         k3.ssd_scan(x[:, :30], dt[:, :30], A, B[:, :30], C[:, :30], 16)
+    # the kernels stage a chunk's l and dt in shared memory
     with pytest.raises(ValueError, match="shared memory"):
-        k3.ssd_scan(*_ssd_inputs(rng, 1, 1024, 1, 128, 128), 1024)
+        k3.ssd_scan(*_ssd_inputs(rng, 1, 32768, 1, 8, 4), 32768)
+    # the batch is the grid's second dimension (at most 65535 rows)
+    z = torch.zeros(65536, 1, 1, 1, device="cuda")
+    with pytest.raises(ValueError, match="launch limits"):
+        k3.ssd_scan(z, z[..., 0], A[:1], z[..., 0], z[..., 0], 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [1, 2, 3, 16, 17])
+def test_ssd_scan_kernel_chunk_counts_at_full_width(chunks, rng):
+    """mamba2-130m's full width (H 24, P 64, N 128, Q 128) with one chunk
+    (no carry, no state), two, three, 16 (L 2048) and 17."""
+    _need_card()
+    x, dt, A, B, C = _ssd_inputs(rng, 1, 128 * chunks, 24, 64, 128)
+    got = k3.ssd_scan(x, dt, A, B, C, 128)
+    torch.cuda.synchronize()
+    _assert_within_ulps(got, k3.ssd_scan_plain(x, dt, A, B, C, 128),
+                        f"{chunks} chunks")
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_takes_the_large_chunk_row(rng):
+    """L 2048 falls in the ``large`` row of SCAN_CHUNKS: Q 256."""
+    _need_card()
+    assert dispatch.scan_chunk("hopper", 2048) == 256
+    x, dt, A, B, C = _ssd_inputs(rng, 1, 2048, 24, 64, 128)
+    got = dispatch.ssd(x, dt, A, B, C, backend="hopper")
+    torch.cuda.synchronize()
+    _assert_within_ulps(got, k3.ssd_scan_plain(x, dt, A, B, C, 256), "Q 256")
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_is_deterministic_and_batch_invariant_at_2048(rng):
+    """No float is summed by atomics, so two calls give the same bits; an
+    element depends only on its (batch row, head), so batch 1 == batch 4
+    row by row."""
+    _need_card()
+    x, dt, A, B, C = _ssd_inputs(rng, 4, 2048, 24, 64, 128)
+    got = k3.ssd_scan(x, dt, A, B, C, 128)
+    assert torch.equal(k3.ssd_scan(x, dt, A, B, C, 128), got)
+    for i in range(4):
+        one = k3.ssd_scan(x[i:i + 1], dt[i:i + 1], A, B[i:i + 1], C[i:i + 1],
+                          128)
+        assert torch.equal(one[0], got[i]), i

@@ -15,6 +15,7 @@ from repro.kernels import dispatch as jdispatch
 from repro.kernels import ref as jref
 from repro.kernels.ssd_scan import ssd_scan_pallas
 from repro_torch.kernels import dispatch, ops
+from repro_torch.kernels import ssd_scan as k3
 from repro_torch.kernels import ref as tref
 
 # the chunked versions do the same dots on both sides; only the order of
@@ -151,3 +152,94 @@ def test_state_decay_property(rng):
     y2 = tref.ssd_scan_ref(*_t((x2, dt, A, B, C))).numpy()
     np.testing.assert_allclose(y1[-8:], y2[-8:], rtol=1e-3, atol=1e-3)
     assert not np.allclose(y1[:4], y2[:4])
+
+
+def _fmas_by_loops(batch, L, H, P, N, Q):
+    """The FMAs ``y`` needs, one term at a time: per batch row and chunk,
+    ``C_t . B_s`` for s <= t once (shared by the heads); per head, M @ x
+    over s <= t, the carry on every chunk but the first and the state
+    update on every chunk but the last."""
+    total = 0
+    nc = L // Q
+    for _ in range(batch):
+        for c in range(nc):
+            for t in range(Q):
+                total += (t + 1) * N
+            for _ in range(H):
+                for t in range(Q):
+                    total += (t + 1) * P
+                if c > 0:
+                    total += Q * N * P
+                if c < nc - 1:
+                    total += Q * N * P
+    return total
+
+
+@pytest.mark.parametrize("shape", [
+    # (batch, L, H, P, N, Q): one chunk, two, three; the reduced config;
+    # a ragged Q
+    (1, 40, 3, 8, 4, 40),
+    (2, 32, 2, 8, 16, 16),
+    (1, 96, 3, 8, 4, 32),
+    (4, 64, 16, 8, 16, 16),
+    (1, 154, 1, 5, 3, 77),
+])
+def test_ssd_scan_fmas_count_what_y_needs(shape):
+    assert k3.fmas(*shape) == _fmas_by_loops(*shape)
+
+
+def test_ssd_scan_fmas_full_width_recount():
+    """The full-width mamba2-130m scan of a 256-step prefill (H 24, P 64,
+    N 128, Q 128): C B^T once a chunk, a carry on the second chunk only and
+    a state update on the first only."""
+    tri = 128 * 129 // 2
+    want = 2 * (tri * 128 + 24 * tri * 64) + 2 * 24 * 128 * 128 * 64
+    assert k3.fmas(1, 256, 24, 64, 128, 128) == want
+    # batch rows add up; one chunk has neither carry nor state update
+    assert k3.fmas(4, 2048, 24, 64, 128, 128) == 4 * k3.fmas(1, 2048, 24, 64, 128, 128)
+    assert k3.fmas(1, 40, 24, 64, 128, 40) == 40 * 41 // 2 * (128 + 24 * 64)
+
+
+def _tasks_by_loops(L, Q, H, P, N, rows):
+    """CTAs of the two kernels a batch row, counted tile by tile."""
+    t = k3.TILE
+    nc = L // Q
+    tiles = range(0, Q, t)
+    cb = sum(1 for _ in range(nc) for ti in tiles for si in tiles if si <= ti)
+    ds = sum(1 for _ in range(nc - 1) for _ in range(H)
+             for _ in range(0, N, t) for _ in range(0, P, t))
+    out = sum(1 for _ in range(nc) for _ in range(H) for _ in range(0, Q, rows)
+              for _ in range(0, P, t))
+    return cb + ds, out
+
+
+@pytest.mark.parametrize("shape", [
+    # (L, Q, H, P, N): the served prefills (40, 77, 150 padded to 256),
+    # 2048 at chunk 128 and 256, and the reduced config
+    (40, 40, 24, 64, 128), (77, 77, 24, 64, 128), (256, 128, 24, 64, 128),
+    (2048, 128, 24, 64, 128), (2048, 256, 24, 64, 128), (64, 16, 16, 8, 16),
+])
+def test_ssd_scan_plan_covers_every_tile_and_ignores_batch(shape):
+    """The plan's grids cover every tile once, and the plan is a function
+    of the shapes alone: it takes no batch size, so batch 1 and batch 4 get
+    the same tiles and every element the same arithmetic."""
+    import inspect
+
+    assert "batch" not in inspect.signature(k3.plan).parameters
+    p = k3.plan(*shape)
+    assert p == k3.plan(*shape) and p.kernels == 2
+    assert (p.grid_a, p.grid_b) == _tasks_by_loops(*shape, k3.ROWS)
+    L, Q, H, P, N = shape
+    # at least one output CTA for every head of every chunk
+    assert p.grid_b >= (L // Q) * H
+
+
+def test_ssd_scan_plan_at_the_served_lengths():
+    """Output tiles of 32 rows, so a batch-1 prefill of 256 steps gives
+    192 output CTAs for the 132 SMs; one chunk (prompts of 40 and 77) has
+    no state tasks, only C B^T."""
+    assert k3.plan(256, 128, 24, 64, 128) == (2, 2 * 3 + 24 * 2, 2 * 24 * 4)
+    assert k3.plan(40, 40, 24, 64, 128) == (2, 1, 24 * 2)
+    assert k3.plan(77, 77, 24, 64, 128) == (2, 3, 24 * 3)
+    with pytest.raises(ValueError, match="divisible"):
+        k3.plan(100, 64, 24, 64, 128)
