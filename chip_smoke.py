@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Seven phases, each printing one line (phase 5 a table); any failed check
-ends the run with a nonzero exit and no result line:
+Eight phases, each printing one line (phases 5 and 8 a few); any failed
+check ends the run with a nonzero exit and no result line:
 
 1. device: the card, its power limit, torch and the kernels' build time
    (every kernel is built from ``src/repro_torch/kernels/csrc/`` here);
@@ -57,7 +57,24 @@ ends the run with a nonzero exit and no result line:
    forward, a standard-tier request's tokens equal a solo
    ``Session.generate``, and the prefill logits of a full-width prompt of
    each served length through the kernels agree with the plain route's on
-   the card.
+   the card;
+8. resnet: the paper's Table IV network.  The committed resnet18
+   checkpoint loads through ``Session.from_pretrained`` onto the card bit
+   for bit equal to ``resnet18_reference.npz``; then full-width ResNet-18
+   (64/128/256/512, seeded weights, batch-norm statistics from one
+   train-mode forward) on 256 ``cifar_like`` images: exact (the native
+   conv with TF32 off) beside the same forward with TF32 on and the fp32
+   im2col route; segmented 1/2/3 through the segmented matmul kernel, 21
+   launches a forward, every conv within 64 ulps of the plain version on
+   the same operands and the logits within 2**-6 of the plain route's;
+   the kernel timed at stage 0's conv shape (M 262144, K 576, N 64); the
+   eight Table IV designs emulated on 8 images (argmax agreement and
+   logits MRED against exact); and the proxy auto-configurer on 32
+   calibration images, whose emitted policy then runs.  ms a forward per
+   mode on the host clock around a synced call, and one forward per mode
+   (exact, segmented3, emulated AC5-5) under ``torch.profiler``: device
+   time by kernel group and the card's busy share
+   (``chiprun_out/chip_smoke_resnet.json``).
 
 Then one JSON line on the kernels, the card's name and power limit, and
 the result line.  Per-shape kernel timings go to
@@ -96,6 +113,10 @@ INVARIANCE_M = (1, 4, 8, 13, 22, 32, 40, 77, 150, 300)
 # layers, and the flips add up through the residual stream
 LOGIT_BOUND = 2.0 ** -6
 SERVE_LENGTHS = (40, 77, 150)
+# phase 8: the ResNet forwards' batch, and the emulated designs' (the
+# bit-level datapath is O(M * N * K) elementwise work)
+RESNET_BATCH = 256
+EMULATED_BATCH = 8
 GOLDEN = ROOT / "tests" / "golden" / "afpm_golden.json"
 BENCH_CPU = ROOT / "benchmarks" / "BENCH_cpu_ci.json"
 # the timed AFPM designs and the template arguments (ACL, FULL, COND, COMP,
@@ -838,6 +859,300 @@ def phase_mamba2():
     return launches
 
 
+def host_ms(fn, repeats: int):
+    """Median host milliseconds of a synced call of ``fn`` (one warmup call
+    first, excluded), and the last call's result."""
+    import statistics
+
+    import torch
+
+    out = fn()
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times), out
+
+
+def kernel_group(name: str) -> str:
+    """The group a device kernel's time is reported under (phase 8)."""
+    n = name.lower()
+    if "afpm" in n:
+        return "K1"
+    if any(k in n for k in ("conv", "fprop", "xmma", "implicit", "cudnn",
+                            "winograd")):
+        return "cudnn conv"
+    if any(k in n for k in ("gemm", "cutlass", "matmul")):
+        return "matmul"
+    if any(k in n for k in ("cat", "pad", "copy", "transpose", "nchw",
+                            "nhwc")):
+        return "im2col/layout copies"
+    if "reduce" in n:
+        return "reductions"
+    return "elementwise"
+
+
+def profile_call(fn) -> dict:
+    """One call of ``fn`` (after a warmup) under ``torch.profiler``: the
+    host ms of the synced call (profiler on), the device ms of its kernels
+    by :func:`kernel_group`, and their sum over the host ms (the card's
+    busy share; kernels of one stream do not overlap)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    groups, n = {}, 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            g = kernel_group(evt.name)
+            groups[g] = groups.get(g, 0.0) + evt.time_range.elapsed_us() / 1e3
+            n += 1
+    busy = sum(groups.values())
+    return dict(wall_ms=wall, device_ms=busy, busy_share=busy / wall,
+                kernels=n, groups=dict(sorted(groups.items(),
+                                              key=lambda kv: -kv[1])))
+
+
+def rel_err(got, want) -> float:
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def phase_resnet(peaks):
+    import numpy as np
+    import torch
+
+    from repro_torch.bench.table4_resnet import (MULTS, emulated_config,
+                                                 seeded_resnet)
+    from repro_torch.compat import flatten_tree
+    from repro_torch.core.metrics import mred
+    from repro_torch.data.synthetic import DataConfig, cifar_like
+    from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import resnet
+    from repro_torch.numerics import set_operand_tap
+    from repro_torch.session import Session
+
+    # 1. the committed checkpoint, through from_pretrained, onto the card
+    fixture = ROOT / "tests" / "golden" / "compat"
+    fx = Session.from_pretrained("resnet18", fixture / "resnet18",
+                                 device="cuda")
+    got = flatten_tree(fx.params)
+    got.update(flatten_tree(fx._state))
+    ref = np.load(fixture / "resnet18_reference.npz")
+    if sorted(got) != sorted(ref.files) or not all(
+            got[k].dtype == ref[k].dtype
+            and got[k].tobytes() == ref[k].tobytes() for k in ref.files):
+        raise AssertionError("resnet18 fixture on the card differs from "
+                             "resnet18_reference.npz")
+
+    cfg = resnet.ResNetConfig()
+    assert (cfg.widths, cfg.blocks) == ((64, 128, 256, 512), (2, 2, 2, 2))
+    torch.cuda.reset_peak_memory_stats()
+    params, state = seeded_resnet(cfg, seed=0, device="cuda")
+    n_params = sum(t.size for t in flatten_tree(params).values())
+    sess = Session.from_resnet(cfg, params, state, device="cuda")
+    x = torch.as_tensor(cifar_like(DataConfig(global_batch=RESNET_BATCH,
+                                              seed=999), 10_000)["images"],
+                        device="cuda")
+    timing = {}   # mode -> (ms a forward, batch)
+
+    # 2. exact: the native conv with TF32 off.  Stage 0's first conv at
+    # this batch, against an fp64 conv: the model's conv sits at fp32's
+    # error, a direct cuDNN call with TF32 on at TF32's.  The whole forward
+    # against the fp32 im2col route (a calibration tap routes exact convs
+    # through im2col + an fp32 matmul)
+    timing["exact"] = host_ms(lambda: sess.apply(x), 5)[0], RESNET_BATCH
+    exact = sess.apply(x)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    act = torch.randn((RESNET_BATCH, 32, 32, 64), generator=gen,
+                      device="cuda").relu()
+    w = params["s0b0"]["conv1"]
+    xn, wn = act.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+    conv64 = torch.nn.functional.conv2d(xn.double(), wn.double(),
+                                        padding=1).permute(0, 2, 3, 1)
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=True):
+        conv_tf32 = torch.nn.functional.conv2d(xn, wn, padding=1)
+    d_tf32 = rel_err(conv_tf32.permute(0, 2, 3, 1).double(), conv64)
+    d_conv = rel_err(resnet.conv2d(act, w).double(), conv64)
+    prev = set_operand_tap(lambda *a: None)
+    try:
+        im2col_fp32 = sess.apply(x)
+    finally:
+        set_operand_tap(prev)
+    d_fp32 = rel_err(im2col_fp32, exact)
+    if exact.shape != (RESNET_BATCH, 10) or not torch.isfinite(exact).all() \
+            or d_fp32 > 1e-4 or d_conv > 1e-5:
+        raise AssertionError(f"exact logits bad: {tuple(exact.shape)}, "
+                             f"{d_fp32:.3g} of the largest from the fp32 "
+                             f"im2col route (bound 1e-4), stage 0's conv "
+                             f"{d_conv:.3g} from fp64 (bound 1e-5)")
+
+    # 3. segmented 1/2/3 through K1: 21 launches a forward; every conv
+    # within 64 ulps of the plain version on the same operands, logits
+    # within 2**-6 of the plain route's
+    worst_ulp, seg_err, launches = 0.0, {}, 0
+    for passes in (1, 2, 3):
+        s = sess.replace(policy=f"segmented{passes}")
+        k1.afpm_matmul.launches = 0
+        logits = s.apply(x)
+        torch.cuda.synchronize()
+        ran = k1.afpm_matmul.launches
+        if ran != 21:
+            raise AssertionError(f"segmented{passes}: afpm_matmul launched "
+                                 f"{ran} times in one forward, expected 21 "
+                                 f"(20 convs + fc)")
+        launches += ran
+        plain = sess.replace(policy=f"segmented{passes}",
+                             backend="torch").apply(x)
+        seg_err[passes] = rel_err(logits, plain)
+        if not torch.isfinite(logits).all() or seg_err[passes] > LOGIT_BOUND:
+            raise AssertionError(f"segmented{passes}: kernel-route logits "
+                                 f"{seg_err[passes]:.3g} of the largest from "
+                                 f"the plain route > {LOGIT_BOUND}")
+        sites = []
+        prev = set_operand_tap(lambda path, a, b: sites.append((path, a, b)))
+        try:
+            with torch.inference_mode():
+                resnet.apply(params, state, x, s.config)
+        finally:
+            set_operand_tap(prev)
+        for path, a, b in sites:
+            kern = dispatch.matmul(a, b, passes, backend="hopper")
+            want = dispatch.matmul(a, b, passes, backend="torch")
+            ulp = float(np.spacing(np.float32(want.abs().max().item())))
+            err = (kern - want).abs().max().item() / ulp
+            if err > ULP_BOUND:
+                raise AssertionError(f"segmented{passes} {path} "
+                                     f"{tuple(a.shape)}@{tuple(b.shape)}: "
+                                     f"{err:.1f} ulps > {ULP_BOUND}")
+            worst_ulp = max(worst_ulp, err)
+        del sites
+        timing[f"segmented{passes}"] = host_ms(lambda: s.apply(x), 5)[0], \
+            RESNET_BATCH
+
+    # K1 at stage 0's conv shape (M = B * 1024, K = 576, N = 64), timed as
+    # phase [kernel] times it
+    bw, flops, _ = peaks
+    M, K, N = RESNET_BATCH * 1024, 576, 64
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    a = torch.randn((M, K), generator=gen, device="cuda")
+    b = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
+    ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+    bytes_ms = (M * K * 4 + K * N * 4 + M * N * 4) / bw * 1e3
+    ops_ms = 2 * 3 * M * N * K / flops * 1e3
+    conv = dict(
+        M=M, K=K, N=N, passes=3, plan=k1.plan(M, K, N)._asdict(),
+        kernel_ms=timed_ms(lambda: k1.afpm_matmul(a, b, 3), 20, flush, True),
+        plain_ms=timed_ms(lambda: k1.afpm_matmul_plain(a, b, 3), 5, flush,
+                          True),
+        library_ms=timed_ms(lambda: [torch.matmul(ab, bb) for _ in range(3)],
+                            20, flush, True),
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    del a, b, ab, bb, flush
+
+    # 4. the eight Table IV designs, emulated (the plain bit-level
+    # datapath, as in the reference), against exact
+    xe = x[:EMULATED_BATCH]
+    exact_e = sess.apply(xe)
+    pred = exact_e.argmax(-1)
+    emulated = {}
+    for name in MULTS:
+        s = sess.replace(policy=emulated_config(name))
+        ms, logits = host_ms(lambda: s.apply(xe), 1)
+        if logits.shape != exact_e.shape or not torch.isfinite(logits).all():
+            raise AssertionError(f"emulated {name}: bad logits")
+        emulated[name] = ((logits.argmax(-1) == pred).float().mean().item(),
+                          mred(logits, exact_e))
+        timing[f"emulated {name}"] = ms, EMULATED_BATCH
+
+    # where a forward's time goes: one profiled forward per mode
+    profiles = {
+        "exact": profile_call(lambda: sess.apply(x)),
+        "segmented3": profile_call(
+            lambda: sess.replace(policy="segmented3").apply(x)),
+        "emulated AC5-5": profile_call(
+            lambda: sess.replace(policy=emulated_config("AC5-5")).apply(xe)),
+    }
+    (ROOT / "chiprun_out" / "chip_smoke_resnet.json").write_text(json.dumps(
+        {"card": smi("name,power.limit"), "profiles": profiles,
+         "timing_ms": timing, "conv": conv, "emulated": emulated},
+        indent=1))
+
+    # 5. the proxy auto-configurer on 32 calibration images, then the
+    # emitted policy
+    calib = torch.as_tensor(cifar_like(DataConfig(global_batch=32, seed=123),
+                                       20_000)["images"], device="cuda")
+    auto = sess.replace(policy=None)
+    ref_calib = auto.apply(calib)
+    t0 = time.perf_counter()
+    res = auto.auto_configure(1e-2, calib=calib, method="proxy",
+                              candidates="segmented")
+    auto_s = time.perf_counter() - t0
+    k1.afpm_matmul.launches = 0
+    out = auto.apply(calib)
+    torch.cuda.synchronize()
+    auto_launches = k1.afpm_matmul.launches
+    measured = mred(out, ref_calib)
+    n_seg = sum(1 for _, name in res.assignments if name.startswith("seg"))
+    if res.n_evals != 1 or res.error > 1e-2 or auto_launches != n_seg \
+            or not torch.isfinite(out).all():
+        raise AssertionError(f"auto_configure: {res.n_evals} evals, composed "
+                             f"{res.error:.3g}, {auto_launches} K1 launches "
+                             f"for {n_seg} segmented sites")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    print(f"[resnet] fixture from_pretrained on the card == "
+          f"resnet18_reference.npz bit for bit; ResNet-18 full width "
+          f"({n_params / 1e6:.2f} M params, seeded, batch-norm statistics "
+          f"from one train-mode forward), batch {RESNET_BATCH}: stage 0's "
+          f"conv against fp64, exact (TF32 off) {d_conv:.3g}, cuDNN with "
+          f"TF32 on {d_tf32:.3g} of the largest output; exact logits vs the "
+          f"fp32 im2col route {d_fp32:.3g} of the largest; segmented 1/2/3: 21 K1 "
+          f"launches a forward, every conv within {worst_ulp:.2f} ulps of "
+          f"the plain version (bound {ULP_BOUND}), logits "
+          + "/".join(f"{seg_err[p]:.3g}" for p in (1, 2, 3))
+          + f" of the plain route's largest (bound {LOGIT_BOUND:.3g}); K1 at "
+          f"({M}, {K}) @ ({K}, {N}) passes 3: kernel {conv['kernel_ms']:.4f} "
+          f"ms, plain {conv['plain_ms']:.4f}, bf16 torch.matmul x3 "
+          f"{conv['library_ms']:.4f}, bound {conv['bound_ms']:.4f} "
+          f"({conv['bound_by']}); auto_configure(1e-2, proxy, segmented) on "
+          f"32 images in {auto_s:.2f} s: {len(res.assignments)} of "
+          f"{len(auto.layer_paths())} sites approximate, composed "
+          f"{res.error:.3g}, measured {measured:.3g}, modeled area -"
+          f"{res.area_reduction:.1%}, {auto_launches} K1 launches; peak "
+          f"memory {peak_gb:.2f} GB")
+    print(f"[resnet]   emulated, batch {EMULATED_BATCH} (argmax agreement "
+          f"with exact, logits MRED): " + "; ".join(
+              f"{n} {100 * a:.1f}% {m:.3g}" for n, (a, m) in emulated.items()))
+    print("[resnet]   ms a forward (images/s), host clock around a synced "
+          "call, median: " + "; ".join(
+              f"{mode} {ms:.2f} ({1e3 * bsz / ms:.0f})"
+              for mode, (ms, bsz) in timing.items()))
+    print("[resnet]   one profiled forward (torch.profiler; host ms with "
+          "the profiler on, device ms by kernel group, busy share): "
+          + "; ".join(
+              f"{mode} {pr['wall_ms']:.2f} ms, device {pr['device_ms']:.2f} "
+              f"({100 * pr['busy_share']:.0f}%, {pr['kernels']} kernels: "
+              + ", ".join(f"{g} {ms:.2f}" for g, ms in pr["groups"].items())
+              + ")" for mode, pr in profiles.items()))
+    return dict(launches=launches, conv=conv, max_ulp_err=worst_ulp,
+                auto_launches=auto_launches)
+
+
 def main() -> int:
     import torch
 
@@ -856,6 +1171,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     c = phase_ssd(peaks, k["launch_floor_ms"])
     c_launches = phase_mamba2()
+    torch.cuda.empty_cache()
+    r = phase_resnet(peaks)
     print(json.dumps({"kernels": [{
         "name": "afpm_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/afpm_matmul.cu",
@@ -865,7 +1182,9 @@ def main() -> int:
         "ms": k["kernel_ms"], "kernel_ms": k["kernel_ms"],
         "kernel_call_ms": k["kernel_call_ms"], "host_us": k["host_us"],
         "plain_ms": k["plain_ms"], "library_ms": k["library_ms"],
-        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"]}, {
+        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+        "resnet_launches": r["launches"], "resnet_max_ulp_err": r["max_ulp_err"],
+        "resnet_conv": r["conv"]}, {
         "name": "afpm_bitwise", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/afpm_bitwise.cu",
         "replaces": "src/repro/kernels/afpm_bitwise.py:29",

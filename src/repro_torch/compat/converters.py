@@ -1,0 +1,244 @@
+"""Per-family pretrained-checkpoint converters.
+
+The port's counterpart of ``repro.compat.converters``.  A
+:class:`Converter` binds one checkpoint family (a foreign naming scheme)
+to one of the port's model families through a
+:class:`~repro_torch.compat.state_dict.Mapping` built from the config.
+Registered so far:
+
+=============  =========================================  ==============
+family         foreign layout                             native model
+=============  =========================================  ==============
+``resnet18``   torchvision ``resnet18`` state dict        CIFAR ResNet
+               (``layer{1..4}.{b}``, OIHW convs)          + bn state
+=============  =========================================  ==============
+
+The qwen3-4b and whisper-tiny converters of the reference come with a
+later slice of the port.
+
+:func:`load_pretrained` reads the checkpoint (safetensors single or
+sharded, or a torch pickle by extension), builds the family mapping for
+the resolved config, renames and adapts into the native state dict, and
+validates every leaf against a template built from the model's own shapes
+(:func:`repro_torch.models.resnet.shapes`).  :func:`export_pretrained`
+is the exact inverse.  Both work on host numpy arrays; the caller puts
+them on a device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Dict, Optional
+
+import numpy as np
+
+from .safetensors_io import load_checkpoint, read_torch_checkpoint
+from .state_dict import (CompatError, Leaf, MapRule, Mapping, flatten_tree,
+                         unflatten_tree)
+
+__all__ = ["Converter", "LoadedCheckpoint", "ResNet18Converter",
+           "converter_for", "export_pretrained", "families",
+           "load_pretrained", "register_converter"]
+
+FORMAT_TAG = "repro-compat/1"
+
+_TORCH_SUFFIXES = (".pt", ".pth", ".bin")
+
+
+@dataclasses.dataclass(frozen=True)
+class LoadedCheckpoint:
+    """The result of :func:`load_pretrained`, ready for a Session."""
+
+    family: str
+    kind: str                 # "resnet"
+    cfg: object               # ResNetConfig
+    params: dict              # nested numpy arrays
+    state: Optional[dict]     # resnet batch-norm running statistics
+    metadata: Dict[str, str]
+
+
+class Converter:
+    """One checkpoint family.  Subclasses provide the mapping and config
+    resolution; the base class owns load and export."""
+
+    family: str
+    kind: str
+
+    def mapping(self, cfg) -> Mapping:
+        raise NotImplementedError
+
+    def default_config(self, reduced: bool):
+        raise NotImplementedError
+
+    def config_json(self, cfg) -> str:
+        raise NotImplementedError
+
+    def config_from_json(self, text: str):
+        raise NotImplementedError
+
+    def templates(self, cfg):
+        """(params_template, state_template | None) of :class:`Leaf`\\ s."""
+        raise NotImplementedError
+
+    def resolve_config(self, cfg, metadata: Dict[str, str], reduced: bool):
+        if cfg is not None:
+            return cfg
+        meta_fam = metadata.get("repro.family")
+        if meta_fam is not None and meta_fam != self.family:
+            raise CompatError(f"checkpoint metadata says family "
+                              f"{meta_fam!r}, loader asked for "
+                              f"{self.family!r}")
+        blob = metadata.get("repro.config")
+        if blob is not None:
+            try:
+                return self.config_from_json(blob)
+            except (json.JSONDecodeError, TypeError, ValueError,
+                    KeyError) as e:
+                raise CompatError(f"bad repro.config metadata for "
+                                  f"{self.family}: {e}") from None
+        return self.default_config(reduced)
+
+    def export_metadata(self, cfg) -> Dict[str, str]:
+        return {"format": FORMAT_TAG, "repro.family": self.family,
+                "repro.config": self.config_json(cfg)}
+
+    def build(self, cfg, native: Dict[str, np.ndarray],
+              metadata: Dict[str, str], *, cast: bool) -> LoadedCheckpoint:
+        params_tpl, state_tpl = self.templates(cfg)
+        params = unflatten_tree(params_tpl, native, cast=cast)
+        state = (unflatten_tree(state_tpl, native, cast=cast)
+                 if state_tpl is not None else None)
+        return LoadedCheckpoint(self.family, self.kind, cfg, params, state,
+                                metadata)
+
+
+class ResNet18Converter(Converter):
+    """torchvision ``resnet18`` naming onto the CIFAR ResNet family."""
+
+    kind = "resnet"
+
+    def __init__(self, family: str = "resnet18"):
+        self.family = family
+
+    def default_config(self, reduced: bool):
+        from repro_torch.models.resnet import ResNetConfig
+        return ResNetConfig()
+
+    def config_json(self, cfg) -> str:
+        return json.dumps({"num_classes": cfg.num_classes,
+                           "widths": list(cfg.widths),
+                           "blocks": list(cfg.blocks)})
+
+    def config_from_json(self, text: str):
+        from repro_torch.models.resnet import ResNetConfig
+        spec = json.loads(text)
+        return ResNetConfig(num_classes=spec["num_classes"],
+                            widths=tuple(spec["widths"]),
+                            blocks=tuple(spec["blocks"]))
+
+    def templates(self, cfg):
+        from repro_torch.models import resnet
+        from repro_torch.models.transformer import unflatten
+
+        f32 = np.dtype(np.float32)
+        return tuple(unflatten({k: Leaf(tuple(shape), f32)
+                                for k, (shape, _) in flat.items()})
+                     for flat in resnet.shapes(cfg))
+
+    def mapping(self, cfg) -> Mapping:
+        conv = dict(permute=(2, 3, 1, 0))  # torch OIHW -> our HWIO
+        rules = [MapRule("conv1.weight", "stem", **conv)]
+        rules += self._bn_rules("bn1.", "bn_stem.")
+        cin = cfg.widths[0]
+        for si, (w, n) in enumerate(zip(cfg.widths, cfg.blocks)):
+            for bi in range(n):
+                src = f"layer{si + 1}.{bi}."
+                dst = f"s{si}b{bi}."
+                stride = 2 if (si > 0 and bi == 0) else 1
+                rules += [MapRule(src + "conv1.weight", dst + "conv1",
+                                  **conv),
+                          MapRule(src + "conv2.weight", dst + "conv2",
+                                  **conv)]
+                rules += self._bn_rules(src + "bn1.", dst + "bn1.")
+                rules += self._bn_rules(src + "bn2.", dst + "bn2.")
+                if stride != 1 or cin != w:
+                    rules.append(MapRule(src + "downsample.0.weight",
+                                         dst + "proj", **conv))
+                    rules += self._bn_rules(src + "downsample.1.",
+                                            dst + "bn_proj.")
+                cin = w
+        rules += [MapRule("fc.weight", "fc", transpose=True),
+                  MapRule("fc.bias", "fc_b")]
+        return Mapping(rules)
+
+    @staticmethod
+    def _bn_rules(src, dst):
+        # weight/bias live in params, running statistics in the state
+        # tree: one flat native namespace, split by the two templates
+        return [MapRule(src + "weight", dst + "scale"),
+                MapRule(src + "bias", dst + "bias"),
+                MapRule(src + "running_mean", dst + "mean"),
+                MapRule(src + "running_var", dst + "var")]
+
+
+_CONVERTERS: Dict[str, Converter] = {}
+
+
+def register_converter(conv: Converter) -> Converter:
+    _CONVERTERS[conv.family] = conv
+    return conv
+
+
+def converter_for(family: str) -> Converter:
+    try:
+        return _CONVERTERS[family]
+    except KeyError:
+        raise CompatError(f"no checkpoint converter registered for "
+                          f"{family!r} (have: "
+                          f"{', '.join(sorted(_CONVERTERS))})") from None
+
+
+def families() -> list:
+    return sorted(_CONVERTERS)
+
+
+register_converter(ResNet18Converter("resnet18"))
+
+
+def _read_foreign(path):
+    p = os.fspath(path)
+    if p.endswith(_TORCH_SUFFIXES):
+        return read_torch_checkpoint(p), {}
+    return load_checkpoint(p)
+
+
+def load_pretrained(family: str, path, *, cfg=None, reduced: bool = True,
+                    unknown: str = "error", cast: bool = True
+                    ) -> LoadedCheckpoint:
+    """Load a pretrained checkpoint into native (numpy) trees.
+
+    ``path``: a ``.safetensors`` file, a sharded
+    ``*.safetensors.index.json`` (or a directory holding either), or a
+    torch pickle (by extension).  ``cfg`` overrides the architecture;
+    otherwise it comes from the checkpoint's ``repro.config`` metadata
+    when present, else the family's default.  ``unknown`` is the
+    strict-vs-ignore mode for unmapped foreign keys; ``cast=True``
+    converts leaf dtypes to the template's.
+    """
+    conv = converter_for(family)
+    foreign, metadata = _read_foreign(path)
+    cfg = conv.resolve_config(cfg, metadata, reduced)
+    native = conv.mapping(cfg).to_native(foreign, unknown=unknown)
+    return conv.build(cfg, native, metadata, cast=cast)
+
+
+def export_pretrained(family: str, cfg, params, state=None):
+    """Native trees (tensors on any device, or arrays) ->
+    ``(foreign_state_dict, metadata)`` for this family (the exact inverse
+    of :func:`load_pretrained`)."""
+    conv = converter_for(family)
+    native = flatten_tree(params)
+    if state is not None:
+        native.update(flatten_tree(state))
+    return conv.mapping(cfg).to_foreign(native), conv.export_metadata(cfg)

@@ -7,7 +7,9 @@ stacked-layer layout of ``tests/golden/compat/qwen3-4b_reference.npz``:
 ``seg0_p0.ln1.scale`` and ``seg0_p0.ssm.{in_proj, conv_w, conv_b, A_log,
 dt_bias, norm, out_proj}`` (mamba2-130m).  The port uses the same layout
 (:func:`repro_torch.models.transformer.param_shapes`), so carrying weights
-across is a check of names and shapes plus a copy.
+across is a check of names and shapes plus a copy.  The ResNet's
+``(params, state)`` trees carry across the same way
+(:func:`resnet_from_numpy`, against :func:`repro_torch.models.resnet.shapes`).
 """
 from __future__ import annotations
 
@@ -26,6 +28,23 @@ def _flatten(tree, prefix="") -> dict:
     return out
 
 
+def _carry(flat: dict, want: dict, what: str, device) -> dict:
+    """``flat`` checked against ``want`` ``{name: (shape, init)}`` by names
+    and shapes, as fp32 tensors on ``device``, flat."""
+    missing, extra = sorted(set(want) - set(flat)), sorted(set(flat) - set(want))
+    if missing or extra:
+        raise ValueError(f"parameter names differ from {what}'s: "
+                         f"missing {missing}, unexpected {extra}")
+    out = {}
+    for name, (shape, _) in want.items():
+        arr = np.asarray(flat[name], np.float32)
+        if arr.shape != tuple(shape):
+            raise ValueError(f"{name}: shape {arr.shape}, expected "
+                             f"{tuple(shape)}")
+        out[name] = torch.from_numpy(arr.copy()).to(device or "cpu")
+    return out
+
+
 def params_from_numpy(tree, cfg, device=None) -> dict:
     """The port's params for ``cfg`` from a parameter tree of numpy arrays
     (nested dicts, or flat dotted names), e.g.
@@ -35,17 +54,20 @@ def params_from_numpy(tree, cfg, device=None) -> dict:
     a missing, extra or mis-shaped leaf raises :class:`ValueError`."""
     from repro_torch.models import transformer
 
-    flat = _flatten(tree)
-    want = transformer.param_shapes(cfg)
-    missing, extra = sorted(set(want) - set(flat)), sorted(set(flat) - set(want))
-    if missing or extra:
-        raise ValueError(f"parameter names differ from {cfg.arch_id}'s: "
-                         f"missing {missing}, unexpected {extra}")
-    out = {}
-    for name, (shape, _) in want.items():
-        arr = np.asarray(flat[name], np.float32)
-        if arr.shape != tuple(shape):
-            raise ValueError(f"{name}: shape {arr.shape}, expected "
-                             f"{tuple(shape)}")
-        out[name] = torch.from_numpy(arr.copy()).to(device or "cpu")
-    return transformer.unflatten(out)
+    return transformer.unflatten(_carry(
+        _flatten(tree), transformer.param_shapes(cfg), cfg.arch_id, device))
+
+
+def resnet_from_numpy(params, state, cfg, device=None):
+    """The port's ResNet ``(params, state)`` for ``cfg`` (a
+    :class:`repro_torch.models.resnet.ResNetConfig`) from the JAX
+    package's trees of numpy arrays, e.g. ``jax.tree.map(np.asarray,
+    unzip(resnet.init(cfg, key)[0])[0])`` and its batch-norm state.
+    Names and shapes must match :func:`resnet.shapes` exactly."""
+    from repro_torch.models import resnet, transformer
+
+    p_want, s_want = resnet.shapes(cfg)
+    return (transformer.unflatten(_carry(_flatten(params), p_want,
+                                         "resnet params", device)),
+            transformer.unflatten(_carry(_flatten(state), s_want,
+                                         "resnet state", device)))

@@ -72,7 +72,7 @@ class ArchConfig:
     enc_len: int = 1500
     frontend: str = "none"
     dense_d_ff: Optional[int] = None
-    # the paper's knob: one global NumericsConfig (or, later, a policy)
+    # the paper's knob: one global NumericsConfig or a NumericsPolicy
     numerics: object = NumericsConfig(mode="exact")
     dtype: str = "bfloat16"       # activation dtype
     param_dtype: str = "float32"

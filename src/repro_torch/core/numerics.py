@@ -73,6 +73,28 @@ class NumericsConfig:
 EXACT = NumericsConfig(mode="exact")
 
 
+# The calibration tap of repro_torch.core.sensitivity: while one is
+# installed, nmatmul reports (full layer path, x, w) for every call site.
+_OPERAND_TAP = None
+
+
+def set_operand_tap(tap):
+    """Install (``tap(path, x, w)``) or clear (``tap=None``) the call-site
+    operand recorder; returns the previously installed tap so callers can
+    restore it."""
+    global _OPERAND_TAP
+    prev = _OPERAND_TAP
+    _OPERAND_TAP = tap
+    return prev
+
+
+def operand_tap_active() -> bool:
+    """True while a calibration tap is installed: call sites that bypass
+    nmatmul for exact numerics (the native conv) route through it then, so
+    the pass records their operands."""
+    return _OPERAND_TAP is not None
+
+
 def torch_dtype(name: str) -> torch.dtype:
     """The torch dtype named by a config string (``bfloat16``, ...)."""
     try:
@@ -89,8 +111,15 @@ def nmatmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     The config comes from the innermost ``numerics_scope`` (EXACT outside
     any scope).  A non-config ambient value is duck-typed as a policy and
     resolved per call site with ``amb.lookup(path)`` against the full path
-    of the active ``layer_scope`` stack.
+    of the active ``layer_scope`` stack.  An installed operand tap sees
+    ``(full path, x, w)`` first.
     """
+    if _OPERAND_TAP is not None:
+        # a scoped-policy ambient carries a prefix: the tap sees the
+        # absolute path, while resolution stays relative
+        amb, rel = _scope.current_numerics(), _scope.current_path()
+        _OPERAND_TAP(amb.full_path(rel) if hasattr(amb, "full_path") else rel,
+                     x, w)
     cfg = _scope.resolve_here()
     if cfg.mode == "exact":
         cdt = torch_dtype(cfg.compute_dtype)

@@ -1,12 +1,52 @@
 """Deterministic synthetic data (``repro.data.synthetic`` counterpart).
 
-Only the image generator of the Table III pipeline is ported so far; it is
-a numpy copy of the reference's, so the same seed gives the same images
-bit for bit.  The token and batch generators come with training.
+The image generators of Tables III and IV (:func:`gray_images`,
+:func:`cifar_like` with its :class:`DataConfig`) are numpy copies of the
+reference's, so the same seed gives the same images bit for bit.  The
+token-stream generators come with training.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    vocab: int = 32000
+    seq_len: int = 1024
+    global_batch: int = 8
+    seed: int = 0
+    kind: str = "lm"  # lm | markov | images
+
+
+def _keys(seed, step, shard):
+    return np.random.default_rng(np.uint64(seed) * 1_000_003
+                                 + np.uint64(step) * 97 + np.uint64(shard))
+
+
+def cifar_like(cfg: DataConfig, step: int, n: int = None, classes: int = 10):
+    """Synthetic 32x32 NHWC images with class-dependent structure
+    (frequency + colour statistics per class), normalised; deterministic in
+    (seed, step).  Returns ``{"images": (n, 32, 32, 3) float32, "labels":
+    (n,) int32}``."""
+    rng = _keys(cfg.seed, step, 0)
+    n = n or cfg.global_batch
+    labels = rng.integers(0, classes, n)
+    xx, yy = np.meshgrid(np.arange(32), np.arange(32))
+    images = np.empty((n, 32, 32, 3), np.float32)
+    for i in range(n):
+        c = labels[i]
+        fx, fy = 1 + (c % 5), 1 + (c // 5) * 2
+        phase = rng.uniform(0, 2 * np.pi)
+        base = np.sin(2 * np.pi * (fx * xx + fy * yy) / 32 + phase)
+        color = np.array([np.cos(c), np.sin(2 * c), np.cos(3 * c)]) * 0.5
+        img = base[..., None] * (0.5 + color) + rng.normal(0, 0.35, (32, 32, 3))
+        images[i] = img
+    mean, std = images.mean(), images.std() + 1e-6
+    return {"images": ((images - mean) / std).astype(np.float32),
+            "labels": labels.astype(np.int32)}
 
 
 def gray_images(seed: int, n: int, size: int = 128) -> np.ndarray:

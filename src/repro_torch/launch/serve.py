@@ -8,8 +8,14 @@ slots and returns the greedy continuations.
 
     python -m repro_torch.launch.serve --numerics segmented3 --batch 2
     python -m repro_torch.launch.serve --arch mamba2-130m --batch 2
+    python -m repro_torch.launch.serve --policy policy.json
 
 runs on the GPU; ``--device cpu`` runs the plain PyTorch path.
+``--policy`` serves under a per-layer
+:class:`~repro_torch.core.policy.NumericsPolicy` JSON file (either
+package's, e.g. one ``Session.auto_configure`` emitted) and prints the
+policy's modeled area / power (:meth:`Session.ppa_report`); a malformed
+or missing file exits with a one-line error.
 """
 from __future__ import annotations
 
@@ -19,20 +25,25 @@ import time
 
 import numpy as np
 
-from repro_torch.session import Session, SessionError
+from repro_torch.session import Session, SessionError, print_ppa_report
 
 
 def serve(arch: str = "qwen3-4b", batch: int = 4, prompt_len: int = 32,
           gen_len: int = 16, numerics: str = "exact", seed: int = 0,
-          params=None, cfg=None, device=None):
+          params=None, cfg=None, device=None, policy=None):
     """Serve ``arch`` (or a ready ``cfg`` + ``params``) through the
     continuous-batching engine; returns the ``(batch, gen_len)`` greedy
-    continuations.  ``numerics`` is a preset name; ``cfg`` (an
+    continuations.  ``numerics`` is a preset name; ``policy`` (a
+    NumericsPolicy or a JSON path) overrides it; ``cfg`` (an
     ``ArchConfig``) serves that config as given, e.g. at full width."""
     from repro_torch.serving import TierSpec
 
-    sess = Session(cfg if cfg is not None else arch, policy=numerics,
+    sess = Session(cfg if cfg is not None else arch,
+                   policy=policy if policy is not None else numerics,
                    seed=seed, params=params, device=device)
+    if policy is not None:
+        numerics = "policy"
+        print_ppa_report(sess.ppa_report(), tag="serve")
     eng = sess.serving_engine((TierSpec("serve", policy=sess.numerics),),
                               slots=batch, max_len=prompt_len + gen_len)
     rng = np.random.default_rng(seed)
@@ -59,13 +70,17 @@ def main(argv=None) -> int:
                     choices=["exact", "segmented3", "segmented2", "segmented1"])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--policy", default=None, metavar="POLICY_JSON",
+                    help="serve under a per-layer NumericsPolicy (JSON "
+                         "file; overrides --numerics)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch path)")
     args = ap.parse_args(argv)
     try:
         serve(args.arch, batch=args.batch, gen_len=args.gen_len,
-              numerics=args.numerics, device=args.device)
+              numerics=args.numerics, device=args.device,
+              policy=args.policy)
     except (SessionError, ServingError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -89,6 +89,39 @@ def param_shapes(cfg) -> dict:
     return out
 
 
+def block_numerics_sites(spec) -> tuple:
+    """Relative resolution paths inside one block: every ``nmatmul`` call
+    site, plus the SSD scan's backend lookup."""
+    if spec.kind == "ssm":
+        return ("ssm.in_proj", "ssm.out_proj", "ssm.scan")
+    return ("attn.wq", "attn.wk", "attn.wv", "attn.wo",
+            "mlp.wi", "mlp.wg", "mlp.wo")
+
+
+def layer_paths(cfg) -> list:
+    """All policy paths of the decoder stack and ``lm_head``, in execution
+    order: what the auto-configurer and the PPA roll-up enumerate."""
+    check_supported(cfg)
+    paths = []
+    idx = 0
+    for repeats, pattern in cfg.segments:
+        for _ in range(repeats):
+            for spec in pattern:
+                paths += [f"blocks.{idx}.{s}"
+                          for s in block_numerics_sites(spec)]
+                idx += 1
+    paths.append("lm_head")
+    return paths
+
+
+def layer_path_counts(cfg) -> dict:
+    """Instance multiplicity of paths that stand for more than one layer.
+    Every path of the port's decoders stands for one (the reference's
+    scanned encoder is not ported yet), so this is empty."""
+    check_supported(cfg)
+    return {}
+
+
 def unflatten(flat: dict) -> dict:
     """``{"a.b.c": t}`` -> ``{"a": {"b": {"c": t}}}``."""
     tree: dict = {}

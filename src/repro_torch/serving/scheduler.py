@@ -2,7 +2,7 @@
 
 The paper's accuracy knob becomes a *traffic* knob here: every request
 carries a traffic class, every class maps to an accuracy **tier** (a
-preset or :class:`~repro_torch.core.numerics.NumericsConfig` served on the same
+preset, config or per-layer policy served on the same
 resident weights), and admission into a tier's KV-slot pool is ordered by
 ``(effective priority, arrival order)``:
 
@@ -61,8 +61,8 @@ class FakeClock:
 @dataclasses.dataclass(frozen=True)
 class TierSpec:
     """One accuracy tier: a named traffic class served under ``policy``
-    (a preset name or a NumericsConfig, as ``repro_torch.session``
-    accepts) at admission ``priority``
+    (a preset name, a NumericsConfig, a NumericsPolicy or a policy JSON
+    path, as ``repro_torch.session`` accepts) at admission ``priority``
     (0 = admits first)."""
 
     name: str

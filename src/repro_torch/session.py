@@ -4,14 +4,23 @@
 >>> s = Session("qwen3-4b", policy="segmented1", device="cpu")
 >>> out = s.generate(batch=2, prompt_len=16, gen_len=8)
 >>> eng = s.serving_engine(slots=4, max_len=64)
+>>> s.ppa_report()["area_reduction"]                      # Table II roll-up
+>>> r = Session.from_pretrained("resnet18", "ckpt/", device="cpu")
+>>> logits = r.apply(images)                              # Table IV forward
+>>> res = r.auto_configure(1e-2, calib=images)            # proxy sweep
+>>> r.save_policy("policy.json")
 
 ``arch`` is ``qwen3-4b`` (dense GQA) or ``mamba2-130m`` (SSD blocks, whose
-every prefill runs the SSD scan kernel on the card).
+every prefill runs the SSD scan kernel on the card), or a
+:class:`~repro_torch.models.resnet.ResNetConfig` (see :meth:`from_resnet`
+and :meth:`from_pretrained`).
 
-``policy`` accepts a :class:`~repro_torch.core.numerics.NumericsConfig` or
-a preset name (``exact`` / ``segmented1|2|3``).  Per-layer policies
-(``NumericsPolicy`` objects and policy JSON files) arrive in a later slice
-of the port and raise :class:`SessionError` here.
+``policy`` accepts a :class:`~repro_torch.core.policy.NumericsPolicy`, a
+:class:`~repro_torch.core.numerics.NumericsConfig`, a preset name
+(``exact`` / ``segmented1|2|3``) or the path of a policy JSON file (the
+JAX package's schema; its backend names are mapped, see
+:mod:`repro_torch.core.policy`); a malformed file raises
+:class:`SessionError` with a one-line message.
 
 The segmented presets take ``backend="auto"``: the Hopper kernel for CUDA
 tensors, the plain PyTorch version for CPU tensors.  (The JAX package's
@@ -24,8 +33,9 @@ on the host a CUDA session raises.
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,15 +43,18 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.numerics import NumericsConfig
+from repro_torch.core.policy import NumericsPolicy, PolicyRule, is_policy
 
 __all__ = ["GenerateResult", "SEGMENTED_CANDIDATES", "Session",
-           "SessionError"]
+           "SessionError", "load_policy", "print_ppa_report"]
 
 
 class SessionError(RuntimeError):
     """A session-level configuration error with a one-line message."""
 
 
+# the split-float ladder: the segmented presets, and the default
+# auto-configure candidate set
 SEGMENTED_CANDIDATES: Tuple[Tuple[str, NumericsConfig], ...] = (
     ("segmented-1", NumericsConfig(mode="segmented", seg_passes=1, backend="auto")),
     ("segmented-2", NumericsConfig(mode="segmented", seg_passes=2, backend="auto")),
@@ -53,20 +66,70 @@ _PRESETS = {"exact": None,
             **{name.replace("-", ""): cfg
                for name, cfg in SEGMENTED_CANDIDATES}}
 
-_LATER = ("per-layer numerics policies (NumericsPolicy objects and policy "
-          "JSON files) arrive in a later slice of the PyTorch port")
+
+def load_policy(path: str) -> NumericsPolicy:
+    """Load a NumericsPolicy from a JSON file with one-line errors."""
+    try:
+        with open(path) as f:
+            text = f.read()
+    except OSError as e:
+        raise SessionError(
+            f"cannot read policy file {path!r}: {e.strerror or e}") from e
+    try:
+        return NumericsPolicy.from_json(text)
+    except (json.JSONDecodeError, ValueError, KeyError, TypeError) as e:
+        raise SessionError(f"invalid policy JSON in {path!r}: {e}") from e
 
 
-def _coerce_numerics(policy) -> Optional[NumericsConfig]:
-    """policy arg -> NumericsConfig override (None = keep the arch's own)."""
-    if policy is None or isinstance(policy, NumericsConfig):
+def _coerce_numerics(policy):
+    """policy arg -> Numerics override (None = keep the arch's own)."""
+    if policy is None or isinstance(policy, (NumericsConfig, NumericsPolicy)):
         return policy
+    if is_policy(policy):  # ScopedPolicy view: prefixed, not servable as-is
+        raise SessionError(
+            "a ScopedPolicy view cannot configure a session: pass the root "
+            "NumericsPolicy (views are created per layer during resolution)")
     if isinstance(policy, str):
         if policy in _PRESETS:
             return _PRESETS[policy]
-        raise SessionError(f"unknown preset {policy!r} (expected one of "
-                           f"{'/'.join(_PRESETS)}); {_LATER}")
-    raise SessionError(f"unsupported policy spec {policy!r}: {_LATER}")
+        return load_policy(policy)
+    raise SessionError(
+        f"unsupported policy spec {policy!r}: expected a NumericsConfig, "
+        f"NumericsPolicy, preset name ({'/'.join(_PRESETS)}) or a JSON path")
+
+
+def _with_backend(numerics, backend: str):
+    """Force the kernel backend on every config a Numerics can resolve to."""
+    if isinstance(numerics, NumericsConfig):
+        return dataclasses.replace(numerics, backend=backend)
+    return NumericsPolicy(
+        tuple(PolicyRule(r.pattern, dataclasses.replace(r.config,
+                                                        backend=backend))
+              for r in numerics.rules),
+        dataclasses.replace(numerics.default, backend=backend))
+
+
+def _as_policy(numerics) -> NumericsPolicy:
+    return (numerics if isinstance(numerics, NumericsPolicy)
+            else NumericsPolicy((), default=numerics))
+
+
+def _to_device(tree, device):
+    """A nested dict of numpy arrays as fp32-or-native tensors on
+    ``device`` (copied: the checkpoint's arrays may be read-only views)."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree), device=device)
+
+
+def print_ppa_report(ppa: dict, tag: str = "session") -> None:
+    """One-line summary of a :meth:`Session.ppa_report` dict."""
+    print(f"[{tag}] policy over {ppa['n_sites']} call sites: "
+          f"area {ppa['area_um2']:,.0f} um^2 "
+          f"(-{ppa['area_reduction']:.1%} vs exact), "
+          f"power {ppa['power_w']:.3f} W "
+          f"(-{ppa['power_reduction']:.1%}), "
+          f"modeled compute passes x{ppa['compute_scale']:.2f}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,16 +146,21 @@ class Session:
     """(arch, policy, backend, device) + params: the one public spec.
 
     ``arch`` is an arch id from ``repro_torch.configs`` (reduced to the
-    CPU-sized config unless ``reduced=False``) or a ready
-    :class:`~repro_torch.configs.base.ArchConfig`.  ``params`` (a nested
-    dict of tensors in the JAX package's layout, e.g. from
+    CPU-sized config unless ``reduced=False``), a ready
+    :class:`~repro_torch.configs.base.ArchConfig`, or a
+    :class:`~repro_torch.models.resnet.ResNetConfig` (with ``params`` and
+    its batch-norm ``state``; see :meth:`from_resnet`).  ``params`` (a
+    nested dict of tensors in the JAX package's layout, e.g. from
     :func:`repro_torch.compat.jax_params.params_from_numpy`) must live on
-    ``device``; without them seeded random weights are drawn there.
+    ``device``; without them an LM session draws seeded random weights
+    there.
     """
 
     def __init__(self, arch, policy=None, backend: Optional[str] = None, *,
                  seed: int = 0, reduced: bool = True, params=None,
-                 device=None):
+                 state=None, device=None):
+        from repro_torch.models.resnet import ResNetConfig
+
         if isinstance(arch, str):
             from repro_torch.configs import get_arch
 
@@ -102,47 +170,61 @@ class Session:
                 raise SessionError(str(e)) from e
             self.arch_id = arch
             self._base_cfg = base.reduced() if reduced else base
+            self._family = "lm"
         elif isinstance(arch, ArchConfig):
             self.arch_id = arch.arch_id
             self._base_cfg = arch
+            self._family = "lm"
+        elif isinstance(arch, ResNetConfig):
+            self.arch_id = "resnet18"
+            self._base_cfg = arch
+            self._family = "resnet"
         else:
             raise SessionError(f"unsupported arch spec {arch!r}: expected "
-                               f"an arch id or ArchConfig")
+                               f"an arch id, ArchConfig or ResNetConfig")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            # fp32 matmuls stand in for bf16 dots with fp32 accumulation:
-            # TF32 would round their operands
+            # fp32 matmuls stand in for bf16 dots with fp32 accumulation
+            # (and are the ResNet's exact fc): TF32 would round operands
             torch.backends.cuda.matmul.allow_tf32 = False
         self.backend = backend
         self.seed = seed
         self._numerics_override = _coerce_numerics(policy)
-        if params is not None and params["embed"].device != self.device:
-            raise SessionError(f"params live on {params['embed'].device}, "
-                               f"the session on {self.device}")
+        if params is not None:
+            leaf = params["embed" if self._family == "lm" else "stem"]
+            if leaf.device != self.device:
+                raise SessionError(f"params live on {leaf.device}, the "
+                                   f"session on {self.device}")
         self._params = params
+        self._state = state  # resnet batch-norm running statistics
 
     # -- configuration ------------------------------------------------------
 
     @property
-    def numerics(self) -> NumericsConfig:
-        """The effective numerics (override > arch default > backend)."""
+    def numerics(self):
+        """The effective Numerics (override > arch default > backend)."""
         num = (self._numerics_override
                if self._numerics_override is not None
                else self._base_cfg.numerics)
         if self.backend is not None:
-            num = dataclasses.replace(num, backend=self.backend)
+            num = _with_backend(num, self.backend)
         return num
 
     @property
-    def config(self) -> ArchConfig:
+    def config(self):
         """The arch config with this session's numerics applied."""
         return dataclasses.replace(self._base_cfg, numerics=self.numerics)
 
+    @property
+    def is_policy(self) -> bool:
+        return is_policy(self.numerics)
+
     def replace(self, **kw) -> "Session":
         """A new Session with fields replaced (policy/backend/seed/params/
-        device); params are shared unless overridden."""
+        state/device); params and state are shared unless overridden."""
         args = dict(policy=self._numerics_override, backend=self.backend,
-                    seed=self.seed, params=self._params, device=self.device)
+                    seed=self.seed, params=self._params, state=self._state,
+                    device=self.device)
         unknown = set(kw) - set(args)
         if unknown:
             raise SessionError(
@@ -151,19 +233,126 @@ class Session:
         args.update(kw)
         return Session(self._base_cfg, args["policy"], args["backend"],
                        seed=args["seed"], params=args["params"],
-                       device=args["device"])
+                       state=args["state"], device=args["device"])
 
     # -- parameters ---------------------------------------------------------
 
     @property
     def params(self):
-        """Model parameters (seeded random init on first use)."""
+        """Model parameters (seeded random init on first use for the LM
+        zoo; a ResNet session is built with its params)."""
         if self._params is None:
+            if self._family != "lm":
+                raise SessionError(
+                    "resnet sessions need params: use "
+                    "Session.from_resnet(cfg, params, state) or "
+                    "Session.from_pretrained('resnet18', path)")
             from repro_torch.models import transformer
 
             self._params = transformer.init(self.config, self.seed,
                                             self.device)
         return self._params
+
+    @classmethod
+    def from_resnet(cls, cfg, params, state, policy=None,
+                    backend: Optional[str] = None, seed: int = 0,
+                    device=None) -> "Session":
+        """Session over a ResNet: ``cfg`` is a ResNetConfig,
+        ``params``/``state`` its trees (:mod:`repro_torch.models.resnet`)
+        on ``device``."""
+        return cls(cfg, policy, backend, seed=seed, params=params,
+                   state=state, device=device)
+
+    @classmethod
+    def from_pretrained(cls, family: str, path, policy=None,
+                        backend: Optional[str] = None, *, cfg=None,
+                        reduced: bool = True, unknown: str = "error",
+                        cast: bool = True, seed: int = 0,
+                        device=None) -> "Session":
+        """A Session over pretrained weights (:mod:`repro_torch.compat`).
+
+        ``family`` names a registered checkpoint converter (``resnet18``);
+        ``path`` is a safetensors file, a sharded
+        ``*.safetensors.index.json`` (or a directory holding either), or a
+        torch pickle.  The architecture comes from ``cfg`` when given,
+        else the checkpoint's ``repro.config`` metadata, else the family's
+        default.  ``unknown``/``cast`` go to
+        :func:`repro_torch.compat.load_pretrained`; interop failures raise
+        one-line :class:`repro_torch.compat.CompatError`\\ s.  The weights
+        are copied to ``device`` (``cuda`` unless ``"cpu"``).
+        """
+        from repro_torch import compat
+
+        dev = resolve_device(device)
+        loaded = compat.load_pretrained(family, path, cfg=cfg,
+                                        reduced=reduced, unknown=unknown,
+                                        cast=cast)
+        return cls(loaded.cfg, policy, backend, seed=seed,
+                   params=_to_device(loaded.params, dev),
+                   state=(None if loaded.state is None
+                          else _to_device(loaded.state, dev)),
+                   device=dev)
+
+    def export(self, path) -> None:
+        """Write this session's params (+ ResNet batch-norm state) as one
+        safetensors checkpoint in the family's foreign naming scheme: the
+        exact inverse of :meth:`from_pretrained`, so an export/reload round
+        trip is bit-exact."""
+        from repro_torch import compat
+
+        foreign, meta = compat.export_pretrained(
+            self.arch_id, self._base_cfg, self.params, self._state)
+        compat.write_safetensors(path, foreign, meta)
+
+    # -- layer enumeration / PPA -------------------------------------------
+
+    def layer_paths(self) -> list:
+        if self._family == "resnet":
+            from repro_torch.models import resnet
+
+            return resnet.layer_paths(self._base_cfg)
+        from repro_torch.models import transformer
+
+        return transformer.layer_paths(self.config)
+
+    def layer_path_counts(self) -> Mapping[str, int]:
+        if self._family == "resnet":
+            return {}
+        from repro_torch.models import transformer
+
+        return transformer.layer_path_counts(self.config)
+
+    def ppa_report(self) -> dict:
+        """Modeled PPA of this session's numerics over every call site: the
+        Table II area/power roll-up plus the pass scale
+        (:func:`repro_torch.launch.hlo_analysis.policy_ppa_summary`)."""
+        from repro_torch.launch import hlo_analysis
+
+        return hlo_analysis.policy_ppa_summary(
+            _as_policy(self.numerics), self.layer_paths(),
+            counts=self.layer_path_counts())
+
+    def save_policy(self, path: str) -> None:
+        """Write this session's numerics as a policy JSON file (loadable by
+        either package)."""
+        with open(path, "w") as f:
+            f.write(_as_policy(self.numerics).to_json())
+
+    # -- forward ------------------------------------------------------------
+
+    @torch.inference_mode()
+    def apply(self, images) -> torch.Tensor:
+        """ResNet inference under the session numerics: NHWC ``images``
+        (numpy or tensor) -> logits on the session's device."""
+        if self._family != "resnet":
+            raise SessionError("apply(images) is the ResNet entry point; "
+                               "use generate() for the LM zoo")
+        from repro_torch.models import resnet
+
+        x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
+        logits, _ = resnet.apply(self.params, self._state, x, self.config,
+                                 train=False)
+        return logits
 
     # -- generation ---------------------------------------------------------
 
@@ -181,6 +370,9 @@ class Session:
         decode always advances the full batch, so a row's tokens do not
         depend on other rows finishing.
         """
+        if self._family != "lm":
+            raise SessionError("generate() is the LM entry point; use "
+                               "apply(images) for ResNet sessions")
         from repro_torch.models import transformer
 
         cfg = self.config
@@ -243,6 +435,9 @@ class Session:
         (default 16), ``pages`` (default ``slots * ceil(max_len /
         page_size)``) and ``prefill_chunk`` (default 32) size the pool and
         the chunked prefill."""
+        if self._family != "lm":
+            raise SessionError("serving_engine() is the LM entry point; "
+                               "ResNet sessions have no decode loop")
         from repro_torch.serving import DEFAULT_TIERS, Engine
 
         tiers = DEFAULT_TIERS if tiers is None else tuple(tiers)
@@ -250,3 +445,84 @@ class Session:
                                    page_size=page_size, pages=pages,
                                    prefill_chunk=prefill_chunk,
                                    clock=clock, aging=aging)
+
+    # -- auto-configuration (the sweep) ------------------------------------
+
+    def auto_configure(self, budget: float, calib=None, candidates=None,
+                       method: str = "proxy", default=None,
+                       verbose: bool = False):
+        """Budget-driven per-layer numerics selection over this session's
+        network; adopts the emitted policy as the session numerics and
+        returns the :class:`repro_torch.core.sweep.AutoConfigResult`.
+
+        ``calib`` is the calibration input: an image batch for ResNet
+        sessions (required), a token batch dict ``{"tokens": ...}`` for
+        the LM zoo (default: seeded random tokens, 2 x 16).
+        ``candidates`` is a ``(name, NumericsConfig)`` list,
+        ``"segmented"`` (default: the split-float ladder) or
+        ``"emulated"`` (the bit-level Pareto designs).
+        ``method="proxy"`` fits the composed-error model from ONE
+        instrumented pass (:mod:`repro_torch.core.sensitivity`);
+        ``"greedy"`` measures the network per candidate assignment.
+        """
+        from repro_torch.core import sweep
+        from repro_torch.core.metrics import mred
+
+        if candidates is None or candidates == "segmented":
+            cand: Optional[Sequence] = list(SEGMENTED_CANDIDATES)
+        elif candidates == "emulated":
+            cand = None  # sweep's default: the emulated Pareto frontier
+        else:
+            cand = list(candidates)
+
+        params = self.params
+        if self._family == "resnet":
+            from repro_torch.models import resnet
+
+            if calib is None:
+                raise SessionError(
+                    "resnet auto_configure needs a calibration image batch "
+                    "(calib=images)")
+            images = torch.as_tensor(calib, dtype=torch.float32,
+                                     device=self.device)
+            # the reference is the exact fp32 forward, whatever the default
+            ref_numerics = NumericsConfig(mode="exact",
+                                          compute_dtype="float32")
+            default = default or ref_numerics
+
+            def forward(numerics):
+                acfg = dataclasses.replace(self._base_cfg, numerics=numerics)
+                with torch.no_grad():
+                    return resnet.apply(params, self._state, images, acfg,
+                                        train=False)[0]
+        else:
+            from repro_torch.models import transformer
+
+            cfg = self.config
+            if calib is None:
+                rng = np.random.default_rng(self.seed)
+                calib = {"tokens": rng.integers(0, cfg.vocab, (2, 16))}
+            batch = {"tokens": torch.as_tensor(np.asarray(calib["tokens"]),
+                                               dtype=torch.int64,
+                                               device=self.device)}
+            # the default must match the network's own exact numerics
+            # (bf16 for the LM zoo) so the baseline reads as zero error
+            default = ref_numerics = default or NumericsConfig(mode="exact")
+
+            def forward(numerics):
+                pcfg = dataclasses.replace(cfg, numerics=numerics)
+                with torch.no_grad():
+                    hidden, _ = transformer.backbone(params, pcfg, batch)
+                    return transformer.logits_fn(params, pcfg, hidden)
+
+        ref = forward(ref_numerics).cpu().numpy().astype(np.float64)
+
+        def eval_fn(policy):
+            return mred(forward(policy), ref)
+
+        res = sweep.auto_configure(eval_fn, self.layer_paths(), budget,
+                                   candidates=cand, default=default,
+                                   method=method, verbose=verbose,
+                                   device=self.device)
+        self._numerics_override = res.policy
+        return res

@@ -3,12 +3,14 @@
 - no module under ``src/repro_torch/``, and not ``chip_smoke.py``, imports
   ``jax`` or anything of the JAX package ``repro``;
 - the entry points run on CUDA unless asked for the CPU: without CUDA,
-  ``Session``, the engine's runner, ``serve`` and the Table III driver
-  raise instead of carrying on on the CPU.
+  ``Session`` (and ``Session.from_resnet`` / ``from_pretrained``), the
+  engine's runner, ``serve`` and the Table II, III and IV drivers raise
+  instead of carrying on on the CPU.
 """
 import ast
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -57,3 +59,46 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     assert out.shape == (1, 2)
     t = table3_image.run(n_images=1, size=8, device="cpu")
     assert sorted(t.psnr) == sorted(table3_image.MULTS)
+
+
+def test_resnet_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
+    from repro_torch.bench import table2_ppa, table4_resnet
+    from repro_torch.models import resnet
+    from repro_torch.session import Session
+
+    cfg = resnet.ResNetConfig(widths=(4, 8), blocks=(1, 1))
+    params, state = resnet.init(cfg, 0, "cpu")
+    fixture = ROOT / "tests" / "golden" / "compat" / "resnet18"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: Session.from_resnet(cfg, params, state),
+                 lambda: Session.from_pretrained("resnet18", fixture),
+                 lambda: table2_ppa.run(n_samples=10),
+                 lambda: table4_resnet.run(eval_n=1, cfg=cfg, designs=[]),
+                 lambda: table4_resnet.run_auto(calib_n=1, cfg=cfg)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # asked for the CPU, each of them runs there
+    sess = Session.from_resnet(cfg, params, state, device="cpu")
+    assert sess.apply(np.zeros((1, 8, 8, 3), np.float32)).shape == (1, 10)
+    assert Session.from_pretrained("resnet18", fixture,
+                                   device="cpu").device.type == "cpu"
+    table2_ppa.run(device="cpu", n_samples=10)
+    rows = table4_resnet.run(device="cpu", eval_n=1, cfg=cfg, designs=[])
+    assert set(rows) == {"Exact"}
+
+
+def test_sweep_refuses_the_cpu_unless_asked(monkeypatch):
+    """The emulated sweep (and the auto-configurer's default candidates,
+    drawn from it) runs on the card unless the caller asks for the CPU."""
+    from repro_torch.core import sweep
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: sweep.sweep(n_samples=10),
+                 lambda: sweep.recommend(1.0, n_samples=10),
+                 lambda: sweep.pareto_candidates(n_samples=10),
+                 lambda: sweep.auto_configure(lambda p: 0.0, ["a"], 1e-3)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert len(sweep.sweep(n_samples=10, device="cpu")) == \
+        len(sweep.SWEEPABLE)
+    assert sweep.recommend(1.0, n_samples=10, device="cpu").mred <= 1.0

@@ -130,7 +130,9 @@ def test_nmatmul_ambient_resolution(rng):
 
 
 def test_session_rejects_policies_of_later_slices(tmp_path):
-    with pytest.raises(SessionError, match="later slice"):
+    # policy files load since the ResNet slice: a missing one is a
+    # one-line SessionError (tests/test_torch_policy.py loads real ones)
+    with pytest.raises(SessionError, match="cannot read policy file"):
         Session("qwen3-4b", str(tmp_path / "policy.json"), device="cpu")
     with pytest.raises(SessionError, match="unknown Session.replace"):
         Session("qwen3-4b", device="cpu").replace(mesh="multi")
