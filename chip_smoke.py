@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Eight phases, each printing one line (phases 5 and 8 a few); any failed
-check ends the run with a nonzero exit and no result line:
+Twelve phases, each printing one line (phases 5, 11 and 12 a few); any
+failed check ends the run with a nonzero exit and no result line:
 
 1. device: the card, its power limit, torch and the kernels' build time
    (every kernel is built from ``src/repro_torch/kernels/csrc/`` here);
@@ -58,22 +58,47 @@ check ends the run with a nonzero exit and no result line:
    ``Session.generate``, and the prefill logits of a full-width prompt of
    each served length through the kernels agree with the plain route's on
    the card;
-8. resnet: the paper's Table IV network.  The committed resnet18
+8. train-grad: one full-width mamba2-130m training step (8 x 128 tokens,
+   remat full) through the kernels and through the plain route on the
+   same params and batch: with fp32 activations under exact (K3) and
+   segmented3 (K1 and K3) every leaf's gradient within 2**-6 of the plain
+   route's largest; with the config's bf16 activations under segmented3
+   finite gradients, the difference printed beside the plain route's own
+   spread when its K1 outputs move by one ulp (the early layers'
+   gradients are chaotic there at init); K1 and K3 launches a step (the
+   remat recompute runs each forward twice);
+9. train-qwen3: four full-width qwen3-4b steps (8 x 128 tokens) through
+   ``repro_torch.launch.train.train`` (AdamW, fp32 moments, remat full, 8
+   loss chunks): finite losses, the first near sqrt(d_model) (the
+   untrained tied model predicts its input token), parameters changed;
+   ms a step, tokens/s, peak memory, and the last step under
+   ``torch.profiler``;
+10. train-mamba2: full-width mamba2-130m trained 30 steps (lr 3e-3), the
+    loss falling, K3 launches counted, the last step profiled; then the
+    reduced qwen3-4b trained 20 steps with a checkpoint every 10, and a
+    second run restored from the step-10 checkpoint alone ends on the
+    same bits;
+11. train-resnet: Table IV's ResNet-18 at full width trained as the
+    reference trains it (120 steps of 64 ``cifar_like`` images, AdamW;
+    two short trainings first, equal bit for bit), then top-1 on the reference's 48 evaluation images under exact (at
+    least 0.9), segmented 1/2/3 (K1, 21 launches a forward) and the eight
+    designs emulated, beside the paper's values
+    (``chiprun_out/chip_smoke_train.json``);
+12. resnet: the paper's Table IV network.  The committed resnet18
    checkpoint loads through ``Session.from_pretrained`` onto the card bit
-   for bit equal to ``resnet18_reference.npz``; then full-width ResNet-18
-   (64/128/256/512, seeded weights, batch-norm statistics from one
-   train-mode forward) on 256 ``cifar_like`` images: exact (the native
-   conv with TF32 off) beside the same forward with TF32 on and the fp32
-   im2col route; segmented 1/2/3 through the segmented matmul kernel, 21
-   launches a forward, every conv within 64 ulps of the plain version on
-   the same operands and the logits within 2**-6 of the plain route's;
-   the kernel timed at stage 0's conv shape (M 262144, K 576, N 64); the
-   eight Table IV designs emulated on 8 images (argmax agreement and
-   logits MRED against exact); and the proxy auto-configurer on 32
-   calibration images, whose emitted policy then runs.  ms a forward per
-   mode on the host clock around a synced call, and one forward per mode
-   (exact, segmented3, emulated AC5-5) under ``torch.profiler``: device
-   time by kernel group and the card's busy share
+   for bit equal to ``resnet18_reference.npz``; then the full-width
+   ResNet-18 trained in phase 11 on 256 ``cifar_like`` images: top-1 and
+   argmax agreement per mode; exact (the native conv with TF32 off) beside
+   the same forward with TF32 on and the fp32 im2col route; segmented
+   1/2/3 through the segmented matmul kernel, 21 launches a forward,
+   every conv within 64 ulps of the plain version on the same operands and
+   the logits within 2**-6 of the plain route's; the kernel timed at
+   stage 0's conv shape (M 262144, K 576, N 64); the eight designs' rows
+   from phase 11; and the proxy auto-configurer on 32 calibration images,
+   whose emitted policy then runs.  ms a forward per mode on the host
+   clock around a synced call, and one forward per mode (exact,
+   segmented3, emulated AC5-5) under ``torch.profiler``: device time by
+   kernel group and the card's busy share
    (``chiprun_out/chip_smoke_resnet.json``).
 
 Then one JSON line on the kernels, the card's name and power limit, and
@@ -117,6 +142,8 @@ SERVE_LENGTHS = (40, 77, 150)
 # bit-level datapath is O(M * N * K) elementwise work)
 RESNET_BATCH = 256
 EMULATED_BATCH = 8
+# the training phases' batch: sequences of TRAIN_SEQ tokens
+TRAIN_SEQ, TRAIN_BATCH = 128, 8
 GOLDEN = ROOT / "tests" / "golden" / "afpm_golden.json"
 BENCH_CPU = ROOT / "benchmarks" / "BENCH_cpu_ci.json"
 # the timed AFPM designs and the template arguments (ACL, FULL, COND, COMP,
@@ -859,6 +886,424 @@ def phase_mamba2():
     return launches
 
 
+def train_batch(cfg, step: int, seq_len: int, batch: int):
+    """A seeded batch of the training token stream on the card."""
+    import torch
+
+    from repro_torch.data.synthetic import DataConfig, lm_batch
+
+    return {k: torch.from_numpy(v).to("cuda") for k, v in lm_batch(
+        DataConfig(vocab=cfg.vocab, seq_len=seq_len, global_batch=batch,
+                   seed=0), step).items()}
+
+
+def _step_grads(params, cfg, batch):
+    """(loss, gradients in leaf order, (K1, K3) launches) of one step."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.kernels import ssd_scan as k3
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+
+    k1.afpm_matmul.launches = k3.ssd_scan.launches = 0
+    loss, g = steps.grads_of(transformer.loss_fn, params, cfg, batch)
+    torch.cuda.synchronize()
+    out = (float(loss), [t.clone() for t in tree_util.leaves(g)],
+           (k1.afpm_matmul.launches, k3.ssd_scan.launches))
+    steps.clear_grads(params)
+    return out
+
+
+def _leaf_errs(names, got, want):
+    """Each leaf's largest difference in units of ``want``'s largest;
+    raises on a missing or non-finite gradient."""
+    import torch
+
+    errs = {}
+    for name, a, b in zip(names, got, want):
+        if a is None or not (torch.isfinite(a).all()
+                             and torch.isfinite(b).all()):
+            raise AssertionError(f"train-grad: {name} has no finite "
+                                 f"gradient")
+        errs[name] = rel_err(a, b) if b.abs().max() > 0 \
+            else a.abs().max().item()
+    return errs
+
+
+def phase_train_grad():
+    """One full-width mamba2-130m training step's gradients through the
+    kernels (K3 in every forward, K1 under segmented3) against the plain
+    route's, on the same params and batch.
+
+    Held leaf by leaf within 2**-6 with fp32 activations.  With the
+    config's bf16 activations the gradients of the early layers are
+    chaotic at init: the residual stream carries the sqrt(d)-scaled
+    embedding (about 28 an element, a bf16 ulp of 0.125), so an fp32 ulp
+    anywhere upstream can move a rounding of it, and the gradients move
+    with it.  There the step is held to finite gradients, and the
+    difference is printed beside the plain route's own spread when its
+    K1 outputs are nudged by one ulp."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer
+    from repro_torch.numerics import NumericsConfig
+
+    cfg = get_arch("mamba2-130m")
+    assert cfg.remat == "full" and cfg.n_layers == 24
+    params = transformer.init(cfg, seed=0, device="cuda")
+    batch = train_batch(cfg, 0, TRAIN_SEQ, TRAIN_BATCH)
+    names = [n for n, _ in tree_util.named(params)]
+    seg3 = dict(mode="segmented", seg_passes=3)
+    # remat "full": every block's forward runs again in the backward
+    want = {"exact": (0, 2 * cfg.n_layers),
+            "segmented3": (4 * cfg.n_layers, 2 * cfg.n_layers)}
+    worst, counts, losses = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        for mode, kw in (("exact", {}), ("segmented3", seg3)):
+            if dtype == "bfloat16" and mode == "exact":
+                continue
+            run = {}
+            for backend in ("hopper", "torch"):
+                c = dataclasses.replace(cfg, dtype=dtype, numerics=(
+                    NumericsConfig(backend=backend, **kw)))
+                run[backend] = _step_grads(params, c, batch)
+            key = f"{mode}/{dtype}"
+            losses[key] = (run["hopper"][0], run["torch"][0])
+            counts[key] = run["hopper"][2]
+            if counts[key] != want[mode] or run["torch"][2] != (0, 0):
+                raise AssertionError(
+                    f"train-grad {key}: (K1, K3) launched {counts[key]} "
+                    f"times a step (plain route {run['torch'][2]}), "
+                    f"expected {want[mode]}")
+            errs = _leaf_errs(names, run["hopper"][1], run["torch"][1])
+            worst[key] = max(errs.items(), key=lambda kv: kv[1])
+            if dtype == "float32" and worst[key][1] > LOGIT_BOUND:
+                raise AssertionError(
+                    f"train-grad {key}: {worst[key][0]} kernel-route "
+                    f"gradient {worst[key][1]:.3g} of the plain route's "
+                    f"largest > {LOGIT_BOUND}")
+            if dtype == "bfloat16":
+                # the plain route against itself, its K1 outputs one ulp up
+                real = ref.afpm_matmul_ref
+
+                def nudged(x, w, passes=3):
+                    out = real(x, w, passes)
+                    up = torch.nextafter(out, torch.full_like(out, 1e38))
+                    return out + (up - out).detach()    # the same gradient
+
+                ref.afpm_matmul_ref = nudged
+                try:
+                    c = dataclasses.replace(cfg, numerics=NumericsConfig(
+                        backend="torch", **kw))
+                    spread = _leaf_errs(names, _step_grads(params, c,
+                                                           batch)[1],
+                                        run["torch"][1])
+                finally:
+                    ref.afpm_matmul_ref = real
+                worst["plain one-ulp spread/bfloat16"] = max(
+                    spread.items(), key=lambda kv: kv[1])
+    print(f"[train-grad] mamba2-130m full width, one training step of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens (remat full), kernel route "
+          f"against plain route on the same params and batch: every one of "
+          f"{len(names)} leaves has a finite gradient; "
+          + "; ".join(f"{k}: loss {losses[k][0]:.6f} (plain {losses[k][1]:.6f}"
+                      f"), K1 {counts[k][0]} and K3 {counts[k][1]} launches "
+                      f"a step, worst leaf {worst[k][0]} {worst[k][1]:.3g} of "
+                      f"the plain route's largest" for k in losses)
+          + f" (bound {LOGIT_BOUND:.3g} with fp32 activations; not held "
+          f"with bf16, where the plain route's own gradients move by "
+          f"{worst['plain one-ulp spread/bfloat16'][1]:.3g} (worst leaf "
+          f"{worst['plain one-ulp spread/bfloat16'][0]}) when its K1 "
+          f"outputs move by one fp32 ulp)")
+    del params
+    return dict(k1=counts["segmented3/bfloat16"][0],
+                k3=counts["segmented3/bfloat16"][1],
+                worst={k: list(v) for k, v in worst.items()},
+                losses=losses)
+
+
+class _Watched:
+    """The trainer's straggler watchdog, kept so that the phase can read
+    the per-step times the trainer records (host clock around a step that
+    ends with its loss copied to the host), and call ``on_step`` after
+    each step."""
+    last = None
+    on_step = None
+
+    @classmethod
+    def install(cls, module):
+        base = module.StepWatchdog
+
+        class Watchdog(base):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                cls.last = self
+
+            def record(self, worker, duration_s):
+                super().record(worker, duration_s)
+                if cls.on_step is not None:
+                    cls.on_step()
+
+        module.StepWatchdog = Watchdog
+        return base
+
+
+def _profile_last_step(n_steps: int):
+    """A profiler that records the last of ``n_steps`` trainer steps, and
+    the ``on_step`` hook that starts and stops it (called after each
+    step's record)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    done = [0]
+
+    def on_step():
+        done[0] += 1
+        if done[0] == n_steps - 1:
+            prof.start()
+        elif done[0] == n_steps:
+            prof.stop()
+
+    return prof, on_step
+
+
+def _device_groups(prof, wall_ms: float) -> dict:
+    """Device ms by kernel group of a finished profile of a language
+    model's step (no convs), and the busy share of ``wall_ms``."""
+    import torch
+
+    groups, n = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            g = kernel_group(e.name, convs=False)
+            groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
+            n += 1
+    busy = sum(groups.values())
+    return dict(step_ms=wall_ms, device_ms=busy, busy_share=busy / wall_ms,
+                kernels=n, groups=dict(sorted(groups.items(),
+                                              key=lambda kv: -kv[1])))
+
+
+def _profile_text(pr: dict) -> str:
+    return (f"{pr['step_ms']:.1f} ms, device {pr['device_ms']:.1f} ms "
+            f"({100 * pr['busy_share']:.0f}% busy, {pr['kernels']} kernels: "
+            + ", ".join(f"{g} {v:.1f}" for g, v in pr["groups"].items())
+            + ")")
+
+
+def phase_train_qwen3():
+    """Four full-width qwen3-4b training steps through the trainer's own
+    function: AdamW with fp32 moments, remat full, 8 loss chunks; the last
+    step under torch.profiler."""
+    import math
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as train_mod
+
+    cfg = get_arch("qwen3-4b")
+    assert (cfg.remat, cfg.loss_batch_chunks, cfg.moment_dtype) == \
+        ("full", 8, "float32")
+    n_steps = 4
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = _Watched.install(train_mod)
+    prof, _Watched.on_step = _profile_last_step(n_steps)
+    try:
+        t0 = time.perf_counter()
+        params, opt, losses = train_mod.train(
+            "qwen3-4b", reduced=False, steps=n_steps, seq_len=TRAIN_SEQ,
+            batch=TRAIN_BATCH, device="cuda", log_every=1)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    finally:
+        train_mod.StepWatchdog, _Watched.on_step = base, None
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_s = list(_Watched.last.durations[0])
+    ms = 1e3 * statistics.median(step_s[1:n_steps - 1])
+    # the untrained model's loss: the tied, unit-variance embedding enters
+    # at sqrt(d) scale and dominates the final norm, so the logit of the
+    # input token itself is about |e|^2 / sqrt(d) = sqrt(d) and the others
+    # are of unit scale; the Markov stream's next token is another, so the
+    # first loss is about sqrt(d) (50.6 here), not ln(vocab)
+    ln_v, want0 = math.log(cfg.vocab), cfg.d_model ** 0.5
+    if not all(math.isfinite(l) for l in losses) or \
+            abs(losses[0] - want0) > 1.0:
+        raise AssertionError(f"train-qwen3 losses {losses}: not finite or "
+                             f"step 0 not within 1.0 of sqrt(d_model) "
+                             f"{want0:.2f}")
+    # params changed: the norms' scales start at zero, and the embedding
+    # is the seeded generator's first draw
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    embed0 = torch.randn(params["embed"].shape, generator=gen, device="cuda")
+    moved = (params["embed"] - embed0).abs().max().item()
+    del embed0
+    if moved == 0 or not params["final_norm"]["scale"].abs().max() > 0:
+        raise AssertionError("train-qwen3: parameters did not change")
+    profile_out = _device_groups(prof, 1e3 * step_s[-1])
+    print(f"[train-qwen3] qwen3-4b full width ({cfg.param_count() / 1e9:.2f} "
+          f"B params), {n_steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+          f"through launch.train.train (AdamW fp32 moments, remat full, "
+          f"{cfg.loss_batch_chunks} loss chunks) in {total_s:.1f} s: losses "
+          + ", ".join(f"{l:.4f}" for l in losses)
+          + f" (step 0 expected near sqrt(d_model) {want0:.2f}; ln vocab "
+          f"{ln_v:.2f}); {ms:.1f} ms a step (median of steps "
+          f"1-{n_steps - 2}, host clock around a synced step), "
+          f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} tokens/s; peak memory "
+          f"{peak_gb:.2f} GB; step {n_steps - 1} under torch.profiler "
+          + _profile_text(profile_out))
+    del params, opt
+    torch.cuda.empty_cache()
+    return dict(ms=ms, peak_gb=peak_gb, losses=losses, profile=profile_out)
+
+
+def phase_train_mamba2():
+    """Full-width mamba2-130m trained for 30 steps, the last under
+    torch.profiler; then a checkpoint restart of the reduced qwen3-4b
+    config, bit for bit."""
+    import math
+    import shutil
+    import statistics
+
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.kernels import ssd_scan as k3
+    from repro_torch.launch import train as train_mod
+
+    cfg = get_arch("mamba2-130m")
+    n_steps = 30
+    base = _Watched.install(train_mod)
+    prof, _Watched.on_step = _profile_last_step(n_steps)
+    try:
+        k1.afpm_matmul.launches = k3.ssd_scan.launches = 0
+        _, _, losses = train_mod.train(
+            "mamba2-130m", reduced=False, steps=n_steps, seq_len=TRAIN_SEQ,
+            batch=TRAIN_BATCH, lr=3e-3, device="cuda", log_every=10)
+        torch.cuda.synchronize()
+        launches = (k1.afpm_matmul.launches, k3.ssd_scan.launches)
+    finally:
+        train_mod.StepWatchdog, _Watched.on_step = base, None
+    # the watchdog keeps the last 16 steps; the profiled one is left out
+    step_s = list(_Watched.last.durations[0])
+    ms = 1e3 * statistics.median(step_s[:-1])
+    profile_out = _device_groups(prof, 1e3 * step_s[-1])
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if not all(math.isfinite(l) for l in losses) or not last < first:
+        raise AssertionError(f"train-mamba2: losses {losses} not finite or "
+                             f"not falling ({first:.4f} -> {last:.4f})")
+    if launches != (0, 2 * cfg.n_layers * n_steps):
+        raise AssertionError(f"train-mamba2: (K1, K3) launched {launches} "
+                             f"times, expected (0, {2 * cfg.n_layers} a "
+                             f"step)")
+
+    # restart: 20 steps with a checkpoint every 10; a second run resumes
+    # from the first's step-10 checkpoint alone and must end on the same
+    # bits
+    ck = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    kw = dict(steps=20, seq_len=32, batch=4, ckpt_every=10, device="cuda",
+              log_every=100)
+    p1, o1, l1 = train_mod.train("qwen3-4b", ckpt_dir=str(ck / "a"), **kw)
+    (ck / "b").mkdir(parents=True)
+    shutil.copytree(ck / "a" / "step_000000010", ck / "b" / "step_000000010")
+    p2, o2, l2 = train_mod.train("qwen3-4b", ckpt_dir=str(ck / "b"), **kw)
+    leaves1, leaves2 = tree_util.leaves((p1, o1)), tree_util.leaves((p2, o2))
+    same = sum(bool(torch.equal(a, b)) for a, b in zip(leaves1, leaves2))
+    if same != len(leaves1) or l2 != l1[10:] or \
+            ckpt_io.all_steps(str(ck / "b")) != [10, 20]:
+        raise AssertionError(f"restart: {same} of {len(leaves1)} leaves "
+                             f"equal bit for bit; losses {l1[10:]} vs {l2}")
+    shutil.rmtree(ck, ignore_errors=True)
+    print(f"[train-mamba2] mamba2-130m full width, {n_steps} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, lr 3e-3: loss "
+          + " ".join(f"{l:.3f}" for l in losses)
+          + f"; first-5 mean {first:.4f} -> last-5 mean {last:.4f}; "
+          f"{ms:.1f} ms a step (median of steps {n_steps - 16}-"
+          f"{n_steps - 2}), {launches[1]} K3 launches "
+          f"({2 * cfg.n_layers} a step: forward and remat recompute); "
+          f"restart of reduced "
+          f"qwen3-4b from its step-10 checkpoint: all {len(leaves1)} "
+          f"leaves of params and optimizer state equal the uninterrupted "
+          f"run's bit for bit after step 20, losses equal; step "
+          f"{n_steps - 1} under torch.profiler " + _profile_text(profile_out))
+    return dict(k3=launches[1], ms=ms, losses=losses, profile=profile_out)
+
+
+def phase_train_resnet():
+    """Table IV's ResNet-18, full width, trained as the reference trains
+    it; then top-1 on the reference's 48 evaluation images under exact,
+    segmented 1/2/3 (K1 at im2col shapes) and the eight designs."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.bench import table4_resnet
+    from repro_torch.core.metrics import top_k_accuracy
+    from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.session import Session
+
+    # two short trainings end on the same bits (deterministic cuDNN)
+    runs = [table4_resnet.train_resnet(steps=6, batch=64, width_mult=1.0,
+                                       device="cuda", log_every=100)
+            for _ in range(2)]
+    a, b = (tree_util.leaves((r[1], r[2])) for r in runs)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("train-resnet: two trainings from one seed "
+                             "differ")
+    del runs, a, b
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg, params, state, losses = table4_resnet.train_resnet(
+        steps=120, batch=64, width_mult=1.0, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    assert cfg.widths == (64, 128, 256, 512)
+    sess = Session.from_resnet(cfg, params, state, device="cuda")
+    rows = table4_resnet.run(sess=sess, eval_n=48)
+    ev = table4_resnet.eval_batch(48)
+    labels = torch.as_tensor(ev["labels"])
+    exact = sess.apply(ev["images"])
+    seg = {}
+    for passes in (1, 2, 3):
+        k1.afpm_matmul.launches = 0
+        logits = sess.replace(policy=f"segmented{passes}").apply(ev["images"])
+        torch.cuda.synchronize()
+        if k1.afpm_matmul.launches != 21 or not torch.isfinite(logits).all():
+            raise AssertionError(f"train-resnet segmented{passes}: "
+                                 f"{k1.afpm_matmul.launches} K1 launches")
+        seg[passes] = (top_k_accuracy(logits, labels, 1),
+                       (logits.argmax(-1) == exact.argmax(-1)).float()
+                       .mean().item())
+    top1 = rows["Exact"]["top1"]
+    if top1 < 0.9:
+        raise AssertionError(f"train-resnet: exact top-1 {top1:.3f} < 0.9")
+    print(f"[train-resnet] ResNet-18 full width: two 6-step trainings "
+          f"equal bit for bit; trained 120 steps x 64 images (AdamW lr 3e-3 "
+          f"cosine, TF32 off) in {train_s:.1f} s: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; Table IV top-1 on 48 images "
+          f"(paper beside it): exact {top1:.4f} ({table4_resnet.PAPER['Exact'][2]})"
+          + "".join(f"; segmented{p} {seg[p][0]:.4f} (agreement "
+                    f"{100 * seg[p][1]:.1f}%)" for p in (1, 2, 3))
+          + "".join(f"; {n} {r['top1']:.4f} ({table4_resnet.PAPER[n][2]}, "
+                    f"d {r['d_top1']:+.4f}, agreement {100 * r['agree']:.1f}%,"
+                    f" MRED {r['mred']:.3g}, {r['ms'] / 1e3:.2f} s)"
+                    for n, r in rows.items() if n != "Exact"))
+    return dict(cfg=cfg, params=params, state=state, rows=rows, seg=seg,
+                train_s=train_s)
+
+
 def host_ms(fn, repeats: int):
     """Median host milliseconds of a synced call of ``fn`` (one warmup call
     first, excluded), and the last call's result."""
@@ -877,14 +1322,20 @@ def host_ms(fn, repeats: int):
     return statistics.median(times), out
 
 
-def kernel_group(name: str) -> str:
-    """The group a device kernel's time is reported under (phase 8)."""
+def kernel_group(name: str, convs: bool = True) -> str:
+    """The group a device kernel's time is reported under (phases 9-12);
+    ``convs=False`` for a model without cuDNN convs, whose cuBLAS kernels
+    may carry conv-like names (``xmma``)."""
     n = name.lower()
     if "afpm" in n:
         return "K1"
-    if any(k in n for k in ("conv", "fprop", "xmma", "implicit", "cudnn",
-                            "winograd")):
+    if "ssd_scan" in n or "chunk_kernel" in n or "output_kernel" in n:
+        return "K3"
+    if convs and any(k in n for k in ("conv", "fprop", "xmma", "implicit",
+                                      "cudnn", "winograd")):
         return "cudnn conv"
+    if not convs and any(k in n for k in ("xmma", "sgemm", "gemv")):
+        return "matmul"
     if any(k in n for k in ("gemm", "cutlass", "matmul")):
         return "matmul"
     if any(k in n for k in ("cat", "pad", "copy", "transpose", "nchw",
@@ -927,14 +1378,13 @@ def rel_err(got, want) -> float:
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
-def phase_resnet(peaks):
+def phase_resnet(peaks, trained):
     import numpy as np
     import torch
 
-    from repro_torch.bench.table4_resnet import (MULTS, emulated_config,
-                                                 seeded_resnet)
+    from repro_torch.bench.table4_resnet import emulated_config
     from repro_torch.compat import flatten_tree
-    from repro_torch.core.metrics import mred
+    from repro_torch.core.metrics import mred, top_k_accuracy
     from repro_torch.data.synthetic import DataConfig, cifar_like
     from repro_torch.kernels import afpm_matmul as k1
     from repro_torch.kernels import dispatch
@@ -955,15 +1405,14 @@ def phase_resnet(peaks):
         raise AssertionError("resnet18 fixture on the card differs from "
                              "resnet18_reference.npz")
 
-    cfg = resnet.ResNetConfig()
+    cfg, params, state = trained["cfg"], trained["params"], trained["state"]
     assert (cfg.widths, cfg.blocks) == ((64, 128, 256, 512), (2, 2, 2, 2))
     torch.cuda.reset_peak_memory_stats()
-    params, state = seeded_resnet(cfg, seed=0, device="cuda")
     n_params = sum(t.size for t in flatten_tree(params).values())
     sess = Session.from_resnet(cfg, params, state, device="cuda")
-    x = torch.as_tensor(cifar_like(DataConfig(global_batch=RESNET_BATCH,
-                                              seed=999), 10_000)["images"],
-                        device="cuda")
+    data = cifar_like(DataConfig(global_batch=RESNET_BATCH, seed=999), 10_000)
+    x = torch.as_tensor(data["images"], device="cuda")
+    labels = torch.as_tensor(data["labels"])
     timing = {}   # mode -> (ms a forward, batch)
 
     # 2. exact: the native conv with TF32 off.  Stage 0's first conv at
@@ -992,6 +1441,7 @@ def phase_resnet(peaks):
     finally:
         set_operand_tap(prev)
     d_fp32 = rel_err(im2col_fp32, exact)
+    top1 = {"exact": (top_k_accuracy(exact, labels, 1), 1.0)}
     if exact.shape != (RESNET_BATCH, 10) or not torch.isfinite(exact).all() \
             or d_fp32 > 1e-4 or d_conv > 1e-5:
         raise AssertionError(f"exact logits bad: {tuple(exact.shape)}, "
@@ -1017,6 +1467,9 @@ def phase_resnet(peaks):
         plain = sess.replace(policy=f"segmented{passes}",
                              backend="torch").apply(x)
         seg_err[passes] = rel_err(logits, plain)
+        top1[f"segmented{passes}"] = (
+            top_k_accuracy(logits, labels, 1),
+            (logits.argmax(-1) == exact.argmax(-1)).float().mean().item())
         if not torch.isfinite(logits).all() or seg_err[passes] > LOGIT_BOUND:
             raise AssertionError(f"segmented{passes}: kernel-route logits "
                                  f"{seg_err[passes]:.3g} of the largest from "
@@ -1064,20 +1517,14 @@ def phase_resnet(peaks):
         bound_by="bytes" if bytes_ms >= ops_ms else "operations")
     del a, b, ab, bb, flush
 
-    # 4. the eight Table IV designs, emulated (the plain bit-level
-    # datapath, as in the reference), against exact
+    # 4. the eight Table IV designs ran emulated (the plain bit-level
+    # datapath, as in the reference) on these weights in [train-resnet]
     xe = x[:EMULATED_BATCH]
-    exact_e = sess.apply(xe)
-    pred = exact_e.argmax(-1)
-    emulated = {}
-    for name in MULTS:
-        s = sess.replace(policy=emulated_config(name))
-        ms, logits = host_ms(lambda: s.apply(xe), 1)
-        if logits.shape != exact_e.shape or not torch.isfinite(logits).all():
-            raise AssertionError(f"emulated {name}: bad logits")
-        emulated[name] = ((logits.argmax(-1) == pred).float().mean().item(),
-                          mred(logits, exact_e))
-        timing[f"emulated {name}"] = ms, EMULATED_BATCH
+    emulated = {n: (r["top1"], r["agree"], r["logits_mred"])
+                for n, r in trained["rows"].items() if n != "Exact"}
+    for n, r in trained["rows"].items():
+        if n != "Exact":
+            timing[f"emulated {n}"] = r["ms"], 48
 
     # where a forward's time goes: one profiled forward per mode
     profiles = {
@@ -1089,7 +1536,8 @@ def phase_resnet(peaks):
     }
     (ROOT / "chiprun_out" / "chip_smoke_resnet.json").write_text(json.dumps(
         {"card": smi("name,power.limit"), "profiles": profiles,
-         "timing_ms": timing, "conv": conv, "emulated": emulated},
+         "timing_ms": timing, "conv": conv, "emulated": emulated,
+         "top1": top1},
         indent=1))
 
     # 5. the proxy auto-configurer on 32 calibration images, then the
@@ -1117,8 +1565,11 @@ def phase_resnet(peaks):
 
     print(f"[resnet] fixture from_pretrained on the card == "
           f"resnet18_reference.npz bit for bit; ResNet-18 full width "
-          f"({n_params / 1e6:.2f} M params, seeded, batch-norm statistics "
-          f"from one train-mode forward), batch {RESNET_BATCH}: stage 0's "
+          f"({n_params / 1e6:.2f} M params, trained in [train-resnet]), batch "
+          f"{RESNET_BATCH}: top-1 (argmax agreement with exact) "
+          + "; ".join(f"{m} {t:.4f} ({100 * a:.1f}%)"
+                      for m, (t, a) in top1.items())
+          + f"; stage 0's "
           f"conv against fp64, exact (TF32 off) {d_conv:.3g}, cuDNN with "
           f"TF32 on {d_tf32:.3g} of the largest output; exact logits vs the "
           f"fp32 im2col route {d_fp32:.3g} of the largest; segmented 1/2/3: 21 K1 "
@@ -1135,9 +1586,10 @@ def phase_resnet(peaks):
           f"{res.error:.3g}, measured {measured:.3g}, modeled area -"
           f"{res.area_reduction:.1%}, {auto_launches} K1 launches; peak "
           f"memory {peak_gb:.2f} GB")
-    print(f"[resnet]   emulated, batch {EMULATED_BATCH} (argmax agreement "
-          f"with exact, logits MRED): " + "; ".join(
-              f"{n} {100 * a:.1f}% {m:.3g}" for n, (a, m) in emulated.items()))
+    print(f"[resnet]   emulated in [train-resnet], 48 images (top-1, argmax "
+          f"agreement with exact, logits MRED): " + "; ".join(
+              f"{n} {t:.4f} {100 * a:.1f}% {m:.3g}"
+              for n, (t, a, m) in emulated.items()))
     print("[resnet]   ms a forward (images/s), host clock around a synced "
           "call, median: " + "; ".join(
               f"{mode} {ms:.2f} ({1e3 * bsz / ms:.0f})"
@@ -1172,7 +1624,17 @@ def main() -> int:
     c = phase_ssd(peaks, k["launch_floor_ms"])
     c_launches = phase_mamba2()
     torch.cuda.empty_cache()
-    r = phase_resnet(peaks)
+    tg = phase_train_grad()
+    tq = phase_train_qwen3()
+    tm = phase_train_mamba2()
+    tr = phase_train_resnet()
+    (ROOT / "chiprun_out" / "chip_smoke_train.json").write_text(json.dumps(
+        {"card": smi("name,power.limit"), "train_grad": tg, "qwen3": tq,
+         "mamba2": tm, "resnet": {k: tr[k] for k in ("rows", "seg",
+                                                     "train_s")}},
+        indent=1))
+    torch.cuda.empty_cache()
+    r = phase_resnet(peaks, tr)
     print(json.dumps({"kernels": [{
         "name": "afpm_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/afpm_matmul.cu",
@@ -1184,7 +1646,8 @@ def main() -> int:
         "plain_ms": k["plain_ms"], "library_ms": k["library_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "resnet_launches": r["launches"], "resnet_max_ulp_err": r["max_ulp_err"],
-        "resnet_conv": r["conv"]}, {
+        "resnet_conv": r["conv"], "train_grad_launches": tg["k1"],
+        "backward": "plain (repro_torch/kernels/autograd.py)"}, {
         "name": "afpm_bitwise", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/afpm_bitwise.cu",
         "replaces": "src/repro/kernels/afpm_bitwise.py:29",
@@ -1204,7 +1667,9 @@ def main() -> int:
         "batch": c["batch"], "L": c["L"], "L_padded": c["L_padded"],
         "ms": c["kernel_ms"], "kernel_ms": c["kernel_ms"],
         "plain_ms": c["plain_ms"], "library_ms": None,
-        "bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}]}))
+        "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+        "train_grad_launches": tg["k3"], "train_mamba2_launches": tm["k3"],
+        "backward": "plain (repro_torch/kernels/autograd.py)"}]}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -20,6 +20,8 @@ __all__ = [
     "layer_scope",
     "numerics_scope",
     "resolve_here",
+    "restored",
+    "snapshot",
 ]
 
 
@@ -50,6 +52,24 @@ def layer_scope(name):
         yield
     finally:
         _STATE.path.pop()
+
+
+def snapshot():
+    """The ambient numerics and layer-path stacks, for :func:`restored`."""
+    return tuple(_STATE.numerics), tuple(_STATE.path)
+
+
+@contextlib.contextmanager
+def restored(snap):
+    """Run with the stacks of a :func:`snapshot` in place of this thread's,
+    e.g. where autograd recomputes a checkpointed region in its own
+    thread, outside the scopes the forward ran under."""
+    saved = _STATE.numerics, _STATE.path
+    _STATE.numerics, _STATE.path = list(snap[0]), list(snap[1])
+    try:
+        yield
+    finally:
+        _STATE.numerics, _STATE.path = saved
 
 
 def current_numerics():

@@ -1,9 +1,10 @@
 """Deterministic synthetic data (``repro.data.synthetic`` counterpart).
 
-The image generators of Tables III and IV (:func:`gray_images`,
-:func:`cifar_like` with its :class:`DataConfig`) are numpy copies of the
-reference's, so the same seed gives the same images bit for bit.  The
-token-stream generators come with training.
+Every generator is a numpy copy of the reference's and a pure function of
+(seed, step, shard), so the same arguments give the same batch bit for bit
+in either package, and a restarted run needs no data-loader state beyond
+its step: the training token stream (:func:`lm_batch`) and the images of
+Tables III and IV (:func:`gray_images`, :func:`cifar_like`).
 """
 from __future__ import annotations
 
@@ -24,6 +25,25 @@ class DataConfig:
 def _keys(seed, step, shard):
     return np.random.default_rng(np.uint64(seed) * 1_000_003
                                  + np.uint64(step) * 97 + np.uint64(shard))
+
+
+def lm_batch(cfg: DataConfig, step: int, shard: int = 0, nshards: int = 1):
+    """Degree-2 Markov token stream, ``next = (31 prev + 7 prev2 + noise)
+    mod vocab`` with noise in [0, 17): learnable structure (the loss
+    drops), unlike uniform noise.  Returns host numpy arrays ``{"tokens",
+    "targets": (global_batch // nshards, seq_len) int32}``."""
+    rng = _keys(cfg.seed, step, shard)
+    b = cfg.global_batch // nshards
+    S = cfg.seq_len
+    toks = np.empty((b, S + 1), np.int64)
+    toks[:, 0] = rng.integers(0, cfg.vocab, b)
+    toks[:, 1] = rng.integers(0, cfg.vocab, b)
+    noise = rng.integers(0, 17, (b, S + 1))
+    for t in range(2, S + 1):
+        toks[:, t] = (31 * toks[:, t - 1] + 7 * toks[:, t - 2]
+                      + noise[:, t]) % cfg.vocab
+    return {"tokens": toks[:, :-1].astype(np.int32),
+            "targets": toks[:, 1:].astype(np.int32)}
 
 
 def cifar_like(cfg: DataConfig, step: int, n: int = None, classes: int = 10):

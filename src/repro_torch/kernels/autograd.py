@@ -1,0 +1,138 @@
+"""Gradients of the segmented matmul (K1) and the SSD scan (K3).
+
+The JAX package has no backward kernel: ``jax.grad`` differentiates its
+plain references (``repro.kernels.ref.afpm_matmul_ref`` and
+``ssd_scan_chunked_ref``) with XLA ops.  Each function here runs the
+hand-written kernel forward, unchanged (its wrapper takes the plain
+version only for CPU tensors), and computes in its backward what that
+``jax.grad`` computes.  The backwards are plain PyTorch by design: they
+are the counterpart of XLA's autodiff of the references, not ports of a
+TPU kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from .afpm_matmul import afpm_matmul
+from .ssd_scan import ssd_scan
+
+
+def _bf16_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A sum of two bf16 cotangents, rounded to bf16 as JAX adds them."""
+    return (a.to(torch.float32) + b.to(torch.float32)).to(torch.bfloat16)
+
+
+def _seg_grad(p: torch.Tensor, q: torch.Tensor, r, passes: int,
+              lo_passes: int) -> torch.Tensor:
+    """One operand's cotangent under ``jax.grad`` of the reference.
+
+    ``p`` is its bf16-rounded product with the hi segment of the other
+    operand (``g @ hi(w)^T`` or ``hi(x)^T @ g``), ``r`` with the other
+    operand's lo segment, taken at ``passes >= lo_passes`` only.  In the
+    reference's jaxpr every product's cotangent is rounded to bf16, the
+    hi segment's cotangents add in bf16, and ``lo = bf16(x - f32(hi))``
+    passes its cotangent ``c`` to ``x`` directly and ``-c`` to ``hi``;
+    ``q`` is that ``c`` (the cotangent of this operand's own lo segment,
+    bf16) or None where the reference drops the segment."""
+    hi = p if r is None or passes < lo_passes else _bf16_add(r, p)
+    if q is None:
+        return hi.to(torch.float32)
+    qf = q.to(torch.float32)
+    return qf + _bf16_add(hi, (-qf).to(torch.bfloat16)).to(torch.float32)
+
+
+class SegmentedMatmul(torch.autograd.Function):
+    """``x (..., K) @ w (K, N)`` -> fp32 through K1; backward as ``jax.grad``
+    of ``afpm_matmul_ref``.
+
+    With ``A = bf16(hi(x)^T g)``, ``B = bf16(lo(x)^T g)``, ``Z = bf16(g
+    hi(w)^T)`` and ``U = bf16(g lo(w)^T)`` (fp32 products of the bf16
+    segments), the reference's jaxpr gives
+
+    - passes 1: ``dx = Z``, ``dw = A``;
+    - passes 2: ``dx = Z`` (``Z + bf16(-Z) = 0``), ``dw = bf16(B + A)``;
+    - passes 3: ``dx = Z + bf16(bf16(U + Z) - Z)``,
+      ``dw = A + bf16(bf16(B + A) - A)``;
+
+    every sum in fp32 unless marked.  ``dx`` is returned in ``x``'s dtype
+    (a bf16 ``x`` rounds it, as the reference's input cast does)."""
+
+    @staticmethod
+    def forward(ctx, x, w, passes):
+        ctx.passes = passes
+        ctx.save_for_backward(x, w)
+        return afpm_matmul(x, w, passes)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        passes = ctx.passes
+        f, bf = torch.float32, torch.bfloat16
+        g = g.to(f)
+        K, N = w.shape
+        xh, xl = ref.split_hi_lo_ref(x)
+        wh, wl = ref.split_hi_lo_ref(w)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            Z = torch.matmul(g, wh.to(f).T).to(bf)
+            U = (torch.matmul(g, wl.to(f).T).to(bf) if passes >= 3 else None)
+            # x's own lo segment gets Z at passes >= 2
+            dx = _seg_grad(Z, Z if passes >= 2 else None, U, passes, 3)
+            dx = dx.to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            g2 = g.reshape(-1, N)
+            A = torch.matmul(xh.reshape(-1, K).to(f).T, g2).to(bf)
+            B = (torch.matmul(xl.reshape(-1, K).to(f).T, g2).to(bf)
+                 if passes >= 2 else None)
+            # w's lo segment gets A at passes 3
+            dw = _seg_grad(A, A if passes >= 3 else None, B, passes, 2)
+        return dx, dw, None
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD chunked scan ``(b, L, H, P), (b, L, H), (H,), (b, L, N),
+    (b, L, N) -> (b, L, H, P)`` through K3; backward as ``jax.grad`` of
+    ``ssd_scan_chunked_ref``.
+
+    The backward recomputes the plain chunked version from the saved
+    inputs under autograd and differentiates it: the exact counterpart of
+    XLA's autodiff of the reference, plain PyTorch by design."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, A, B, C)
+        return ssd_scan(x, dt, A, B, C, chunk)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        ins = [t.detach().requires_grad_(need)
+               for t, need in zip(saved, ctx.needs_input_grad)]
+        want = [t for t in ins if t.requires_grad]
+        with torch.enable_grad():
+            y = ref.ssd_scan_chunked_ref(*ins, ctx.chunk)
+            grads = iter(torch.autograd.grad(y, want, g))
+        return (*(next(grads) if t.requires_grad else None for t in ins),
+                None)
+
+
+def _differentiable(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def segmented_matmul(x, w, passes: int = 3) -> torch.Tensor:
+    """K1 with its gradient where autograd records one; the kernel's
+    forward either way."""
+    if _differentiable(x, w):
+        return SegmentedMatmul.apply(x, w, passes)
+    return afpm_matmul(x, w, passes)
+
+
+def ssd(x, dt, A, B, C, chunk: int) -> torch.Tensor:
+    """K3 with its gradient where autograd records one; the kernels'
+    forward either way."""
+    if _differentiable(x, dt, A, B, C):
+        return SSDScan.apply(x, dt, A, B, C, chunk)
+    return ssd_scan(x, dt, A, B, C, chunk)

@@ -10,6 +10,11 @@ scan), each with a ``backend`` knob
   ``torch``   the plain PyTorch version (``ref.afpm_matmul_ref``,
               ``ref.afpm_bitwise_ref``, ``ref.ssd_scan_chunked_ref``), on
               either device
+
+Under autograd the kernel route of ``matmul`` and ``ssd`` is
+differentiable (:mod:`.autograd`): the forward is still the kernel, and
+the backward computes what ``jax.grad`` of the JAX package's reference
+computes.  The plain route is differentiated by PyTorch's autograd.
 """
 from __future__ import annotations
 
@@ -18,10 +23,8 @@ import torch
 from repro_torch.core.afpm import AFPMConfig
 from repro_torch.core.numerics import BACKENDS
 
-from . import ref
+from . import autograd, ref
 from .afpm_bitwise import afpm_bitwise
-from .afpm_matmul import afpm_matmul
-from .ssd_scan import ssd_scan
 
 
 def resolve_backend(backend: str, x: torch.Tensor) -> str:
@@ -86,7 +89,8 @@ def matmul(x: torch.Tensor, w: torch.Tensor, passes: int = 3, *,
     if backend == "torch":
         out = ref.afpm_matmul_ref(x, w, passes)
     else:
-        out = afpm_matmul(x.contiguous(), w.contiguous(), passes)
+        out = autograd.segmented_matmul(x.contiguous(), w.contiguous(),
+                                        passes)
     return out[0] if vec else out
 
 
@@ -142,7 +146,7 @@ def ssd(x, dt, A, B, C, *, chunk=None, backend: str = "auto") -> torch.Tensor:
     if backend == "torch":
         out = ref.ssd_scan_chunked_ref(x, dt, A, B, C, Q)
     else:
-        out = ssd_scan(x, dt, A, B, C, Q)
+        out = autograd.ssd(x, dt, A, B, C, Q)
     if pad:
         out = out[:, :L]
     return out[0] if vec else out

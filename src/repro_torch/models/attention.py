@@ -68,9 +68,13 @@ def blockwise_attention(q, k, v, *, window=None, attn_cap=None,
 
     q: (B, Sq, H, D); k/v: (B, Sk, H, D) (kv already head-repeated);
     ``q_offset`` is the absolute position of the first query.  bf16
-    operands, fp32 online softmax, the JAX package's chunking.  Forward
-    only: the training VJP belongs to a later slice.  Returns
+    operands, fp32 online softmax, the JAX package's chunking.  Returns
     (B, Sq, H, D) fp32.
+
+    Training differentiates this with autograd (the reference's custom VJP
+    re-streams the score blocks to keep memory flat, which the training
+    lengths here do not need).  The running max only steadies the
+    exponentials and cancels from the result, so it carries no gradient.
     """
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
@@ -101,7 +105,7 @@ def blockwise_attention(q, k, v, *, window=None, attn_cap=None,
                 s = softcap(s, attn_cap)
             mask = _mask_for(q_pos[i], k_pos[j], k_valid[j], window)
             s = s.masked_fill(~mask, NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_new = torch.maximum(m, s.amax(dim=-1)).detach()
             alpha = torch.exp(m - m_new)
             p = torch.exp(s - m_new[..., None])
             l = l * alpha + p.sum(dim=-1)

@@ -135,6 +135,10 @@ def _native_conv(x, w, stride: int):
     kh, kw = w.shape[:2]
     _, _, ph, pw = _same_padding(x.shape[1], x.shape[2], kh, kw, stride)
     xn = F.pad(x.permute(0, 3, 1, 2), (*pw, *ph))
+    if xn.device.type == "cpu":
+        # PyTorch's CPU (oneDNN) backward of a strided 1x1 conv crashes on
+        # a channels-last input: hand it a contiguous one
+        xn = xn.contiguous()
     cudnn = torch.backends.cudnn
     with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                      deterministic=cudnn.deterministic,
@@ -236,3 +240,21 @@ def apply(params, state, x, cfg: ResNetConfig, train: bool = False,
         with layer_scope("fc"):
             logits = nmatmul(h, params["fc"])
         return logits + params["fc_b"], new_state
+
+
+def loss_fn(params, state, batch, cfg: ResNetConfig, momentum: float = 0.9):
+    """Mean cross-entropy of ``batch["labels"]`` under a train-mode forward
+    (batch statistics); returns ``(loss, new_state)``, the running
+    statistics updated with ``momentum`` and detached: they are state, not
+    parameters."""
+    logits, new_state = apply(params, state, batch["images"], cfg,
+                              train=True, momentum=momentum)
+    labels = batch["labels"].to(torch.int64)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[:, None])[:, 0]
+    return (lse - gold).mean(), _detached(new_state)
+
+
+def _detached(tree):
+    return {k: (_detached(v) if isinstance(v, dict) else v.detach())
+            for k, v in tree.items()}

@@ -8,6 +8,7 @@ loop where JAX used ``lax.scan``.
 
 Public API:
   init(cfg, seed, device)                      -> params (nested dict)
+  loss_fn(params, cfg, batch)                  -> mean next-token NLL
   prefill(params, cfg, batch, max_len)         -> (last_logits, state)
   decode_step(params, cfg, batch, state, pos)  -> (logits, state)
   init_state(cfg, batch, max_len, dtype, device) -> serving state
@@ -19,8 +20,12 @@ prefill computes them in closed form.
 """
 from __future__ import annotations
 
-import torch
+import functools
 
+import torch
+from torch.utils import checkpoint as ckpt
+
+from repro_torch.core import scope
 from repro_torch.core.numerics import NumericsConfig, torch_dtype
 from repro_torch.numerics import layer_scope, nmatmul, numerics_scope
 
@@ -188,13 +193,14 @@ def init_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 # decoder stack
 # ---------------------------------------------------------------------------
 
-def _block_apply(params, x, cfg, spec, positions, cache=None, q_offset=0):
+def _block_apply(params, x, cfg, spec, positions, cache=None, q_offset=0,
+                 train=False):
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if spec.kind == "ssm":
         with layer_scope("ssm"):
-            h, new_cache = ssm_mod.ssm_apply(params["ssm"], h, cfg,
-                                             cache=cache,
-                                             want_state=cache is None)
+            h, new_cache = ssm_mod.ssm_apply(
+                params["ssm"], h, cfg, cache=cache,
+                want_state=cache is None and not train)
         return x + h, new_cache
     with layer_scope("attn"):
         h, new_cache = attn.gqa_apply(params["attn"], h, cfg, spec, positions,
@@ -211,6 +217,49 @@ def _take(tree, r):
             for k, v in tree.items()}
 
 
+def _unstack(tree, repeats: int) -> list:
+    """Per-repeat views of a stacked tree, from one ``unbind`` a leaf: its
+    backward writes the leaf's gradient once, where indexing each repeat
+    would build a full-size gradient for every repeat."""
+    flat = {k: (_unstack(v, repeats) if isinstance(v, dict)
+                else torch.unbind(v, 0)) for k, v in tree.items()}
+    return [{k: v[r] for k, v in flat.items()} for r in range(repeats)]
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of matrix products without batch
+    dims (``aten.mm``), recompute the rest (the reference's
+    ``dots_with_no_batch_dims_saveable``)."""
+    policy = ckpt.CheckpointPolicy
+    return (policy.MUST_SAVE if op in (torch.ops.aten.mm.default,
+                                       torch.ops.aten.addmm.default)
+            else policy.PREFER_RECOMPUTE)
+
+
+def checkpointed(fn, *args, remat: str = "full"):
+    """``fn(*args)`` under activation checkpointing: ``full`` saves only
+    the inputs and recomputes ``fn`` in the backward, ``dots`` saves the
+    matrix products too, ``none`` calls ``fn``.  The recompute runs under
+    the numerics and layer scopes of the forward (autograd may run it in
+    another thread)."""
+    if remat == "none":
+        return fn(*args)
+    if remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat {remat!r}; expected full | dots | "
+                         f"none")
+    snap = scope.snapshot()
+
+    def body(*a):
+        with scope.restored(snap):
+            return fn(*a)
+
+    context = (functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                 _save_dots) if remat == "dots"
+               else ckpt.noop_context_fn)
+    return ckpt.checkpoint(body, *args, use_reentrant=False,
+                           preserve_rng_state=False, context_fn=context)
+
+
 def _positions_for(B: int, S: int, offset, device) -> torch.Tensor:
     """(B, S) absolute positions from a scalar offset, or from per-row
     ``(B,)`` offsets (continuous batching: each request at its own
@@ -223,13 +272,15 @@ def _positions_for(B: int, S: int, offset, device) -> torch.Tensor:
     return pos.expand(B, S)
 
 
-def backbone(params, cfg, batch, caches=None, q_offset=0):
+def backbone(params, cfg, batch, caches=None, q_offset=0, train=False):
     """Embeds -> decoder stack -> final norm, under ``cfg.numerics``.
 
     Without ``caches`` (prefill) every block returns its fresh cache (k/v,
     or an SSD block's conv tail and final state), stacked over repeats;
     with ``caches`` (decode / chunked prefill) each block updates its cache
-    in place.  Returns ``(hidden, caches)``."""
+    in place.  ``train=True`` keeps no cache and runs every block under
+    ``cfg.remat`` (:func:`checkpointed`).  Returns ``(hidden, caches)``
+    (``caches`` None in train mode)."""
     check_supported(cfg)
     dt = torch_dtype(cfg.dtype)
     with numerics_scope(cfg.numerics):
@@ -243,16 +294,27 @@ def backbone(params, cfg, batch, caches=None, q_offset=0):
         for si, (repeats, pattern) in enumerate(cfg.segments):
             P = len(pattern)
             collected = {pi: [] for pi in range(P)}
+            stacks = {pi: _unstack(params[f"seg{si}_p{pi}"], repeats)
+                      for pi in range(P)}
             for r in range(repeats):
                 for pi, spec in enumerate(pattern):
-                    p = _take(params[f"seg{si}_p{pi}"], r)
+                    p = stacks[pi][r]
                     c = (None if caches is None
                          else _take(caches[si][pi], r))
                     with layer_scope(f"blocks.{layer + r * P + pi}"):
+                        if train:
+                            x = checkpointed(
+                                functools.partial(_train_block, cfg=cfg,
+                                                  spec=spec,
+                                                  positions=positions),
+                                p, x, remat=cfg.remat)
+                            continue
                         x, nc = _block_apply(p, x, cfg, spec, positions,
                                              cache=c, q_offset=q_offset)
                     collected[pi].append(nc)
             layer += repeats * P
+            if train:
+                continue
             if caches is None:
                 new_caches.append({
                     pi: {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
@@ -260,7 +322,11 @@ def backbone(params, cfg, batch, caches=None, q_offset=0):
             else:
                 new_caches.append(caches[si])
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        return x, new_caches
+        return x, (None if train else new_caches)
+
+
+def _train_block(p, x, cfg, spec, positions):
+    return _block_apply(p, x, cfg, spec, positions, train=True)[0]
 
 
 def logits_fn(params, cfg, hidden):
@@ -278,6 +344,36 @@ def logits_fn(params, cfg, hidden):
         # at the untied head's scale
         logits = logits * (cfg.d_model ** -0.5)
     return softcap(logits, cfg.logit_softcap)
+
+
+def loss_fn(params, cfg, batch, batch_chunks=None) -> torch.Tensor:
+    """Causal-LM cross-entropy, mean over valid targets (``targets >= 0``).
+
+    Chunked over the BATCH dim into ``cfg.loss_batch_chunks`` pieces (one
+    piece when they do not divide it), each piece's logits recomputed in
+    the backward instead of kept: a full-width vocabulary makes them the
+    largest activation."""
+    hidden, _ = backbone(params, cfg, batch, train=True)
+    targets = batch["targets"]
+    B = targets.shape[0]
+    if batch_chunks is None:
+        batch_chunks = cfg.loss_batch_chunks
+    nb = batch_chunks if B % batch_chunks == 0 else 1
+    bc = B // nb
+
+    def chunk_loss(h, t):
+        lg = logits_fn(params, cfg, h)
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, t.clamp(min=0).long()[..., None])[..., 0]
+        valid = (t >= 0).to(torch.float32)
+        return ((lse - gold) * valid).sum(), valid.sum()
+
+    tot = cnt = 0.0
+    for i in range(nb):
+        nll, n = checkpointed(chunk_loss, hidden[i * bc:(i + 1) * bc],
+                              targets[i * bc:(i + 1) * bc])
+        tot, cnt = tot + nll, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def prefill(params, cfg, batch, max_len=None):

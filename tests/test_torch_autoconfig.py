@@ -266,14 +266,15 @@ def test_table4_driver_on_the_cpu(capsys, tmp_path):
 
     cfg = resnet.ResNetConfig(widths=(4, 8), blocks=(1, 1))
     rows = table4_resnet.run(device="cpu", eval_n=2, cfg=cfg,
-                             designs=["AC5-5", "NC"])
+                             designs=["AC5-5", "NC"], train_steps=2)
     assert set(rows) == {"Exact", "AC5-5", "NC"}
     assert 0.0 <= rows["AC5-5"]["agree"] <= 1.0
+    assert 0.0 <= rows["AC5-5"]["top1"] <= 1.0
     assert rows["AC5-5"]["mred"] == pytest.approx(3.36e-4, rel=0.05)
-    assert table4_resnet.NOTE in capsys.readouterr().out
+    assert "[resnet-train] step    1" in capsys.readouterr().out
     out = tmp_path / "policy.json"
     res = table4_resnet.run_auto(1e-2, device="cpu", calib_n=2, cfg=cfg,
-                                 out=str(out))
+                                 out=str(out), train_steps=2)
     assert res.n_evals == 1 and out.exists()
     # a checkpoint instead of seeded weights
     rows = table4_resnet.run(

@@ -4,8 +4,9 @@
   ``jax`` or anything of the JAX package ``repro``;
 - the entry points run on CUDA unless asked for the CPU: without CUDA,
   ``Session`` (and ``Session.from_resnet`` / ``from_pretrained``), the
-  engine's runner, ``serve`` and the Table II, III and IV drivers raise
-  instead of carrying on on the CPU.
+  engine's runner, ``serve``, the trainer and the Table II, III and IV
+  benchmarks (Table IV's training too) raise instead of carrying on on
+  the CPU.
 """
 import ast
 import pathlib
@@ -74,7 +75,8 @@ def test_resnet_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
                  lambda: Session.from_pretrained("resnet18", fixture),
                  lambda: table2_ppa.run(n_samples=10),
                  lambda: table4_resnet.run(eval_n=1, cfg=cfg, designs=[]),
-                 lambda: table4_resnet.run_auto(calib_n=1, cfg=cfg)):
+                 lambda: table4_resnet.run_auto(calib_n=1, cfg=cfg),
+                 lambda: table4_resnet.train_resnet(1, 2, cfg=cfg)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     # asked for the CPU, each of them runs there
@@ -83,8 +85,10 @@ def test_resnet_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     assert Session.from_pretrained("resnet18", fixture,
                                    device="cpu").device.type == "cpu"
     table2_ppa.run(device="cpu", n_samples=10)
-    rows = table4_resnet.run(device="cpu", eval_n=1, cfg=cfg, designs=[])
+    rows = table4_resnet.run(device="cpu", eval_n=1, cfg=cfg, designs=[],
+                             train_steps=1)
     assert set(rows) == {"Exact"}
+    assert len(table4_resnet.train_resnet(1, 2, device="cpu", cfg=cfg)[3]) == 1
 
 
 def test_sweep_refuses_the_cpu_unless_asked(monkeypatch):
@@ -102,3 +106,16 @@ def test_sweep_refuses_the_cpu_unless_asked(monkeypatch):
     assert len(sweep.sweep(n_samples=10, device="cpu")) == \
         len(sweep.SWEEPABLE)
     assert sweep.recommend(1.0, n_samples=10, device="cpu").mred <= 1.0
+
+
+def test_trainer_refuses_the_cpu_unless_asked(monkeypatch, tmp_path):
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.train("qwen3-4b", steps=1, seq_len=4, batch=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--steps", "1", "--seq-len", "4", "--batch", "1"])
+    params, _, losses = train.train("qwen3-4b", steps=1, seq_len=4, batch=1,
+                                    device="cpu")
+    assert len(losses) == 1 and params["embed"].device.type == "cpu"

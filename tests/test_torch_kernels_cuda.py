@@ -347,3 +347,60 @@ def test_ssd_scan_kernel_is_deterministic_and_batch_invariant_at_2048(rng):
         one = k3.ssd_scan(x[i:i + 1], dt[i:i + 1], A, B[i:i + 1], C[i:i + 1],
                           128)
         assert torch.equal(one[0], got[i]), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 2, 3])
+def test_segmented_matmul_grad_runs_the_kernel(passes, rng):
+    """Under autograd the forward is still K1 (one launch, the kernel's
+    bits), and the gradients equal the plain route's autograd within one
+    bf16 ulp of the largest (both round each product's cotangent to bf16;
+    the kernel's fp32 sum order can flip a rounding downstream)."""
+    _need_card()
+    from repro_torch.kernels import autograd
+
+    x = torch.from_numpy(rng.standard_normal((3, 40, 2560))
+                         .astype(np.float32)).cuda()
+    w = torch.from_numpy((rng.standard_normal((2560, 1024)) * 0.02)
+                         .astype(np.float32)).cuda()
+    g = torch.from_numpy(rng.standard_normal((3, 40, 1024))
+                         .astype(np.float32)).cuda()
+    grads = {}
+    for backend in ("hopper", "torch"):
+        xx, ww = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        before = k1.afpm_matmul.launches
+        out = dispatch.matmul(xx, ww, passes, backend=backend)
+        assert k1.afpm_matmul.launches == before + (backend == "hopper")
+        if backend == "hopper":
+            assert out.grad_fn is not None
+            torch.testing.assert_close(out, k1.afpm_matmul(x, w, passes),
+                                       rtol=0, atol=0)
+        (out * g).sum().backward()
+        grads[backend] = (xx.grad, ww.grad)
+    for a, b in zip(grads["hopper"], grads["torch"]):
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 2.0 ** -8
+
+
+@pytest.mark.cuda
+def test_ssd_scan_grad_runs_the_kernel(rng):
+    """K3 forward under autograd, gradients as the plain route's autograd
+    of the chunked version within 1e-5 of the largest (fp32 throughout)."""
+    _need_card()
+    L, H, P, N = 150, 24, 64, 128
+    ins = [rng.standard_normal((2, L, H, P)), rng.uniform(0.01, 0.2, (2, L, H)),
+           -rng.uniform(1.0, 16.0, (H,)), rng.standard_normal((2, L, N)),
+           rng.standard_normal((2, L, N))]
+    ins = [torch.from_numpy(np.asarray(t, np.float32)).cuda() for t in ins]
+    g = torch.from_numpy(rng.standard_normal((2, L, H, P))
+                         .astype(np.float32)).cuda()
+    grads = {}
+    for backend in ("hopper", "torch"):
+        ts = [t.clone().requires_grad_(True) for t in ins]
+        before = k3.ssd_scan.launches
+        y = dispatch.ssd(*ts, backend=backend)
+        assert k3.ssd_scan.launches == before + (backend == "hopper")
+        (y * g).sum().backward()
+        grads[backend] = [t.grad for t in ts]
+    for a, b in zip(grads["hopper"], grads["torch"]):
+        assert torch.isfinite(a).all()
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-5
