@@ -32,8 +32,8 @@ assembled as bits, so a NaN comes out as ``0x7fc00000``, the reference's
 ``jnp.nan``.
 
 This is the plain version of the Hopper kernel
-``repro_torch/kernels/csrc/afpm_bitwise.cu``; the kernel's wrapper takes
-it for CPU tensors.
+``repro_torch/kernels/csrc/afpm_bitwise.cu`` (its elementwise and its
+emulated-matmul entry); the kernel's wrapper takes it for CPU tensors.
 """
 from __future__ import annotations
 
@@ -252,6 +252,10 @@ def afpm_matmul_emulated(x, w, cfg: AFPMConfig, k_chunk: int = 64) -> torch.Tens
     ``(..., k_chunk, N)`` block and summed in fp32.  This is the
     paper-faithful semantics for Tables III/IV (accumulation in the CiM
     macro is exact; only the multipliers are approximate).
+
+    The plain version of the emulated-matmul kernel
+    (``repro_torch/kernels/afpm_bitwise.py::emulated_matmul``), which
+    ``kernels.dispatch.emulated_matmul`` takes on the card.
     """
     return chunked_emulated_matmul(
         x, w, lambda a, b: afpm_mult_ste(a, b, cfg), k_chunk)

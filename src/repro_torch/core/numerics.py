@@ -23,12 +23,17 @@ Modes
     ``torch``   force the plain PyTorch version
 ``emulated``
     Every scalar product goes through the bit-level multiplier selected by
-    ``multiplier`` (AC-n-n / ACL-n through
-    :func:`~repro_torch.core.afpm.afpm_matmul_emulated`, any other registry
-    name through its registered function), summed in fp32 in chunks of 64
-    along K.  As in the reference, the products come from the plain
-    datapath, not from the bit-level kernel.  O(M*N*K) elementwise work --
-    small models only.
+    ``multiplier``, summed in fp32 in chunks of 64 along K.  AC-n-n /
+    ACL-n (``seg_n`` wide) and the AC-<fmt> registry entries (their
+    registered config, storage format kept; no gradient, as the registry's
+    function has none) go through
+    :func:`repro_torch.kernels.dispatch.emulated_matmul` under ``backend``:
+    on the card the bit-level kernel's matmul entry, on the CPU (or with
+    ``torch``) the plain :func:`~repro_torch.core.afpm.afpm_matmul_emulated`
+    (where the reference computes the same function in jnp).  Any other
+    registry name (the baselines) runs its registered function chunk by
+    chunk (:func:`~repro_torch.core.afpm.chunked_emulated_matmul`), plain
+    on either device: O(M*N*K) elementwise work.
 
 :func:`apply_elementwise` is the image-processing path: an elementwise
 product under a named multiplier, the AFPM family through the bit-level
@@ -41,8 +46,8 @@ import dataclasses
 import torch
 
 from . import scope as _scope
-from .afpm import AFPMConfig, afpm_matmul_emulated, chunked_emulated_matmul
-from .registry import get_elementwise, get_multiplier
+from .afpm import AFPMConfig, chunked_emulated_matmul
+from .registry import afpm_config, get_elementwise, get_multiplier
 
 BACKENDS = ("auto", "hopper", "torch")
 
@@ -132,7 +137,17 @@ def nmatmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if cfg.mode == "emulated":
         name = cfg.multiplier.lower()
         if name.startswith(("ac", "acl")) and not name.startswith("ac-"):
-            return afpm_matmul_emulated(x, w, cfg.afpm())
+            from repro_torch.kernels import dispatch  # lazy: kernels import core
+
+            return dispatch.emulated_matmul(x, w, cfg.afpm(),
+                                            backend=cfg.backend)
+        fmt_cfg = afpm_config(name)
+        if fmt_cfg is not None:   # AC-<fmt>: its registered storage format
+            from repro_torch.kernels import dispatch
+
+            # detached: the registry's bit-level function has no gradient
+            return dispatch.emulated_matmul(x.detach(), w.detach(), fmt_cfg,
+                                            backend=cfg.backend)
         # generic registry multiplier: chunked elementwise matmul
         return chunked_emulated_matmul(x, w, get_multiplier(cfg.multiplier))
     raise ValueError(f"unknown numerics mode {cfg.mode!r}")

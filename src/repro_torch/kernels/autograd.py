@@ -1,11 +1,13 @@
-"""Gradients of the segmented matmul (K1) and the SSD scan (K3).
+"""Gradients of the segmented matmul (K1), the emulated AFPM matmul (K2's
+matmul entry) and the SSD scan (K3).
 
 The JAX package has no backward kernel: ``jax.grad`` differentiates its
-plain references (``repro.kernels.ref.afpm_matmul_ref`` and
-``ssd_scan_chunked_ref``) with XLA ops.  Each function here runs the
-hand-written kernel forward, unchanged (its wrapper takes the plain
-version only for CPU tensors), and computes in its backward what that
-``jax.grad`` computes.  The backwards are plain PyTorch by design: they
+plain references (``repro.kernels.ref.afpm_matmul_ref``,
+``repro.core.afpm.afpm_matmul_emulated`` with its straight-through
+``custom_jvp``, ``ssd_scan_chunked_ref``) with XLA ops.  Each function
+here runs the hand-written kernel forward, unchanged (its wrapper takes
+the plain version only for CPU tensors), and computes in its backward
+what that ``jax.grad`` computes.  The backwards are plain PyTorch by design: they
 are the counterpart of XLA's autodiff of the references, not ports of a
 TPU kernel.
 """
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .afpm_bitwise import emulated_matmul as _emulated_matmul
 from .afpm_matmul import afpm_matmul
 from .ssd_scan import ssd_scan
 
@@ -90,6 +93,31 @@ class SegmentedMatmul(torch.autograd.Function):
         return dx, dw, None
 
 
+class EmulatedMatmul(torch.autograd.Function):
+    """``x (..., K) @ w (K, N)`` -> fp32 through K2's emulated-matmul entry;
+    backward the straight-through product rule of the reference's
+    ``afpm_mult_ste`` (every AFPM product differentiated as an exact one):
+    ``dx = g @ w^T`` and ``dw = x^T @ g``, fp32 matmuls (TF32 off, as the
+    port's entry points set it)."""
+
+    @staticmethod
+    def forward(ctx, x, w, cfg, k_chunk):
+        ctx.save_for_backward(x, w)
+        return _emulated_matmul(x, w, cfg, k_chunk)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(torch.float32)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(g, w.T)
+        if ctx.needs_input_grad[1]:
+            K, N = w.shape
+            dw = torch.matmul(x.reshape(-1, K).T, g.reshape(-1, N))
+        return dx, dw, None, None
+
+
 class SSDScan(torch.autograd.Function):
     """The SSD chunked scan ``(b, L, H, P), (b, L, H), (H,), (b, L, N),
     (b, L, N) -> (b, L, H, P)`` through K3; backward as ``jax.grad`` of
@@ -128,6 +156,14 @@ def segmented_matmul(x, w, passes: int = 3) -> torch.Tensor:
     if _differentiable(x, w):
         return SegmentedMatmul.apply(x, w, passes)
     return afpm_matmul(x, w, passes)
+
+
+def emulated_matmul(x, w, cfg, k_chunk: int = 64) -> torch.Tensor:
+    """K2's emulated matmul with its gradient where autograd records one;
+    the kernel's forward either way."""
+    if _differentiable(x, w):
+        return EmulatedMatmul.apply(x, w, cfg, k_chunk)
+    return _emulated_matmul(x, w, cfg, k_chunk)
 
 
 def ssd(x, dt, A, B, C, chunk: int) -> torch.Tensor:

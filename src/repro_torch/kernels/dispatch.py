@@ -1,26 +1,28 @@
 """Backend dispatch for the kernel substrate.
 
 One audited entry point per kernel (``matmul`` for the segmented matmul,
-``multiply`` for the bit-level AFPM multiply, ``ssd`` for the SSD chunked
+``multiply`` for the bit-level AFPM multiply, ``emulated_matmul`` for the
+matmul whose every product is that multiply, ``ssd`` for the SSD chunked
 scan), each with a ``backend`` knob
 (``repro_torch.core.numerics.NumericsConfig.backend``):
 
   ``auto``    the Hopper kernel for CUDA tensors, the plain version for CPU
   ``hopper``  the Hopper kernel; a CPU tensor raises
   ``torch``   the plain PyTorch version (``ref.afpm_matmul_ref``,
-              ``ref.afpm_bitwise_ref``, ``ref.ssd_scan_chunked_ref``), on
-              either device
+              ``ref.afpm_bitwise_ref``, ``core.afpm.afpm_matmul_emulated``,
+              ``ref.ssd_scan_chunked_ref``), on either device
 
-Under autograd the kernel route of ``matmul`` and ``ssd`` is
-differentiable (:mod:`.autograd`): the forward is still the kernel, and
-the backward computes what ``jax.grad`` of the JAX package's reference
-computes.  The plain route is differentiated by PyTorch's autograd.
+Under autograd the kernel route of ``matmul``, ``emulated_matmul`` and
+``ssd`` is differentiable (:mod:`.autograd`): the forward is still the
+kernel, and the backward computes what ``jax.grad`` of the JAX package's
+reference computes.  The plain route is differentiated by PyTorch's
+autograd.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.afpm import AFPMConfig
+from repro_torch.core.afpm import AFPMConfig, afpm_matmul_emulated
 from repro_torch.core.numerics import BACKENDS
 
 from . import autograd, ref
@@ -116,6 +118,29 @@ def multiply(x, y, cfg: AFPMConfig = AFPMConfig(), *,
     if backend == "torch":
         return ref.afpm_bitwise_ref(x, y, cfg)
     return afpm_bitwise(x.contiguous(), y.contiguous(), cfg)
+
+
+def emulated_matmul(x, w, cfg: AFPMConfig = AFPMConfig(), k_chunk: int = 64,
+                    *, backend: str = "auto") -> torch.Tensor:
+    """``x (..., K) @ w (K, N)`` -> fp32 with every product the bit-level
+    AFPM multiply under ``cfg``, summed in fp32 chunk by chunk over K
+    (``k_chunk`` products a chunk).
+
+    Validation happens here, before the backend branch, so every backend
+    accepts the same inputs; leading dims of ``x`` are kept (the kernel
+    flattens them into its rows)."""
+    backend = resolve_backend(backend, x)
+    if x.dim() < 1 or w.dim() != 2:
+        raise ValueError(f"need x (..., K) @ w (K, N); got "
+                         f"{tuple(x.shape)} @ {tuple(w.shape)}")
+    if x.shape[-1] != w.shape[0]:
+        raise ValueError(f"contraction mismatch {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
+    if backend == "torch":
+        return afpm_matmul_emulated(x, w, cfg, k_chunk)
+    return autograd.emulated_matmul(x.to(torch.float32).contiguous(),
+                                    w.to(torch.float32).contiguous(), cfg,
+                                    k_chunk)
 
 
 def ssd(x, dt, A, B, C, *, chunk=None, backend: str = "auto") -> torch.Tensor:

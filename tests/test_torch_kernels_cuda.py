@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.afpm import AFPMConfig
+from repro_torch.core.afpm import AFPMConfig, afpm_matmul_emulated
 from repro_torch.core.registry import afpm_config
 from repro_torch.kernels import afpm_bitwise as k2
 from repro_torch.kernels import afpm_matmul as k1
@@ -404,3 +404,219 @@ def test_ssd_scan_grad_runs_the_kernel(rng):
     for a, b in zip(grads["hopper"], grads["torch"]):
         assert torch.isfinite(a).all()
         assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-5
+
+
+# ResNet-18's 21 matmuls (CIFAR 32 x 32, im2col): (rows an image, K, N)
+RESNET_MATMULS = ([(1024, 27, 64)] + [(1024, 576, 64)] * 4
+                  + [(256, 576, 128), (256, 1152, 128), (256, 64, 128)]
+                  + [(256, 1152, 128)] * 2
+                  + [(64, 1152, 256), (64, 2304, 256), (64, 128, 256)]
+                  + [(64, 2304, 256)] * 2
+                  + [(16, 2304, 512), (16, 4608, 512), (16, 256, 512)]
+                  + [(16, 4608, 512)] * 2 + [(1, 512, 10)])
+EMULATED_DESIGNS = ["AC4-4", "AC5-5", "AC6-6", "ACL5"]
+
+
+def _emulated_operands(rng, M, K, N):
+    """ReLU'd activations (half zeros, as im2col of a ReLU output) and
+    weights of scale 1/sqrt(K), on the card."""
+    x = np.maximum(rng.standard_normal((M, K)), 0).astype(np.float32)
+    w = (rng.standard_normal((K, N)) / np.sqrt(max(K, 1))).astype(np.float32)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(w).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["AC3-3", "AC4-4", "AC5-5", "AC6-6", "AC7-7",
+                                  "ACL4", "ACL5", "ACL8", "AC-fp16",
+                                  "AC-afp24", "AC-bf16", "conditional=False",
+                                  "skip_bd=False", "compensation=False",
+                                  "n=11", "n=23,acl"])
+def test_emulated_matmul_k1_equals_afpm_bitwise(name, rng):
+    """A K = 1 emulated matmul (one chunk) is +0 plus the elementwise
+    product of the broadcast operands, bit for bit, specials included."""
+    _need_card()
+    kw = {"conditional=False": dict(n=5, conditional=False),
+          "skip_bd=False": dict(n=5, skip_bd=False),
+          "compensation=False": dict(n=5, compensation=False),
+          "n=11": dict(n=11), "n=23,acl": dict(n=23, mode="acl")}
+    cfg = AFPMConfig(**kw[name]) if name in kw else afpm_config(name)
+    x, w = _inputs(rng, (300, 1)), _inputs(rng, (1, 257))
+    before = k2.emulated_matmul.launches
+    got = k2.emulated_matmul(x, w, cfg)
+    torch.cuda.synchronize()
+    assert k2.emulated_matmul.launches == before + 1
+    prod = k2.afpm_bitwise(x.expand(300, 257).contiguous(),
+                           w.expand(300, 257).contiguous(), cfg)
+    _assert_same_bits(got, torch.zeros_like(prod) + prod, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", EMULATED_DESIGNS)
+def test_emulated_matmul_matches_plain(name, rng):
+    """Every ResNet-18 matmul shape at batch 8, ragged shapes, k_chunk 16
+    and 64 and leading batch dims, within 64 ulps of the plain version's
+    largest output (the plain version sums a chunk in torch.sum's order)."""
+    _need_card()
+    cfg = afpm_config(name)
+    shapes = [((8 * r, K), (K, N), 64) for r, K, N in sorted(set(RESNET_MATMULS))]
+    shapes += [((77, 1001), (1001, 93), 16), ((1, 27), (27, 10), 64),
+               ((130, 200), (200, 65), 16), ((2, 3, 50, 130), (130, 70), 64),
+               ((5, 4608), (4608, 3), 16)]
+    for xs, ws, kc in shapes:
+        x, w = _emulated_operands(rng, int(np.prod(xs[:-1])), xs[-1], ws[1])
+        x = x.reshape(xs)
+        got = k2.emulated_matmul(x, w, cfg, kc)
+        want = afpm_matmul_emulated(x, w, cfg, kc)
+        _assert_within_ulps(got, want, (name, xs, ws, kc))
+
+
+@pytest.mark.cuda
+def test_emulated_matmul_specials_in_k(rng):
+    """inf, NaN and zeros inside a longer K: the same NaN and inf
+    positions and signs as the plain version (IEEE sums give them in any
+    order), the finite outputs within 64 ulps."""
+    _need_card()
+    cfg = afpm_config("AC5-5")
+    x, w = _inputs(rng, (40, 90)), _inputs(rng, (90, 33))
+    x = torch.where(x.abs() > 1e3, torch.ones_like(x), x)
+    w = torch.where(w.abs() > 1e3, torch.full_like(w, 2.0), w)
+    x[3, 5], w[7, 2], x[8, 9] = float("inf"), float("-inf"), float("nan")
+    got = k2.emulated_matmul(x, w, cfg, 16)
+    want = afpm_matmul_emulated(x, w, cfg, 16)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.isinf(), want.isinf())
+    assert torch.equal(got[got.isinf()], want[want.isinf()])
+    fin = want.isfinite()
+    _assert_within_ulps(got[fin], want[fin], "finite")
+
+
+# (K, N, k_chunk) of the M-invariance checks: the plan splits the first two
+# at M < 300 and not at M = 300, so split-mode rows are held against
+# whole-mode rows; the third (stage 3's conv2) splits at every M
+EMU_INVARIANCE_KN = [(576, 1600, 64), (1001, 1600, 16), (4608, 512, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", EMULATED_DESIGNS)
+def test_emulated_matmul_rows_do_not_depend_on_M(name, rng):
+    """Every row of a call equals the same row computed at any other M, bit
+    for bit, split-mode rows against whole-mode rows among them."""
+    _need_card()
+    cfg = afpm_config(name)
+    modes = set()
+    for K, N, kc in EMU_INVARIANCE_KN:
+        x, w = _emulated_operands(rng, 300, K, N)
+        full = k2.emulated_matmul(x, w, cfg, kc)
+        modes.add(k2.plan(300, K, N, kc).split)
+        for M in (1, 2, 7, 13, 64, 65, 128, 150, 200, 299):
+            modes.add(k2.plan(M, K, N, kc).split)
+            _assert_same_bits(k2.emulated_matmul(x[:M].contiguous(), w, cfg, kc),
+                              full[:M], (name, K, N, kc, M))
+    assert modes == {True, False}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", EMULATED_DESIGNS)
+def test_emulated_matmul_split_equals_whole_and_repeats(name, rng):
+    """Two calls give the same bits, in split mode (the tile's last CTA
+    folds the workspace) and in whole mode; a split call's rows equal a
+    whole call's (the M-invariance test holds every row)."""
+    _need_card()
+    cfg = afpm_config(name)
+    x, w = _emulated_operands(rng, 300, 576, 1600)
+    whole = k2.emulated_matmul(x, w, cfg)
+    split = k2.emulated_matmul(x[:200].contiguous(), w, cfg)
+    assert k2.plan(200, 576, 1600).split and not k2.plan(300, 576, 1600).split
+    _assert_same_bits(split, whole[:200], (name, "split vs whole"))
+    for M, K, N, kc in [(128, 4608, 512, 64), (8, 512, 10, 64),
+                        (300, 1000, 70, 16), (300, 576, 1600, 64)]:
+        x, w = _emulated_operands(rng, M, K, N)
+        a = k2.emulated_matmul(x, w, cfg, kc)
+        b = k2.emulated_matmul(x, w, cfg, kc)
+        _assert_same_bits(a, b, (name, M, K, N, "two calls"))
+
+
+@pytest.mark.cuda
+def test_emulated_matmul_rejects_what_it_does_not_take():
+    _need_card()
+    x = torch.ones(4, 8, device="cuda")
+    w = torch.ones(8, 6, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.emulated_matmul(x, w.t().contiguous().t())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        k2.emulated_matmul(x, w.cpu())
+    with pytest.raises(ValueError, match="x \\(..., K\\) @ w"):
+        k2.emulated_matmul(x, w[:5])
+    with pytest.raises(ValueError, match="k_chunk"):
+        k2.emulated_matmul(x, w, AFPMConfig(), 0)
+    with pytest.raises(ValueError, match="too narrow"):
+        k2.emulated_matmul(x, w, AFPMConfig(n=12))
+    with pytest.raises(ValueError, match="hopper"):
+        dispatch.emulated_matmul(x.cpu(), w.cpu(), backend="hopper")
+    # K = 0: the empty sum, +0, from one launch
+    before = k2.emulated_matmul.launches
+    z = k2.emulated_matmul(x[:, :0].contiguous(), w[:0].contiguous())
+    assert k2.emulated_matmul.launches == before + 1
+    assert z.shape == (4, 6) and (z.view(torch.int32) == 0).all()
+
+
+@pytest.mark.cuda
+def test_emulated_matmul_grad_runs_the_kernel(rng):
+    """Under autograd the forward is still the kernel (one launch, its
+    bits); the straight-through gradients equal the plain route's within
+    1e-5 of each input's largest gradient."""
+    _need_card()
+    cfg = afpm_config("AC5-5")
+    x, w = _emulated_operands(rng, 2 * 64, 1152, 256)
+    x = x.reshape(2, 64, 1152)
+    g = torch.from_numpy(rng.standard_normal((2, 64, 256))
+                         .astype(np.float32)).cuda()
+    grads = {}
+    for backend in ("hopper", "torch"):
+        xx, ww = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        before = k2.emulated_matmul.launches
+        out = dispatch.emulated_matmul(xx, ww, cfg, backend=backend)
+        assert k2.emulated_matmul.launches == before + (backend == "hopper")
+        if backend == "hopper":
+            assert out.grad_fn is not None
+            _assert_same_bits(out.detach(), k2.emulated_matmul(x, w, cfg), "fwd")
+        (out * g).sum().backward()
+        grads[backend] = (xx.grad, ww.grad)
+    for a, b in zip(grads["hopper"], grads["torch"]):
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["AC-fp16", "AC-bf16", "AC-afp24"])
+def test_nmatmul_ac_fmt_runs_the_kernel(name, rng):
+    """An emulated AC-<fmt> matmul runs the kernel once, at the registry
+    entry's storage format, within 64 ulps of the registry's plain route,
+    and carries no gradient (as that route)."""
+    _need_card()
+    from repro_torch.core.afpm import chunked_emulated_matmul
+    from repro_torch.core.registry import get_multiplier
+    from repro_torch.numerics import NumericsConfig, nmatmul, numerics_scope
+
+    x, w = _emulated_operands(rng, 96, 200, 48)
+    before = k2.emulated_matmul.launches
+    with numerics_scope(NumericsConfig(mode="emulated", multiplier=name)):
+        got = nmatmul(x.clone().requires_grad_(True), w)
+    assert k2.emulated_matmul.launches == before + 1
+    assert got.grad_fn is None
+    _assert_within_ulps(got, chunked_emulated_matmul(x, w, get_multiplier(name)),
+                        name)
+    _assert_same_bits(got, k2.emulated_matmul(x, w, afpm_config(name)), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["AC5-5", "ACL5", "AC-fp16", "AC-bf16"])
+def test_afpm_bitwise_kernel_vector_and_scalar_paths(name, rng):
+    """The elementwise entry's 16-byte loop, its tail and its scalar loop
+    (pointers off 16-byte alignment) all give the plain version's bits."""
+    _need_card()
+    cfg = afpm_config(name)
+    x, y = _inputs(rng, (4099,)), _inputs(rng, (4099,))
+    for off, n in [(0, 4099), (0, 4096), (1, 4098), (2, 4097), (3, 5), (0, 3)]:
+        xs, ys = x[off:off + n], y[off:off + n]
+        _assert_same_bits(k2.afpm_bitwise(xs, ys, cfg),
+                          k2.afpm_bitwise_plain(xs, ys, cfg), (name, off, n))
