@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Thirteen phases, each printing one line (phases 5, 6, 12 and 13 a few);
-any failed check ends the run with a nonzero exit and no result line:
+Fifteen phases, each printing a line or a few; any failed check ends the
+run with a nonzero exit and no result line:
 
 1. device: the card, its power limit, torch and the kernels' build time
    (every kernel is built from ``src/repro_torch/kernels/csrc/`` here);
@@ -12,7 +12,10 @@ any failed check ends the run with a nonzero exit and no result line:
    at the full-width qwen3-4b and mamba2-130m projection shapes, passes
    1/2/3, fp32 and bf16 activations, within 64 ulps of the largest output;
    every row of a call equal to the same row at M = 1, bit for bit, for
-   every M the serve phases give it and 300; timed at M = 1, 4, 32 and 150
+   every M the serve phases give it and 300; the zamba2-7b projections
+   (in_proj N 14576, out_proj, the shared block's seven) checked at M = 4
+   and 32 and timed at 4 and 150, with the kernel time of a zamba2 decode
+   step's 227 projections beside its bound; timed at M = 1, 4, 32 and 150
    (and 2048 once) with CUDA events behind a device spin (L2 flushed
    before every call by writing 64 MB) beside the plain version, a bf16
    ``torch.matmul`` yardstick, a ``torch.sum`` of the weight (its bytes
@@ -58,9 +61,11 @@ any failed check ends the run with a nonzero exit and no result line:
    mamba2-130m shapes (batch 1 and 4; L = 40, 77 and 150, padded to 256,
    as the serve phase's prompts give them, and 2048;
    H 24, P 64, N 128, chunk 128) and the reduced config's ragged shape
-   (N 16, P 8, Q 16, L 50), batch 4 equal to batch 1 row by row bit for
-   bit and two calls equal bit for bit; timed at the serve path's prefill
-   shapes and at L = 2048 beside the plain version, the card's bound (the
+   (N 16, P 8, Q 16, L 50), and zamba2-7b's (H 112, P 64, N 64; batch 1
+   and 4 at L = 40, 77 and 150), batch 4 equal to batch 1 row by row bit
+   for bit and two calls equal bit for bit; timed at the serve path's
+   prefill shapes (zamba2's at L = 150) and at L = 2048 beside the plain
+   version, the card's bound (the
    FMAs ``y`` needs, ``ssd_scan.fmas``, or the bytes) and phase 2's launch
    floor, with the kernels a call launches (no PyTorch call computes the
    scan, so there is no library time);
@@ -72,7 +77,24 @@ any failed check ends the run with a nonzero exit and no result line:
    ``Session.generate``, and the prefill logits of a full-width prompt of
    each served length through the kernels agree with the plain route's on
    the card;
-9. train-grad: one full-width mamba2-130m training step (8 x 128 tokens,
+9. zamba2: full-width zamba2-7b (68 SSD blocks and one shared attention +
+   MLP block applied 13 times, 5.74 B fp32 params seeded on the card)
+   served as phase 8 serves mamba2 (the shared block's 13 KV caches paged,
+   the SSD states per slot, whole-prompt prefill); every request
+   completes, the scan kernel ran 68 times per prefill and the segmented
+   matmul 227 times per segmented forward, standard-tier tokens equal a
+   solo ``Session.generate``, and the prefill logits through the kernels
+   agree with the plain route's (2**-6 of the largest); per tier decode ms
+   a step, prefill ms, tok/s and a solo generate's peak memory
+   (``chiprun_out/chip_smoke_zamba2.json``);
+10. cli: the session CLI on the card, ``main(argv)`` as ``python -m
+   repro_torch.session`` runs it: ``generate --arch zamba2-7b``,
+   ``serve-loop --weights tests/golden/compat/qwen3-4b`` under premium and
+   standard, ``ppa`` and ``auto-configure --arch zamba2-7b`` (the reduced
+   configs), each exit 0 (lines to ``chiprun_out/chip_smoke_cli.txt``);
+   the fixture's params through ``Session.from_pretrained`` on the card
+   equal ``qwen3-4b_reference.npz`` bit for bit;
+11. train-grad: one full-width mamba2-130m training step (8 x 128 tokens,
    remat full) through the kernels and through the plain route on the
    same params and batch: with fp32 activations under exact (K3) and
    segmented3 (K1 and K3) every leaf's gradient within 2**-6 of the plain
@@ -81,18 +103,18 @@ any failed check ends the run with a nonzero exit and no result line:
    spread when its K1 outputs move by one ulp (the early layers'
    gradients are chaotic there at init); K1 and K3 launches a step (the
    remat recompute runs each forward twice);
-10. train-qwen3: four full-width qwen3-4b steps (8 x 128 tokens) through
+12. train-qwen3: four full-width qwen3-4b steps (8 x 128 tokens) through
    ``repro_torch.launch.train.train`` (AdamW, fp32 moments, remat full, 8
    loss chunks): finite losses, the first near sqrt(d_model) (the
    untrained tied model predicts its input token), parameters changed;
    ms a step, tokens/s, peak memory, and the last step under
    ``torch.profiler``;
-11. train-mamba2: full-width mamba2-130m trained 30 steps (lr 3e-3), the
+13. train-mamba2: full-width mamba2-130m trained 30 steps (lr 3e-3), the
     loss falling, K3 launches counted, the last step profiled; then the
     reduced qwen3-4b trained 20 steps with a checkpoint every 10, and a
     second run restored from the step-10 checkpoint alone ends on the
     same bits;
-12. train-resnet: Table IV's ResNet-18 at full width trained as the
+14. train-resnet: Table IV's ResNet-18 at full width trained as the
     reference trains it (120 steps of 64 ``cifar_like`` images, AdamW;
     two short trainings first, equal bit for bit), then top-1 on the
     reference's 48 evaluation images under exact (at least 0.9), segmented 1/2/3 (K1, 21 launches a forward) and the eight
@@ -101,17 +123,17 @@ any failed check ends the run with a nonzero exit and no result line:
     all), and AC5-5's 48-image forward is timed on the plain route too, at
     least 10x slower, its logits within 1e-4 of the kernel route's
     (``chiprun_out/chip_smoke_train.json``);
-13. resnet: the paper's Table IV network.  The committed resnet18
+15. resnet: the paper's Table IV network.  The committed resnet18
    checkpoint loads through ``Session.from_pretrained`` onto the card bit
    for bit equal to ``resnet18_reference.npz``; then the full-width
-   ResNet-18 trained in phase 12 on 256 ``cifar_like`` images: top-1 and
+   ResNet-18 trained in phase 14 on 256 ``cifar_like`` images: top-1 and
    argmax agreement per mode; exact (the native conv with TF32 off) beside
    the same forward with TF32 on and the fp32 im2col route; segmented
    1/2/3 through the segmented matmul kernel, 21 launches a forward,
    every conv within 64 ulps of the plain version on the same operands and
    the logits within 2**-6 of the plain route's; the kernel timed at
    stage 0's conv shape (M 262144, K 576, N 64); the eight designs' rows
-   from phase 12, their emulated-matmul launches a forward (21 for an AFPM
+   from phase 14, their emulated-matmul launches a forward (21 for an AFPM
    design, 0 for a baseline), and AC5-5 at batch 8 through the kernel
    against the plain route conv by conv (64 ulps) and by its logits
    (1e-4); the
@@ -149,18 +171,33 @@ LAYER_PROJ = [(D, 4096), (D, KVD), (D, KVD), (4096, D), (D, FF), (D, FF),
 SHAPES = sorted(set(LAYER_PROJ))
 # (K, N) of mamba2-130m's segmented projections: in_proj, out_proj
 MAMBA2_PROJ = [(768, 3352), (1536, 768)]
+# (K, N) of zamba2-7b's: an SSD block's in_proj (N 14576 = 16 x 911) and
+# out_proj, the shared block's wq / wk / wv / wo (3584 x 3584), mlp.wi /
+# mlp.wg and mlp.wo
+ZD, ZFF, ZIN = 3584, 14336, 14576
+ZAMBA2_PROJ = [(ZD, ZIN), (2 * ZD, ZD), (ZD, ZD), (ZD, ZFF), (ZFF, ZD)]
+# one zamba2-7b forward's K1 calls: 68 SSD blocks x (in_proj, out_proj) and
+# 13 applications of the shared block x 7 projections: 227
+ZAMBA2_STEP = ([(ZD, ZIN), (2 * ZD, ZD)] * 68
+               + [(ZD, ZD)] * 4 * 13 + [(ZD, ZFF)] * 2 * 13 + [(ZFF, ZD)] * 13)
 # every M the serve phases give the segmented matmul (decode 1 and 4,
 # prefill tails 8 / 13 / 22, chunks of 32, whole prompts 40 / 77 / 150) and
 # 300, which takes the kernel's whole mode at (2560, 4096)
 INVARIANCE_M = (1, 4, 8, 13, 22, 32, 40, 77, 150, 300)
 # logits of the kernel route against the plain route, in units of the
-# largest |logit| (phase 8): the scan kernel agrees with its plain version
+# largest |logit| (phases 8 and 9): the scan kernel agrees with its plain version
 # within a few fp32 ulps, but the model's activations are bf16, so such a
 # difference can flip a bf16 rounding (2**-8 of an element) in any of 24
 # layers, and the flips add up through the residual stream
 LOGIT_BOUND = 2.0 ** -6
+# the same with fp32 activations (phase [zamba2]): no bf16 residual stream;
+# under standard K1's hi + lo carry a projection's operand to about 2**-16,
+# but the attention's score and PV operands are still rounded to bf16, so
+# the routes' few-ulp differences can move those roundings; under exact
+# every matmul operand is rounded to bf16
+FP32_LOGIT_BOUND = {"segmented3": 2.0 ** -10, "exact": 2.0 ** -6}
 SERVE_LENGTHS = (40, 77, 150)
-# phase 13: the ResNet forwards' batch, and the emulated designs' (the
+# phase 15: the ResNet forwards' batch, and the emulated designs' (the
 # bit-level datapath is O(M * N * K) elementwise work)
 RESNET_BATCH = 256
 EMULATED_BATCH = 8
@@ -213,6 +250,10 @@ EMU_FUNCTION_OPS = {"AC5-5": 19, "ACL5": 17}
 # the plain version (a few, measured), and a trained network's logits move
 # by about as much
 EMU_LOGIT_BOUND = 1e-4
+
+
+def logit_bound(policy: str, dtype: str) -> float:
+    return LOGIT_BOUND if dtype == "bfloat16" else FP32_LOGIT_BOUND[policy]
 
 
 def smi(query: str) -> str:
@@ -368,32 +409,45 @@ def phase_kernel(peaks):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst_ulp, worst_abs, n_cases = 0.0, 0.0, 0
-    cases = [((M, K), (K, N)) for K, N in SHAPES + MAMBA2_PROJ for M in (4, 32)]
+
+    def check(xx, w, passes):
+        """The kernel's output on ``xx`` against its plain version's,
+        within ULP_BOUND ulps of the largest output."""
+        nonlocal worst_ulp, worst_abs, n_cases
+        got = k1.afpm_matmul(xx, w, passes)
+        want = k1.afpm_matmul_plain(xx, w, passes)
+        torch.cuda.synchronize()
+        where = f"afpm_matmul {tuple(xx.shape)}@{tuple(w.shape)}"
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{where}: bad output")
+        err = (got - want).abs().max().item()
+        ulp = err / float(np.spacing(np.float32(want.abs().max().item())))
+        if ulp > ULP_BOUND:
+            raise AssertionError(
+                f"{where} passes={passes} {xx.dtype}: {ulp:.1f} ulps of the "
+                f"largest output > {ULP_BOUND}")
+        worst_ulp, worst_abs = max(worst_ulp, ulp), max(worst_abs, err)
+        n_cases += 1
+
+    cases = [((M, K), (K, N)) for K, N in SHAPES + MAMBA2_PROJ
+             for M in (4, 32)]
+    # zamba2-7b's at decode (4 slots), 32 rows and its whole prompts
+    cases += [((M, K), (K, N)) for K, N in ZAMBA2_PROJ
+              for M in (4, 32) + SERVE_LENGTHS]
     cases.append(((3, 5, 2500), (2500, 1000)))   # ragged, batched
     for xs, ws in cases:
         x = torch.randn(xs, generator=gen, device="cuda")
         w = torch.randn(ws, generator=gen, device="cuda") * ws[0] ** -0.5
         for xx in (x, x.to(torch.bfloat16)):
             for passes in (1, 2, 3):
-                got = k1.afpm_matmul(xx, w, passes)
-                want = k1.afpm_matmul_plain(xx, w, passes)
-                torch.cuda.synchronize()
-                if got.shape != want.shape or not torch.isfinite(got).all():
-                    raise AssertionError(f"afpm_matmul {xs}@{ws}: bad output")
-                err = (got - want).abs().max().item()
-                ulp = err / float(np.spacing(np.float32(want.abs().max().item())))
-                if ulp > ULP_BOUND:
-                    raise AssertionError(
-                        f"afpm_matmul {xs}@{ws} passes={passes} {xx.dtype}: "
-                        f"{ulp:.1f} ulps of the largest output > {ULP_BOUND}")
-                worst_ulp, worst_abs = max(worst_ulp, ulp), max(worst_abs, err)
-                n_cases += 1
+                check(xx, w, passes)
 
     # batch invariance: every row of a call equals the same row alone
     # (M = 1) bit for bit, at every M the serve path gives the kernel and
-    # 300, in split and whole mode, with 64- and 128-column tiles
+    # 300, in split and whole mode, with 64- and 128-column tiles, at
+    # qwen3-4b's shapes and zamba2-7b's in_proj (N 14576, ragged) and mlp.wo
     n_rows = 0
-    for K, N in [(D, 4096), (D, 1024), (FF, D)]:
+    for K, N in [(D, 4096), (D, 1024), (FF, D), (ZD, ZIN), (ZFF, ZD)]:
         w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
         x32 = torch.randn((max(INVARIANCE_M), K), generator=gen, device="cuda")
         for x in (x32, x32.to(torch.bfloat16)):
@@ -428,6 +482,8 @@ def phase_kernel(peaks):
     timed = [(K, N, M, passes) for K, N in SHAPES + MAMBA2_PROJ
              for M in (1, 4, 32, 150) for passes in (1, 3)]
     timed.append((D, FF, 2048, 3))
+    # zamba2-7b's projections at a 4-slot decode step and a 150-token prompt
+    timed += [(K, N, M, 3) for K, N in ZAMBA2_PROJ for M in (4, 150)]
     weights = {}
     for K, N, M, passes in timed:
         if (K, N) not in weights:
@@ -440,6 +496,7 @@ def phase_kernel(peaks):
         kern = lambda: k1.afpm_matmul(x, w, passes)
         bytes_ms = (K * N * 4 + M * K * 2 + M * N * 4) / bw * 1e3
         ops_ms = 2 * passes * M * N * K / flops * 1e3
+        check(x, w, passes)   # each timed call's output against plain
         p = k1.plan(M, K, N)
         rows.append(dict(
             M=M, K=K, N=N, passes=passes, plan=p._asdict(),
@@ -472,12 +529,28 @@ def phase_kernel(peaks):
     b_ms, o_ms = layer_sum("bytes_ms"), layer_sum("ops_ms")
     layer["bound_ms"] = max(b_ms, o_ms)
     layer["bound_by"] = "bytes" if b_ms >= o_ms else "operations"
-    big = rows[-1]
+    # one zamba2-7b decode step of the standard tier: its 227 projections
+    # at M = 4, passes = 3
+    def row_of(kn):
+        return next(r for r in rows if (r["K"], r["N"]) == kn
+                    and r["M"] == 4 and r["passes"] == 3)
+
+    zamba2 = {k: sum(row_of(kn)[k] for kn in ZAMBA2_STEP)
+              for k in ("kernel_ms", "plain_ms", "library_ms", "bytes_ms",
+                        "ops_ms")}
+    zamba2["bound_ms"] = max(zamba2["bytes_ms"], zamba2["ops_ms"])
+    zamba2["bound_by"] = ("bytes" if zamba2["bytes_ms"] >= zamba2["ops_ms"]
+                          else "operations")
+    zamba2["in_proj"] = {k: row_of((ZD, ZIN))[k] for k in (
+        "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+    layer["zamba2_step"] = zamba2
+    big = next(r for r in rows if r["M"] == 2048)
     (ROOT / "chiprun_out" / "chip_smoke_kernels.json").write_text(
         json.dumps({"card": smi("name,power.limit"), "layer": layer,
                     "rows": rows}, indent=1))
-    print(f"[kernel] afpm_matmul: {n_cases} cases within {ULP_BOUND} ulps "
-          f"(worst {worst_ulp:.2f} ulps, {worst_abs:.3g} abs); {n_rows} rows "
+    print(f"[kernel] afpm_matmul: {n_cases} cases (the timed calls among "
+          f"them) within {ULP_BOUND} ulps (worst {worst_ulp:.2f} ulps, "
+          f"{worst_abs:.3g} abs); {n_rows} rows "
           f"at M in {INVARIANCE_M} equal to M = 1 bit for bit; one decode "
           f"layer (M=4, passes=3): kernel {layer['kernel_ms']:.4f} ms on the "
           f"device, {layer['kernel_call_ms']:.4f} ms with the host's call, "
@@ -488,7 +561,15 @@ def phase_kernel(peaks):
           f"({layer['bound_by']}), launch floor {floor_ms:.4f} ms a call (a "
           f"one-element torch.add, timed alike); M=2048 at ({D}, {FF}): kernel "
           f"{big['kernel_ms']:.4f} ms, torch.matmul x3 {big['library_ms']:.4f}"
-          f" ms, bound {big['bound_ms']:.4f} ms ({big['bound_by']})")
+          f" ms, bound {big['bound_ms']:.4f} ms ({big['bound_by']}); "
+          f"zamba2-7b in_proj (M=4, K {ZD}, N {ZIN}, passes=3): kernel "
+          f"{zamba2['in_proj']['kernel_ms']:.4f} ms, plain "
+          f"{zamba2['in_proj']['plain_ms']:.4f} ms, torch.matmul x3 "
+          f"{zamba2['in_proj']['library_ms']:.4f} ms, bound "
+          f"{zamba2['in_proj']['bound_ms']:.4f} ms; its {len(ZAMBA2_STEP)} "
+          f"projections of a decode step: kernel {zamba2['kernel_ms']:.4f} ms,"
+          f" torch.matmul x3 {zamba2['library_ms']:.4f} ms, bound "
+          f"{zamba2['bound_ms']:.4f} ms ({zamba2['bound_by']})")
     for r in rows:
         print(f"[kernel]   M {r['M']:4d} K {r['K']:4d} N {r['N']:4d} passes "
               f"{r['passes']}: kernel {r['kernel_ms']:.4f} (call "
@@ -574,6 +655,63 @@ def phase_serve():
           f"{per_forward} x {forwards} segmented forwards; standard tokens "
           f"== solo generate; peak memory {peak_gb:.2f} GB")
     return launches
+
+
+def phase_decode_attention():
+    """What the decode step's fp64 sums cost as the cache grows, at
+    qwen3-4b's attention shapes (4 slots, 32 query heads over 8 KV heads
+    of 128, a bf16 cache, every slot at the cache's end):
+    ``models.attention.decode_attention`` against the same function with
+    fp32 einsums of bf16-rounded operands (its form before the fp64 sums,
+    which let a row's bits change with its batch).  Device time behind a
+    spin after a 64 MB write flush; times 36 layers for a step."""
+    import torch
+
+    from repro_torch.models import attention
+    from repro_torch.models.layers import bf16_round
+
+    def fp32_sums(q, kc, vc, pos):
+        B, _, H, Dh = q.shape
+        KH = kc.shape[2]
+        qr = q.reshape(B, KH, H // KH, Dh)
+        sc = torch.einsum("bkgd,bskd->bkgs", bf16_round(qr),
+                          bf16_round(kc)) * (Dh ** -0.5)
+        k_pos = torch.arange(kc.shape[1], device=q.device)
+        mask = k_pos[None, None, None, :] <= pos[:, None, None, None]
+        pr = torch.softmax(sc.masked_fill(~mask, attention.NEG_INF), dim=-1)
+        return torch.einsum("bkgs,bskd->bkgd", bf16_round(pr),
+                            bf16_round(vc)).reshape(B, 1, H, Dh)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+    B, H, KH, Dh, layers = 4, 32, 8, 128, 36
+    rows, parts = [], []
+    for S in (256, 4096, 32768):
+        q = torch.randn((B, 1, H, Dh), generator=gen, device="cuda")
+        kc, vc = (torch.randn((B, S, KH, Dh), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(2))
+        pos = torch.full((B,), S - 1, device="cuda")
+        got = attention.decode_attention(q, kc, vc, pos)
+        want = fp32_sums(q, kc, vc, pos)
+        # the same function: the sums' orders differ by fp32 roundings of
+        # the scores, which may move a bf16 rounding of a softmax weight
+        # (2**-9 of it), nothing more
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        if not torch.isfinite(got).all() or rel > 2.0 ** -8:
+            raise AssertionError(f"decode_attention at cache {S}: {rel:.3g} "
+                                 f"of the largest from its fp32 sums")
+        f64_ms = timed_ms(lambda: attention.decode_attention(q, kc, vc, pos),
+                          20, flush, True)
+        f32_ms = timed_ms(lambda: fp32_sums(q, kc, vc, pos), 20, flush, True)
+        rows.append(dict(cache=S, f64_ms=f64_ms, f32_ms=f32_ms, rel=rel))
+        parts.append(f"cache {S}: fp64 sums {f64_ms:.4f} ms, fp32 "
+                     f"{f32_ms:.4f} ms a layer (a step's {layers} layers "
+                     f"+{layers * (f64_ms - f32_ms):.2f} ms; outputs within "
+                     f"{rel:.2g})")
+        del q, kc, vc, got, want
+    print(f"[decode-attn] qwen3-4b decode attention, {B} slots: "
+          f"{'; '.join(parts)}")
+    return rows
 
 
 def bit_mismatches(got, want):
@@ -1018,6 +1156,8 @@ def phase_ssd(peaks, floor_ms):
     cases = [(b, L, H, P, N, chunk) for b in (1, 4)
              for L in (*SERVE_LENGTHS, 2048)]
     cases.append((1, 50, 16, 8, 16, 16))   # reduced config, ragged
+    # zamba2-7b's SSD blocks: H 112, P 64, N 64 at the served lengths
+    cases += [(b, L, 112, 64, 64, chunk) for b in (1, 4) for L in SERVE_LENGTHS]
     worst_ulp, worst_abs = 0.0, 0.0
     for b, L, h, p, n, q in cases:
         x, dt, A, B, C = ssd_inputs(gen, b, L, h, p, n)
@@ -1058,7 +1198,9 @@ def phase_ssd(peaks, floor_ms):
     bw, _, fp32 = peaks
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
     rows = []
-    for b, L in [(1, n) for n in SERVE_LENGTHS] + [(1, 2048), (4, 2048)]:
+    for b, L, H in ([(1, n, 24) for n in SERVE_LENGTHS]
+                    + [(1, 2048, 24), (4, 2048, 24), (1, SERVE_LENGTHS[2], 112)]):
+        N = 128 if H == 24 else 64    # mamba2-130m, or zamba2-7b
         Q = min(chunk, L)
         Lp = -(-L // Q) * Q
         x, dt, A, B, C = ssd_inputs(gen, b, Lp, H, P, N)
@@ -1067,7 +1209,7 @@ def phase_ssd(peaks, floor_ms):
                         + 2 * b * Lp * N) / bw * 1e3
         pl = k3.plan(Lp, Q, H, P, N)
         rows.append(dict(
-            batch=b, L=L, L_padded=Lp, Q=Q, plan=pl._asdict(),
+            batch=b, L=L, L_padded=Lp, Q=Q, H=H, N=N, plan=pl._asdict(),
             kernels_a_call=pl.kernels, launch_floor_ms=floor_ms,
             kernel_ms=timed_ms(lambda: k3.ssd_scan(x, dt, A, B, C, Q), 20,
                                flush, True),
@@ -1085,14 +1227,20 @@ def phase_ssd(peaks, floor_ms):
           f"call launches {rows[0]['kernels_a_call']} kernels after "
           f"chunk_decay's 2 ops; launch floor {floor_ms:.4f} ms a launch "
           f"(phase 2); " + "; ".join(
-              f"b{r['batch']} L {r['L']} (padded {r['L_padded']}, Q {r['Q']}, "
+              f"b{r['batch']} L {r['L']} H {r['H']} N {r['N']} (padded "
+              f"{r['L_padded']}, Q {r['Q']}, "
               f"{r['plan']['grid_a']} + {r['plan']['grid_b']} CTAs a row) kernel "
               f"{r['kernel_ms']:.4f} ms (chunk_decay {r['decay_ms']:.4f}) plain "
               f"{r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}; operations {r['ops_ms']:.4f}, bytes "
               f"{r['bytes_ms']:.4f})" for r in rows))
-    row = next(r for r in rows if r["L"] == SERVE_LENGTHS[2] and r["batch"] == 1)
-    return dict(row, max_abs_err=worst_abs, max_ulp_err=worst_ulp)
+    row = next(r for r in rows if r["L"] == SERVE_LENGTHS[2]
+               and r["batch"] == 1 and r["H"] == 24)
+    zamba2 = next(r for r in rows if r["H"] == 112)
+    return dict(row, max_abs_err=worst_abs, max_ulp_err=worst_ulp,
+                zamba2={k: zamba2[k] for k in (
+                    "L", "L_padded", "H", "N", "kernel_ms", "decay_ms",
+                    "plain_ms", "bound_ms", "bound_by")})
 
 
 def phase_mamba2():
@@ -1210,6 +1358,277 @@ def phase_mamba2():
           f" (standard) of the largest (bound {LOGIT_BOUND:.3g}); peak memory "
           f"{peak_gb:.2f} GB")
     return launches
+
+
+def phase_zamba2():
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as k3
+    from repro_torch.models import transformer
+    from repro_torch.serving import DEFAULT_TIERS, kvcache
+    from repro_torch.session import Session
+
+    cfg = get_arch("zamba2-7b")
+    assert (cfg.n_layers, cfg.d_model, cfg.vocab) == (81, 3584, 32000)
+    n_ssd = sum(r * sum(s.kind == "ssm" for s in p) for r, p in cfg.segments)
+    n_shared = sum(r for r, p in cfg.segments if any(s.shared for s in p))
+    per_forward = 2 * n_ssd + 7 * n_shared
+    assert (n_ssd, n_shared, per_forward) == (68, 13, 227)
+    n_params = sum(int(np.prod(shape)) for shape, _ in
+                   transformer.param_shapes(cfg).values())
+    assert n_params == 5_737_364_864, n_params
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sess = Session(cfg, seed=0)
+    sess.params  # seeded random init on the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params_gb = torch.cuda.memory_allocated() / 1e9 - held_gb
+    eng = sess.serving_engine(slots=4, max_len=256)
+    pools_gb = torch.cuda.memory_allocated() / 1e9 - held_gb - params_gb
+    if any(lane.runner.chunked for lane in eng._lanes.values()) \
+            or kvcache.paged_layout(cfg) != (frozenset({5}), frozenset()):
+        raise AssertionError("zamba2 lanes should page the shared block's "
+                             "KV caches, keep the SSD states per slot and "
+                             "prefill whole prompts")
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i in range(6):
+        tier = DEFAULT_TIERS[i % 3].name
+        plen = SERVE_LENGTHS[(i + i // 3) % 3]
+        reqs.append(eng.submit(rng.integers(0, cfg.vocab, plen), tier=tier,
+                               max_new_tokens=16))
+
+    k1.afpm_matmul.launches = 0
+    k3.ssd_scan.launches = 0
+    t0 = time.perf_counter()
+    stats = eng.run()
+    serve_s = time.perf_counter() - t0
+    launches, k1_launches = k3.ssd_scan.launches, k1.afpm_matmul.launches
+    serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    bad = [r.id for r in reqs if not r.done or len(r.result()) != 16]
+    if bad:
+        raise AssertionError(f"requests did not finish with 16 tokens: {bad}")
+    prefills = sum(st.n_prefill_chunks for st in stats.values())
+    if prefills != len(reqs) or launches != n_ssd * prefills:
+        raise AssertionError(f"ssd_scan launched {launches} times, expected "
+                             f"{n_ssd} x {prefills} prefills")
+    segmented = [t.name for t in DEFAULT_TIERS if t.policy != "exact"]
+    forwards = sum(stats[n].n_prefill_chunks + stats[n].n_decode_steps
+                   for n in segmented)
+    if k1_launches != per_forward * forwards:
+        raise AssertionError(f"afpm_matmul launched {k1_launches} times, "
+                             f"expected {per_forward} x {forwards} segmented "
+                             f"forwards")
+
+    # per tier, with the engine's pools freed: a solo generate of the
+    # longest prompt and its peak memory; the standard tier's requests
+    # equal their solo generates bit for bit
+    del eng
+    torch.cuda.empty_cache()
+    longest = next(r for r in reqs if len(r.prompt) == SERVE_LENGTHS[2])
+    peak = {}
+    for t in DEFAULT_TIERS:
+        solo_sess = sess.replace(policy=t.policy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        solo_sess.generate(prompts=longest.prompt[None], gen_len=16)
+        peak[t.name] = torch.cuda.max_memory_allocated() / 1e9 - held_gb
+        if t.name != "standard":
+            continue
+        for r in (r for r in reqs if r.tier == "standard"):
+            solo = solo_sess.generate(prompts=r.prompt[None], gen_len=16)
+            if not np.array_equal(solo.tokens[0], r.result()):
+                raise AssertionError(
+                    f"standard request {r.id}: engine {r.result().tolist()} "
+                    f"!= solo generate {solo.tokens[0].tolist()}")
+
+    # the kernel route against the plain route, one full-width prompt of
+    # each served length, under exact (only the scan differs) and standard,
+    # with the config's bf16 activations and with fp32 ones
+    prompts = {len(r.prompt): r.prompt for r in reqs}
+    logit_err = {(policy, dtype): [] for dtype in ("bfloat16", "float32")
+                 for policy in ("exact", "segmented3")}
+    plain = {}
+    with torch.inference_mode():
+        for plen in SERVE_LENGTHS:
+            prompt = torch.as_tensor(prompts[plen][None], device="cuda")
+            for policy, dtype in logit_err:
+                out = {}
+                for backend in ("auto", "torch"):
+                    s = sess.replace(policy=policy, backend=backend)
+                    c = dataclasses.replace(s.config, dtype=dtype)
+                    b3, b1 = k3.ssd_scan.launches, k1.afpm_matmul.launches
+                    out[backend], _ = transformer.prefill(
+                        s.params, c, {"tokens": prompt})
+                    ran3 = k3.ssd_scan.launches - b3
+                    ran1 = k1.afpm_matmul.launches - b1
+                    want3 = n_ssd if backend == "auto" else 0
+                    want1 = (per_forward if backend == "auto"
+                             and policy != "exact" else 0)
+                    if (ran3, ran1) != (want3, want1):
+                        raise AssertionError(
+                            f"{policy}/{backend}: ssd_scan ran {ran3} and "
+                            f"afpm_matmul {ran1} times in one prefill, "
+                            f"expected {want3} and {want1}")
+                want = plain[policy, dtype, plen] = out["torch"]
+                if out["auto"].shape != (1, 1, cfg.vocab) \
+                        or not torch.isfinite(out["auto"]).all():
+                    raise AssertionError(f"prefill logits bad: "
+                                         f"{tuple(out['auto'].shape)}")
+                logit_err[policy, dtype].append(
+                    ((out["auto"] - want).abs().max()
+                     / want.abs().max()).item())
+    # the bf16 readings' floor: the plain route against itself with its
+    # scan's outputs one fp32 ulp up, under exact (where only the scan
+    # differs between the routes); not gated
+    real = ref.ssd_scan_chunked_ref
+
+    def nudged(*args):
+        out = real(*args)
+        return torch.nextafter(out, torch.full_like(out, 1e38))
+
+    spread = []
+    ref.ssd_scan_chunked_ref = nudged
+    try:
+        s = sess.replace(policy="exact", backend="torch")
+        with torch.inference_mode():
+            for plen in SERVE_LENGTHS:
+                want = plain["exact", "bfloat16", plen]
+                got, _ = transformer.prefill(s.params, s.config, {
+                    "tokens": torch.as_tensor(prompts[plen][None],
+                                              device="cuda")})
+                spread.append(((got - want).abs().max()
+                               / want.abs().max()).item())
+    finally:
+        ref.ssd_scan_chunked_ref = real
+    # gated once every reading is in, so a failure shows them all
+    readings, over = [], []
+    for (policy, dtype), errs in logit_err.items():
+        bound = logit_bound(policy, dtype)
+        readings.append(f"{policy}/{dtype} "
+                        f"{', '.join(f'{e:.3g}' for e in errs)} "
+                        f"(bound {bound:.3g})")
+        if max(errs) > bound:
+            over.append(readings[-1])
+    if over:
+        raise AssertionError(f"kernel-route prefill logits differ from the "
+                             f"plain route's by more than the bound, of the "
+                             f"largest, prompts of {SERVE_LENGTHS} tokens: "
+                             f"{'; '.join(over)}")
+
+    tiers = {}
+    parts = []
+    for t in DEFAULT_TIERS:
+        st = stats[t.name]
+        dec_tokens = st.n_tokens - st.n_finished
+        tiers[t.name] = dict(
+            policy=t.policy, decode_tok_s=dec_tokens / st.decode_s,
+            decode_ms_step=1e3 * st.decode_s / st.n_decode_steps,
+            decode_steps=st.n_decode_steps,
+            prefill_ms=1e3 * st.prefill_s / st.n_prefill_chunks,
+            solo_peak_gb=peak[t.name])
+        parts.append(f"{t.name}({t.policy}) decode "
+                     f"{tiers[t.name]['decode_tok_s']:.1f} tok/s "
+                     f"{tiers[t.name]['decode_ms_step']:.2f} ms/step prefill "
+                     f"{tiers[t.name]['prefill_ms']:.2f} ms/request, a "
+                     f"solo generate of {SERVE_LENGTHS[2]} + 16 tokens peaks "
+                     f"at {peak[t.name]:.2f} GB")
+    print(f"[zamba2] zamba2-7b full width ({n_params / 1e9:.3f} B params, "
+          f"{params_gb:.2f} GB on the card, init {init_s:.1f} s; the three "
+          f"lanes' pools {pools_gb:.2f} GB): 6 requests x 16 tokens in "
+          f"{serve_s:.2f} s; {'; '.join(parts)}; engine peak "
+          f"{serve_peak_gb - held_gb:.2f} GB; ssd_scan launches {launches} = "
+          f"{n_ssd} x "
+          f"{prefills} prefills; afpm_matmul launches {k1_launches} = "
+          f"{per_forward} x {forwards} segmented forwards; standard tokens == "
+          f"solo generate; kernel vs plain route prefill logits (prompts of "
+          f"{'/'.join(map(str, SERVE_LENGTHS))} tokens), of the largest: "
+          f"{'; '.join(readings)}; the plain route against itself with its "
+          f"scan one ulp up, exact/bfloat16: "
+          f"{', '.join(f'{e:.3g}' for e in spread)}")
+    out = dict(k3=launches, k1=k1_launches, prefills=prefills,
+               forwards=forwards, params=n_params, params_gb=params_gb,
+               pools_gb=pools_gb, init_s=init_s, serve_s=serve_s,
+               serve_peak_gb=serve_peak_gb - held_gb,
+               tiers=tiers, logit_err={f"{p}/{d}": errs for (p, d), errs
+                                       in logit_err.items()},
+               plain_one_ulp_spread=spread)
+    (ROOT / "chiprun_out" / "chip_smoke_zamba2.json").write_text(json.dumps(
+        dict(out, card=smi("name,power.limit")), indent=1))
+    return out
+
+
+def phase_cli():
+    """The session CLI on the card: each subcommand as a user runs it
+    (``python -m repro_torch.session ...`` is ``main(argv)``), exit 0; the
+    qwen3-4b fixture loaded through ``from_pretrained`` equal to the file's
+    reference arrays bit for bit."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from repro_torch.compat import flatten_tree
+    from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.session import Session, main
+
+    fixture = ROOT / "tests" / "golden" / "compat" / "qwen3-4b"
+    runs = [
+        ["generate", "--arch", "zamba2-7b"],
+        ["serve-loop", "--weights", str(fixture), "--tiers",
+         "premium:exact,standard:segmented3"],
+        ["ppa"],
+        ["auto-configure", "--arch", "zamba2-7b", "--budget", "1e-2"],
+    ]
+    lines = {}
+    for argv in runs:
+        buf = io.StringIO()
+        before = k1.afpm_matmul.launches
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        secs = time.perf_counter() - t0
+        out = buf.getvalue().splitlines()
+        if rc != 0:
+            raise AssertionError(f"session CLI {' '.join(argv)}: exit {rc}")
+        lines[argv[0]] = dict(seconds=secs, lines=out,
+                              k1=k1.afpm_matmul.launches - before)
+    if lines["serve-loop"]["k1"] <= 0:
+        raise AssertionError("serve-loop's standard tier ran no afpm_matmul")
+    sess = Session.from_pretrained("qwen3-4b", fixture)
+    ref = dict(np.load(fixture.parent / "qwen3-4b_reference.npz"))
+    got = {k: v for k, v in flatten_tree(sess.params).items()}
+    if sess.params["embed"].device.type != "cuda" or sorted(got) != sorted(ref):
+        raise AssertionError("from_pretrained: params not on the card, or "
+                             "names differ from the reference")
+    for k, v in ref.items():
+        if got[k].dtype != v.dtype or not np.array_equal(
+                got[k].view(np.uint32), v.view(np.uint32)):
+            raise AssertionError(f"from_pretrained: {k} differs from the "
+                                 f"reference bit for bit")
+    del sess
+    torch.cuda.empty_cache()
+    (ROOT / "chiprun_out" / "chip_smoke_cli.txt").write_text("\n".join(
+        f"$ python -m repro_torch.session {' '.join(a)}\n"
+        + "\n".join(lines[a[0]]["lines"]) for a in runs))
+    summary = "; ".join(
+        f"{cmd} exit 0 in {v['seconds']:.1f} s ({v['lines'][-1].strip()})"
+        for cmd, v in lines.items())
+    print(f"[cli] {summary}; from_pretrained('qwen3-4b') on the card == "
+          f"qwen3-4b_reference.npz bit for bit ({len(ref)} tensors); "
+          f"serve-loop's standard tier {lines['serve-loop']['k1']} "
+          f"afpm_matmul launches")
+    return lines
 
 
 def train_batch(cfg, step: int, seq_len: int, batch: int):
@@ -2055,6 +2474,7 @@ def main() -> int:
     k = phase_kernel(peaks)
     launches = phase_serve()
     torch.cuda.empty_cache()
+    phase_decode_attention()
     b = phase_bitwise(peaks)
     e = phase_emulated(peaks)
     torch.cuda.empty_cache()
@@ -2063,6 +2483,9 @@ def main() -> int:
     c = phase_ssd(peaks, k["launch_floor_ms"])
     c_launches = phase_mamba2()
     torch.cuda.empty_cache()
+    z = phase_zamba2()
+    torch.cuda.empty_cache()
+    phase_cli()
     tg = phase_train_grad()
     tq = phase_train_qwen3()
     tm = phase_train_mamba2()
@@ -2087,6 +2510,7 @@ def main() -> int:
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "resnet_launches": r["launches"], "resnet_max_ulp_err": r["max_ulp_err"],
         "resnet_conv": r["conv"], "train_grad_launches": tg["k1"],
+        "zamba2_launches": z["k1"], "zamba2_step": k["zamba2_step"],
         "backward": "plain (repro_torch/kernels/autograd.py)"}, {
         "name": "afpm_bitwise", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/afpm_bitwise.cu",
@@ -2127,6 +2551,7 @@ def main() -> int:
         "plain_ms": c["plain_ms"], "library_ms": None,
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
         "train_grad_launches": tg["k3"], "train_mamba2_launches": tm["k3"],
+        "zamba2_launches": z["k3"], "zamba2": c["zamba2"],
         "backward": "plain (repro_torch/kernels/autograd.py)"}]}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {

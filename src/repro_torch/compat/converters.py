@@ -9,18 +9,21 @@ Registered so far:
 =============  =========================================  ==============
 family         foreign layout                             native model
 =============  =========================================  ==============
+``qwen3-4b``   HF ``Qwen3ForCausalLM`` (``model.layers.   decoder LM,
+               {i}.self_attn.q_proj...``, tied lm_head)   ``seg{s}_p{p}``
 ``resnet18``   torchvision ``resnet18`` state dict        CIFAR ResNet
                (``layer{1..4}.{b}``, OIHW convs)          + bn state
 =============  =========================================  ==============
 
-The qwen3-4b and whisper-tiny converters of the reference come with a
-later slice of the port.
+The whisper-tiny converter of the reference comes with the port's
+encoder.
 
 :func:`load_pretrained` reads the checkpoint (safetensors single or
 sharded, or a torch pickle by extension), builds the family mapping for
 the resolved config, renames and adapts into the native state dict, and
 validates every leaf against a template built from the model's own shapes
-(:func:`repro_torch.models.resnet.shapes`).  :func:`export_pretrained`
+(:func:`repro_torch.models.transformer.param_shapes`,
+:func:`repro_torch.models.resnet.shapes`).  :func:`export_pretrained`
 is the exact inverse.  Both work on host numpy arrays; the caller puts
 them on a device.
 """
@@ -37,7 +40,8 @@ from .safetensors_io import load_checkpoint, read_torch_checkpoint
 from .state_dict import (CompatError, Leaf, MapRule, Mapping, flatten_tree,
                          unflatten_tree)
 
-__all__ = ["Converter", "LoadedCheckpoint", "ResNet18Converter",
+__all__ = ["Converter", "DecoderLMConverter", "LoadedCheckpoint",
+           "ResNet18Converter",
            "converter_for", "export_pretrained", "families",
            "load_pretrained", "register_converter"]
 
@@ -51,11 +55,82 @@ class LoadedCheckpoint:
     """The result of :func:`load_pretrained`, ready for a Session."""
 
     family: str
-    kind: str                 # "resnet"
-    cfg: object               # ResNetConfig
+    kind: str                 # "lm" | "resnet"
+    cfg: object               # ArchConfig | ResNetConfig
     params: dict              # nested numpy arrays
     state: Optional[dict]     # resnet batch-norm running statistics
     metadata: Dict[str, str]
+
+
+# ---------------------------------------------------------------------------
+# transformer block mapping rules
+# ---------------------------------------------------------------------------
+
+# foreign key templates of the HF qwen/llama naming scheme, relative to the
+# layer prefix
+_QWEN_NAMES = {
+    "ln1": "input_layernorm.weight",
+    "ln2": "post_attention_layernorm.weight",
+    "attn.wq": "self_attn.q_proj.weight",
+    "attn.wk": "self_attn.k_proj.weight",
+    "attn.wv": "self_attn.v_proj.weight",
+    "attn.wo": "self_attn.o_proj.weight",
+    "attn.q_norm": "self_attn.q_norm.weight",
+    "attn.k_norm": "self_attn.k_norm.weight",
+    "mlp.wi": "mlp.up_proj.weight",
+    "mlp.wg": "mlp.gate_proj.weight",
+    "mlp.wo": "mlp.down_proj.weight",
+}
+
+# norms store HF's raw weight as our ``1 + scale``: an import shift
+_NORM_SHIFT = -1.0
+
+
+def _block_rules(prefix, dst_prefix, names, stack_kw, *, qk_norm=False):
+    """MapRules for one (stacked) transformer block position."""
+    def mk(slot, dst, **kw):
+        return MapRule(prefix + names[slot], dst_prefix + dst,
+                       **stack_kw, **kw)
+
+    rules = [
+        mk("ln1", "ln1.scale", shift=_NORM_SHIFT),
+        mk("ln2", "ln2.scale", shift=_NORM_SHIFT),
+        mk("attn.wq", "attn.wq", transpose=True),
+        mk("attn.wk", "attn.wk", transpose=True),
+        mk("attn.wv", "attn.wv", transpose=True),
+        mk("attn.wo", "attn.wo", transpose=True),
+    ]
+    if qk_norm:
+        rules += [mk("attn.q_norm", "attn.q_norm.scale", shift=_NORM_SHIFT),
+                  mk("attn.k_norm", "attn.k_norm.scale", shift=_NORM_SHIFT)]
+    rules += [
+        mk("mlp.wi", "mlp.wi", transpose=True),
+        mk("mlp.wg", "mlp.wg", transpose=True),
+        mk("mlp.wo", "mlp.wo", transpose=True),
+    ]
+    return rules
+
+
+def _decoder_stack_rules(cfg, layer_tpl, names):
+    """Rules for every ``seg{s}_p{p}`` against global HF layer indices."""
+    rules = []
+    base = 0
+    for si, (repeats, pattern) in enumerate(cfg.segments):
+        period = len(pattern)
+        for pi, spec in enumerate(pattern):
+            if spec.kind != "dense" or spec.attn not in ("global", "local"):
+                raise CompatError(
+                    f"no pretrained converter for layer kind="
+                    f"{spec.kind!r} attn={spec.attn!r} "
+                    f"(seg{si}_p{pi} of {cfg.arch_id})")
+            if spec.shared:
+                raise CompatError(f"no pretrained converter for shared "
+                                  f"blocks (seg{si}_p{pi} of {cfg.arch_id})")
+            stack_kw = dict(stack=repeats, start=base + pi, stride=period)
+            rules += _block_rules(layer_tpl, f"seg{si}_p{pi}.", names,
+                                  stack_kw, qk_norm=cfg.qk_norm)
+        base += repeats * period
+    return rules
 
 
 class Converter:
@@ -111,6 +186,48 @@ class Converter:
                  if state_tpl is not None else None)
         return LoadedCheckpoint(self.family, self.kind, cfg, params, state,
                                 metadata)
+
+
+class DecoderLMConverter(Converter):
+    """HF decoder-only causal LM (qwen/llama naming scheme)."""
+
+    kind = "lm"
+
+    def __init__(self, family: str):
+        self.family = family
+
+    def default_config(self, reduced: bool):
+        from repro_torch.configs import get_arch
+        base = get_arch(self.family)
+        return base.reduced() if reduced else base
+
+    def config_json(self, cfg) -> str:
+        return json.dumps({"arch_id": cfg.arch_id,
+                           "reduced": cfg.d_model == 64})
+
+    def config_from_json(self, text: str):
+        from repro_torch.configs import get_arch
+        spec = json.loads(text)
+        base = get_arch(spec["arch_id"])
+        return base.reduced() if spec.get("reduced") else base
+
+    def templates(self, cfg):
+        from repro_torch.models import transformer
+
+        f32 = np.dtype(np.float32)
+        return transformer.unflatten(
+            {k: Leaf(tuple(shape), f32)
+             for k, (shape, _) in transformer.param_shapes(cfg).items()}), None
+
+    def mapping(self, cfg) -> Mapping:
+        rules = [MapRule("model.embed_tokens.weight", "embed")]
+        rules += _decoder_stack_rules(cfg, "model.layers.{i}.", _QWEN_NAMES)
+        rules.append(MapRule("model.norm.weight", "final_norm.scale",
+                             shift=_NORM_SHIFT))
+        if not cfg.tie_embeddings:
+            rules.append(MapRule("lm_head.weight", "unembed",
+                                 transpose=True))
+        return Mapping(rules)
 
 
 class ResNet18Converter(Converter):
@@ -203,6 +320,7 @@ def families() -> list:
     return sorted(_CONVERTERS)
 
 
+register_converter(DecoderLMConverter("qwen3-4b"))
 register_converter(ResNet18Converter("resnet18"))
 
 

@@ -5,7 +5,8 @@ stacked-layer layout of ``tests/golden/compat/qwen3-4b_reference.npz``:
 ``embed`` ``(vocab, d)``, ``final_norm.scale``, ``seg0_p0.attn.wq``
 ``(repeats, d, H * hd)`` and so on; an SSD stack's blocks carry
 ``seg0_p0.ln1.scale`` and ``seg0_p0.ssm.{in_proj, conv_w, conv_b, A_log,
-dt_bias, norm, out_proj}`` (mamba2-130m).  The port uses the same layout
+dt_bias, norm, out_proj}`` (mamba2-130m); a shared block entry (zamba2-7b's
+``seg0_p5``) has no repeats axis.  The port uses the same layout
 (:func:`repro_torch.models.transformer.param_shapes`), so carrying weights
 across is a check of names and shapes plus a copy.  The ResNet's
 ``(params, state)`` trees carry across the same way

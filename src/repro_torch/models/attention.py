@@ -3,9 +3,12 @@
 Numerics: q/k/v/o projections route through ``nmatmul`` (the paper's
 configurable multiplier); the score and PV products stay bf16 operands
 with fp32 accumulation, as in the JAX package, computed as fp32 einsums
-of bf16-rounded operands (exact products, fp32 sums).  The reference's
-algorithm is kept (no ``scaled_dot_product_attention``) so the bits stay
-comparable.
+of bf16-rounded operands (exact products, fp32 sums); a decode step
+runs the scores, the softmax and the PV sum in fp64 and rounds once
+(:func:`~.layers.einsum_f64`), so a row's attention does not depend on
+the batch it is decoded in.  The
+reference's algorithm is kept (no ``scaled_dot_product_attention``) so
+the bits stay comparable.
 
 Caches are updated in place: the port's serving state is mutable, which
 saves the copy a functional update would make of every layer's cache.
@@ -16,7 +19,7 @@ import torch
 
 from repro_torch.numerics import layer_scope, nmatmul
 
-from .layers import apply_rope, bf16_round, rmsnorm, softcap
+from .layers import apply_rope, bf16_round, einsum_f64, rmsnorm, softcap
 
 NEG_INF = -1e30
 
@@ -128,9 +131,10 @@ def gqa_apply(params, x, cfg, spec, positions, cache=None, q_offset=0):
         k = nmatmul(x, params["wk"]).reshape(B, S, KH, hd)
     with layer_scope("wv"):
         v = nmatmul(x, params["wv"]).reshape(B, S, KH, hd)
+    decoding = cache is not None and S == 1
     if cfg.qk_norm:
-        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+        q = rmsnorm(params["q_norm"], q, cfg.norm_eps, f64=decoding)
+        k = rmsnorm(params["k_norm"], k, cfg.norm_eps, f64=decoding)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     window = spec.window if spec.attn == "local" else None
@@ -145,7 +149,7 @@ def gqa_apply(params, x, cfg, spec, positions, cache=None, q_offset=0):
         # update the cache at q_offset, attend the full cache
         k_cache = _cache_update(cache["k"], k, q_offset)
         v_cache = _cache_update(cache["v"], v, q_offset)
-        if S > 1:
+        if not decoding:
             # chunked prefill: the same blockwise kernel as the no-cache
             # prefill, over the updated cache; rows past the frontier mask
             # to exact-zero contributions
@@ -168,13 +172,14 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=None, attn_cap=None):
     ``pos`` is the absolute decode position: a scalar for a lockstep
     batch, or a ``(B,)`` vector when every row sits at its own position.
     GQA-aware: the query is grouped as (B, KH, G, D) and contracted against
-    the unexpanded cache."""
+    the unexpanded cache.  Computed in fp64 from bf16 operands; the output
+    is fp64, rounded once by the caller."""
     B, S1, H, D = q.shape  # S1 == 1
     KH = k_cache.shape[2]
     G = H // KH
     qr = q.reshape(B, KH, G, D)
-    s = torch.einsum("bkgd,bskd->bkgs", bf16_round(qr),
-                     bf16_round(k_cache)) * (D ** -0.5)
+    bf = torch.bfloat16
+    s = einsum_f64("bkgd,bskd->bkgs", qr.to(bf), k_cache.to(bf)) * (D ** -0.5)
     if attn_cap is not None:
         s = softcap(s, attn_cap)
     k_pos = torch.arange(k_cache.shape[1], device=q.device)
@@ -184,5 +189,5 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=None, attn_cap=None):
         mask = mask & (pr - k_pos[None, None, None, :] < window)
     s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", bf16_round(p), bf16_round(v_cache))
+    o = einsum_f64("bkgs,bskd->bkgd", p.to(bf), v_cache.to(bf))
     return o.reshape(B, 1, H, D)

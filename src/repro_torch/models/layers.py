@@ -18,6 +18,22 @@ def bf16_round(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32)
 
 
+def einsum_f64(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` in fp64; the result stays fp64 for the caller to
+    round once, where it casts anyway.
+
+    The library picks a sum order by shape: on the card a row's fp32 dot
+    changes with the batch it sits in (cuBLAS chooses its kernels by the
+    batch count), which in a bf16 model moves roundings far downstream.
+    Summed in fp64 the orders agree to fp64 rounding, so a row rounds to
+    the same fp32 or bf16 value at any batch unless its sum lies within a
+    few fp64 ulps of a rounding boundary.  For bf16-rounded operands the
+    products are exact: this is the reference's bf16 dot, summed more
+    precisely.  Pass bf16 operands as they are: widened straight to fp64
+    they make no fp32 copy."""
+    return torch.einsum(eq, *(t.to(torch.float64) for t in operands))
+
+
 def normal(gen: torch.Generator, shape, scale: float,
            device) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=device,
@@ -28,12 +44,19 @@ def normal(gen: torch.Generator, shape, scale: float,
 # norms
 # ---------------------------------------------------------------------------
 
-def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6, *,
+            f64: bool = False) -> torch.Tensor:
+    """RMSNorm in fp32, or with ``f64`` in fp64 and rounded once to
+    ``x``'s dtype.  A decode step passes ``f64``: a reduction's order
+    changes with the number of rows on the card (see :func:`einsum_f64`),
+    and in fp64 a row's result does not depend on the batch it is decoded
+    in, at no launch more."""
     dt = x.dtype
-    xf = x.to(torch.float32)
+    ct = torch.float64 if f64 else torch.float32
+    xf = x.to(ct)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * (1.0 + params["scale"].to(torch.float32))).to(dt)
+    return (y * (1.0 + params["scale"].to(ct))).to(dt)
 
 
 # ---------------------------------------------------------------------------

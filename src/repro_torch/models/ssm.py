@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.numerics import layer_scope, nmatmul, resolve_here
 
-from .layers import rmsnorm
+from .layers import einsum_f64, rmsnorm
 
 
 def ssm_dims(cfg):
@@ -129,14 +129,17 @@ def ssm_apply(params, x, cfg, cache=None, want_state=False):
         Cv = Cm[:, 0].to(f)
         inp = dt1[..., None, None] * Bv[:, None, :, None] * xh[:, :, None, :]
         S_new = decay[..., None, None] * cache["state"] + inp
-        y = torch.einsum("bn,bhnp->bhp", Cv, S_new)[:, None]  # (B, 1, H, P)
+        # in fp64, rounded once below: the same row at any batch
+        # (layers.einsum_f64)
+        y = einsum_f64("bn,bhnp->bhp", Cv, S_new)[:, None]    # (B, 1, H, P)
         cache["conv"].copy_(conv_tail)
         cache["state"].copy_(S_new)
         new_cache = cache
 
     y = y.reshape(B_, S, d_inner).to(x.dtype)
     y = y * F.silu(z)
-    y = rmsnorm({"scale": params["norm"]}, y, cfg.norm_eps)
+    y = rmsnorm({"scale": params["norm"]}, y, cfg.norm_eps,
+                f64=cache is not None)
     with layer_scope("out_proj"):
         return nmatmul(y, params["out_proj"]).to(x.dtype), new_cache
 

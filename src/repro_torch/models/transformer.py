@@ -1,10 +1,16 @@
-"""Model assembly: the LM decoder stack, dense GQA blocks (qwen3-4b) and
-attention-free SSD blocks (mamba2-130m).
+"""Model assembly: the LM decoder stack, dense GQA blocks (qwen3-4b),
+attention-free SSD blocks (mamba2-130m) and the hybrid of both with one
+shared attention block (zamba2-7b).
 
 Depth is organized as ``segments``: ``(repeats, pattern)`` pairs whose
 params are stacked on a leading ``repeats`` axis, as in the JAX package
 (the weights carry over unchanged); the port runs the repeats in a Python
-loop where JAX used ``lax.scan``.
+loop where JAX used ``lax.scan``.  A ``shared`` pattern entry has one
+weight set, no repeats axis, applied in every repeat; each application
+keeps its own cache (stacked over repeats like any other) and resolves
+its numerics under its own ``blocks.{i}`` path, so one weight set may run
+under as many configs as it has applications.  Its gradient is the sum
+over the applications (autograd accumulates it).
 
 Public API:
   init(cfg, seed, device)                      -> params (nested dict)
@@ -35,13 +41,15 @@ from .layers import bf16_round, embed_lookup, mlp_apply, normal, rmsnorm, softca
 
 
 def check_supported(cfg):
-    """The port's model layer covers dense GQA decoders and attention-free
-    SSD stacks; the other families arrive in later slices."""
+    """The port's model layer covers dense GQA blocks and attention-free
+    SSD blocks, shared or not; MoE and MLA blocks, attention-free dense
+    blocks, the encoder (whisper) and M-RoPE sections (qwen2-vl) arrive in
+    later slices."""
     for _, pattern in cfg.segments:
         for spec in pattern:
             dense = spec.kind == "dense" and spec.attn in ("global", "local")
             ssd = spec.kind == "ssm" and spec.attn == "none"
-            if not (dense or ssd) or spec.shared or (ssd and cfg.ssm is None):
+            if not (dense or ssd) or (ssd and cfg.ssm is None):
                 raise NotImplementedError(
                     f"{cfg.arch_id}: layer {spec} arrives in a later slice "
                     f"of the PyTorch port (dense GQA and SSD blocks only)")
@@ -58,7 +66,8 @@ def check_supported(cfg):
 def param_shapes(cfg) -> dict:
     """Flat ``{dotted name: (shape, init)}`` in the JAX package's layout;
     ``init`` is ``("normal", scale)``, ``("zeros",)`` or
-    ``("log_linspace", lo, hi)`` (the same in every repeat)."""
+    ``("log_linspace", lo, hi)`` (the same in every repeat).  A ``shared``
+    entry's leaves have no repeats axis."""
     check_supported(cfg)
     d, H, KH, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                     cfg.resolved_head_dim)
@@ -67,27 +76,28 @@ def param_shapes(cfg) -> dict:
            "final_norm.scale": ((d,), ("zeros",))}
     for si, (repeats, pattern) in enumerate(cfg.segments):
         for pi, spec in enumerate(pattern):
-            pre, r = f"seg{si}_p{pi}", repeats
+            pre = f"seg{si}_p{pi}"
+            r = () if spec.shared else (repeats,)
             if spec.kind == "ssm":
-                blk = {"ln1.scale": ((r, d), ("zeros",))}
-                blk.update({f"ssm.{k}": ((r, *shape), how) for k, (shape, how)
+                blk = {"ln1.scale": ((*r, d), ("zeros",))}
+                blk.update({f"ssm.{k}": ((*r, *shape), how) for k, (shape, how)
                             in ssm_mod.ssm_param_shapes(cfg).items()})
                 out.update({f"{pre}.{k}": v for k, v in blk.items()})
                 continue
             blk = {
-                "ln1.scale": ((r, d), ("zeros",)),
-                "ln2.scale": ((r, d), ("zeros",)),
-                "attn.wq": ((r, d, H * hd), ("normal", d ** -0.5)),
-                "attn.wk": ((r, d, KH * hd), ("normal", d ** -0.5)),
-                "attn.wv": ((r, d, KH * hd), ("normal", d ** -0.5)),
-                "attn.wo": ((r, H * hd, d), ("normal", (H * hd) ** -0.5)),
-                "mlp.wi": ((r, d, ff), ("normal", d ** -0.5)),
-                "mlp.wg": ((r, d, ff), ("normal", d ** -0.5)),
-                "mlp.wo": ((r, ff, d), ("normal", ff ** -0.5)),
+                "ln1.scale": ((*r, d), ("zeros",)),
+                "ln2.scale": ((*r, d), ("zeros",)),
+                "attn.wq": ((*r, d, H * hd), ("normal", d ** -0.5)),
+                "attn.wk": ((*r, d, KH * hd), ("normal", d ** -0.5)),
+                "attn.wv": ((*r, d, KH * hd), ("normal", d ** -0.5)),
+                "attn.wo": ((*r, H * hd, d), ("normal", (H * hd) ** -0.5)),
+                "mlp.wi": ((*r, d, ff), ("normal", d ** -0.5)),
+                "mlp.wg": ((*r, d, ff), ("normal", d ** -0.5)),
+                "mlp.wo": ((*r, ff, d), ("normal", ff ** -0.5)),
             }
             if cfg.qk_norm:
-                blk["attn.q_norm.scale"] = ((r, hd), ("zeros",))
-                blk["attn.k_norm.scale"] = ((r, hd), ("zeros",))
+                blk["attn.q_norm.scale"] = ((*r, hd), ("zeros",))
+                blk["attn.k_norm.scale"] = ((*r, hd), ("zeros",))
             out.update({f"{pre}.{k}": v for k, v in blk.items()})
     if not cfg.tie_embeddings:
         out["unembed"] = ((d, cfg.vocab), ("normal", d ** -0.5))
@@ -195,7 +205,8 @@ def init_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 
 def _block_apply(params, x, cfg, spec, positions, cache=None, q_offset=0,
                  train=False):
-    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    decoding = cache is not None and x.shape[1] == 1
+    h = rmsnorm(params["ln1"], x, cfg.norm_eps, f64=decoding)
     if spec.kind == "ssm":
         with layer_scope("ssm"):
             h, new_cache = ssm_mod.ssm_apply(
@@ -206,7 +217,7 @@ def _block_apply(params, x, cfg, spec, positions, cache=None, q_offset=0,
         h, new_cache = attn.gqa_apply(params["attn"], h, cfg, spec, positions,
                                       cache=cache, q_offset=q_offset)
     x = x + h
-    h = rmsnorm(params["ln2"], x, cfg.norm_eps)
+    h = rmsnorm(params["ln2"], x, cfg.norm_eps, f64=decoding)
     with layer_scope("mlp"):
         h = mlp_apply(params["mlp"], h).to(x.dtype)
     return x + h, new_cache
@@ -294,8 +305,11 @@ def backbone(params, cfg, batch, caches=None, q_offset=0, train=False):
         for si, (repeats, pattern) in enumerate(cfg.segments):
             P = len(pattern)
             collected = {pi: [] for pi in range(P)}
-            stacks = {pi: _unstack(params[f"seg{si}_p{pi}"], repeats)
-                      for pi in range(P)}
+            # a shared entry hands its one weight set to every repeat
+            stacks = {pi: ([params[f"seg{si}_p{pi}"]] * repeats
+                           if spec.shared
+                           else _unstack(params[f"seg{si}_p{pi}"], repeats))
+                      for pi, spec in enumerate(pattern)}
             for r in range(repeats):
                 for pi, spec in enumerate(pattern):
                     p = stacks[pi][r]
@@ -321,7 +335,8 @@ def backbone(params, cfg, batch, caches=None, q_offset=0, train=False):
                     for pi, cs in collected.items()})
             else:
                 new_caches.append(caches[si])
-        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps,
+                    f64=caches is not None and S == 1)
         return x, (None if train else new_caches)
 
 

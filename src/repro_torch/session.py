@@ -10,8 +10,9 @@
 >>> res = r.auto_configure(1e-2, calib=images)            # proxy sweep
 >>> r.save_policy("policy.json")
 
-``arch`` is ``qwen3-4b`` (dense GQA) or ``mamba2-130m`` (SSD blocks, whose
-every prefill runs the SSD scan kernel on the card), or a
+``arch`` is ``qwen3-4b`` (dense GQA), ``mamba2-130m`` (SSD blocks, whose
+every prefill runs the SSD scan kernel on the card) or ``zamba2-7b`` (SSD
+blocks and one shared attention block), or a
 :class:`~repro_torch.models.resnet.ResNetConfig` (see :meth:`from_resnet`
 and :meth:`from_pretrained`).
 
@@ -29,11 +30,27 @@ within the kernel's tolerance.)
 
 Sessions run on ``cuda`` unless ``device="cpu"`` is passed; with no CUDA
 on the host a CUDA session raises.
+
+The module is also the session CLI, with the JAX package's subcommands,
+flags, defaults (the reduced config unless ``--full-size``), output lines
+and exit codes (2 and a one-line error for a :class:`SessionError`), plus
+``--device``:
+
+    python -m repro_torch.session generate       --arch zamba2-7b
+    python -m repro_torch.session serve-loop     --weights ckpt/ --tiers premium:exact,standard:segmented3
+    python -m repro_torch.session auto-configure --arch qwen3-4b --budget 1e-2 --out p.json
+    python -m repro_torch.session ppa            --arch qwen3-4b --policy p.json
+
+``--backend`` takes the port's names (``auto``, ``hopper``, ``torch``) or
+the JAX package's, mapped as policy files map them (``xla`` and
+``interpret`` -> ``torch``, ``pallas`` -> ``hopper``).
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
+import sys
 import time
 from typing import Mapping, Optional, Sequence, Tuple
 
@@ -43,10 +60,12 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.numerics import NumericsConfig
-from repro_torch.core.policy import NumericsPolicy, PolicyRule, is_policy
+from repro_torch.core.policy import (BACKEND_FROM_JAX, NumericsPolicy,
+                                     PolicyRule, is_policy)
 
 __all__ = ["GenerateResult", "SEGMENTED_CANDIDATES", "Session",
-           "SessionError", "load_policy", "print_ppa_report"]
+           "SessionError", "build_parser", "load_policy", "main",
+           "parse_tiers", "print_ppa_report"]
 
 
 class SessionError(RuntimeError):
@@ -271,7 +290,8 @@ class Session:
                         device=None) -> "Session":
         """A Session over pretrained weights (:mod:`repro_torch.compat`).
 
-        ``family`` names a registered checkpoint converter (``resnet18``);
+        ``family`` names a registered checkpoint converter (``qwen3-4b``,
+        ``resnet18``);
         ``path`` is a safetensors file, a sharded
         ``*.safetensors.index.json`` (or a directory holding either), or a
         torch pickle.  The architecture comes from ``cfg`` when given,
@@ -526,3 +546,206 @@ class Session:
                                    device=self.device)
         self._numerics_override = res.policy
         return res
+
+
+# ---------------------------------------------------------------------------
+# the session CLI (generate / serve-loop / auto-configure / ppa)
+# ---------------------------------------------------------------------------
+
+def _add_common(ap):
+    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--policy", default=None,
+                    help="NumericsPolicy JSON file, or a preset "
+                         "(exact/segmented1/segmented2/segmented3)")
+    ap.add_argument("--backend", default=None,
+                    choices=["auto", "hopper", "torch", *sorted(
+                        set(BACKEND_FROM_JAX) - {"auto"})],
+                    help="kernel backend: auto (the kernel for CUDA "
+                         "tensors), hopper or torch; the JAX package's "
+                         "pallas / interpret / xla map to hopper / torch / "
+                         "torch")
+    ap.add_argument("--weights", default=None, metavar="CKPT",
+                    help="pretrained checkpoint loaded through the compat "
+                         "converter registered for --arch (safetensors "
+                         "file, sharded *.safetensors.index.json or its "
+                         "directory, or a torch pickle)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--full-size", action="store_true",
+                    help="use the full arch config (default: reduced)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the plain "
+                         "PyTorch path)")
+
+
+def parse_tiers(spec: str):
+    """``name:policy,name:policy`` -> TierSpec tuple (priority = listed
+    order; policy is a preset name or a policy-JSON path).  The wire
+    format of ``python -m repro_torch.session serve-loop --tiers``."""
+    from repro_torch.serving import TierSpec
+
+    tiers = []
+    for i, part in enumerate(p for p in spec.split(",") if p.strip()):
+        name, _, pol = part.partition(":")
+        if not name.strip() or not pol.strip():
+            raise SessionError(f"bad tier spec {part.strip()!r}: expected "
+                               f"name:policy (e.g. premium:exact)")
+        if any(t.name == name.strip() for t in tiers):
+            raise SessionError(f"duplicate tier {name.strip()!r} in --tiers")
+        tiers.append(TierSpec(name.strip(), pol.strip(), priority=i))
+    if not tiers:
+        raise SessionError(f"empty tier spec {spec!r}: expected "
+                           f"name:policy[,name:policy...]")
+    return tuple(tiers)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The session CLI's argument parser."""
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.session",
+        description="Session CLI: generate / serve-loop / auto-configure / "
+                    "ppa over one (arch, policy, backend, device) spec")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    g = sub.add_parser("generate", help="batched prefill + greedy decode")
+    _add_common(g)
+    g.add_argument("--batch", type=int, default=4)
+    g.add_argument("--prompt-len", type=int, default=32)
+    g.add_argument("--gen-len", type=int, default=16)
+    g.add_argument("--eos-id", type=int, default=None,
+                   help="stop token: rows retire when they emit it "
+                        "(default: none)")
+
+    sl = sub.add_parser(
+        "serve-loop",
+        help="continuous-batching serving demo: a synthetic mixed-tier "
+             "workload decodes on one resident weight set")
+    _add_common(sl)
+    sl.add_argument("--tiers", default="premium:exact,bulk:segmented1",
+                    help="comma list of name:policy tiers, priority in "
+                         "listed order (policy: preset name or policy-JSON "
+                         "path; overrides --policy per lane)")
+    sl.add_argument("--requests", type=int, default=8,
+                    help="synthetic workload size (round-robin over tiers)")
+    sl.add_argument("--slots", type=int, default=4,
+                    help="KV-pool slots per tier")
+    sl.add_argument("--max-len", type=int, default=64,
+                    help="per-request KV position cap")
+    sl.add_argument("--page-size", type=int, default=None,
+                    help="tokens per paged-KV page (default 16)")
+    sl.add_argument("--pages", type=int, default=None,
+                    help="physical KV pages per tier (default: "
+                         "slots * ceil(max_len / page_size))")
+    sl.add_argument("--prefill-chunk", type=int, default=None,
+                    help="prompt tokens prefilled per engine step "
+                         "(default 32)")
+    sl.add_argument("--prompt-len", type=int, default=16)
+    sl.add_argument("--gen-len", type=int, default=16)
+    sl.add_argument("--aging", type=float, default=None,
+                    help="scheduler aging bound in seconds (default: off)")
+
+    a = sub.add_parser("auto-configure",
+                       help="budget-driven per-layer numerics sweep "
+                            "(proxy: ONE gain-aware calibration pass)")
+    _add_common(a)
+    a.add_argument("--budget", type=float, required=True)
+    a.add_argument("--method", choices=["proxy", "greedy"], default="proxy")
+    a.add_argument("--candidates", choices=["segmented", "emulated"],
+                   default="segmented")
+    a.add_argument("--out", default=None, help="write the policy JSON here")
+
+    p = sub.add_parser("ppa", help="Table II PPA roll-up of the policy")
+    _add_common(p)
+    return ap
+
+
+def _session(args) -> Session:
+    backend = (None if args.backend is None
+               else BACKEND_FROM_JAX.get(args.backend, args.backend))
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:   # no card: a one-line error, not a traceback
+        raise SessionError(str(e)) from e
+    if args.weights:
+        from repro_torch.compat import CompatError
+
+        try:
+            return Session.from_pretrained(
+                args.arch, args.weights, policy=args.policy, backend=backend,
+                seed=args.seed, reduced=not args.full_size, device=device)
+        except CompatError as e:
+            raise SessionError(str(e)) from e
+    return Session(args.arch, policy=args.policy, backend=backend,
+                   seed=args.seed, reduced=not args.full_size, device=device)
+
+
+def _serve_loop(sess: Session, args) -> None:
+    from repro_torch.serving import ServingError
+
+    tiers = parse_tiers(args.tiers)
+    try:
+        eng = sess.serving_engine(tiers, slots=args.slots,
+                                  max_len=args.max_len,
+                                  page_size=args.page_size, pages=args.pages,
+                                  prefill_chunk=args.prefill_chunk,
+                                  aging=args.aging)
+        rng = np.random.default_rng(args.seed)
+        for i in range(args.requests):
+            spec = tiers[i % len(tiers)]
+            plen = int(rng.integers(max(2, args.prompt_len // 2),
+                                    args.prompt_len + 1))
+            eng.submit(rng.integers(0, sess.config.vocab, plen),
+                       tier=spec.name, max_new_tokens=args.gen_len)
+        t0 = time.perf_counter()
+        stats = eng.run()
+        dt = time.perf_counter() - t0
+    except ServingError as e:
+        raise SessionError(str(e)) from e
+    total = sum(s.n_tokens for s in stats.values())
+    print(f"[serve-loop] {args.arch}: {args.requests} requests, "
+          f"{total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s "
+          f"aggregate)")
+    for spec in tiers:
+        s = stats[spec.name]
+        print(f"[serve-loop]   {spec.name} ({spec.policy}): "
+              f"{s.n_finished} finished, {s.n_tokens} tokens, "
+              f"{s.n_decode_steps} decode steps, mean batch "
+              f"{s.mean_occupancy:.2f}")
+        print_ppa_report(sess.replace(policy=spec.policy).ppa_report(),
+                         tag=f"tier:{spec.name}")
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    try:
+        sess = _session(args)
+        if args.cmd == "generate":
+            if sess.is_policy:
+                print_ppa_report(sess.ppa_report())
+            res = sess.generate(batch=args.batch, prompt_len=args.prompt_len,
+                                gen_len=args.gen_len, eos_id=args.eos_id)
+            print(f"[session] {args.arch}: {res.tokens.shape[0]}x"
+                  f"{res.tokens.shape[1]} tokens "
+                  f"({int(res.gen_lengths.sum())} emitted) in "
+                  f"{res.seconds:.2f}s ({res.tokens_per_s:.1f} tok/s)")
+        elif args.cmd == "serve-loop":
+            _serve_loop(sess, args)
+        elif args.cmd == "auto-configure":
+            res = sess.auto_configure(args.budget, method=args.method,
+                                      candidates=args.candidates, verbose=True)
+            print(f"[session] {res.method} error={res.error:.3e} "
+                  f"(budget {args.budget:g})  area {res.area_um2:,.0f} um^2 "
+                  f"(-{res.area_reduction:.1%} vs exact)  "
+                  f"[{res.n_evals} calibration evals]")
+            if args.out:
+                sess.save_policy(args.out)
+                print(f"[session] policy written to {args.out}")
+        elif args.cmd == "ppa":
+            print_ppa_report(sess.ppa_report())
+    except SessionError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,7 +8,12 @@
 - the port's safetensors reader reads every committed fixture (single,
   sharded) exactly as the JAX package's does, and its writer, the mapping
   DSL and the torch-pickle reader agree with the reference's;
-- malformed files raise one-line ``CompatError``s naming the file.
+- malformed files raise one-line ``CompatError``s naming the file;
+- the qwen3-4b converter: the committed sharded fixture loads bit for bit
+  equal to the JAX loader's trees and ``qwen3-4b_reference.npz``, an export
+  reload is bit-exact (the config JSON in the reference's format), and
+  ``Session.from_pretrained("qwen3-4b", ...)`` generates the JAX session's
+  greedy tokens under the four presets.
 """
 import os
 
@@ -24,6 +29,7 @@ from repro_torch.session import Session
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "compat")
 RESNET = os.path.join(GOLDEN, "resnet18")
+QWEN = os.path.join(GOLDEN, "qwen3-4b")
 
 
 def _native(sess):
@@ -143,7 +149,8 @@ def test_malformed_files_raise_one_line_errors(damage, match, tmp_path):
 
 def test_loader_errors_match_jax(tmp_path):
     with pytest.raises(CompatError, match="no checkpoint converter"):
-        Session.from_pretrained("qwen3-4b", os.path.join(GOLDEN, "qwen3-4b"),
+        Session.from_pretrained("whisper-tiny",
+                                os.path.join(GOLDEN, "whisper-tiny"),
                                 device="cpu")
     foreign, meta = compat.load_checkpoint(RESNET)
     foreign = dict(foreign, **{"bn1.num_batches_tracked":
@@ -198,3 +205,80 @@ def test_torch_pickle_reader_matches_jax(tmp_path, rng):
     assert sorted(got) == sorted(want) == ["b", "w"]
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_qwen3_fixture_loads_bit_exact():
+    """The sharded qwen3-4b fixture through the port's converter: the same
+    names, dtypes and bits as the JAX loader's trees and the committed
+    reference, at the reduced config the file's metadata names."""
+    sess = Session.from_pretrained("qwen3-4b", QWEN, device="cpu")
+    ref = dict(np.load(os.path.join(GOLDEN, "qwen3-4b_reference.npz")))
+    theirs = jax_compat.flatten_tree(
+        jax_compat.load_pretrained("qwen3-4b", QWEN).params)
+    got = flatten_tree(sess.params)
+    assert sorted(got) == sorted(ref) == sorted(theirs)
+    for k, v in ref.items():
+        assert got[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+        np.testing.assert_array_equal(got[k], np.asarray(theirs[k]), err_msg=k)
+    assert sess.config.d_model == 64 and sess.arch_id == "qwen3-4b"
+    assert isinstance(sess.params["embed"], torch.Tensor)
+    assert "qwen3-4b" in compat.families()
+
+
+def test_qwen3_export_reload_round_trip_is_bit_exact(tmp_path):
+    """Export then reload gives the same bits; the written file equals the
+    JAX package's export of the same fixture tensor for tensor (the norms'
+    import shift of -1 and export shift of +1 need not give the fixture's
+    own bits back, on either side), with the reference's config JSON, and
+    the JAX package's export loads in the port."""
+    sess = Session.from_pretrained("qwen3-4b", QWEN, device="cpu")
+    path = tmp_path / "model.safetensors"
+    sess.export(path)
+    again = Session.from_pretrained("qwen3-4b", path, device="cpu")
+    a, b = flatten_tree(sess.params), flatten_tree(again.params)
+    assert sorted(a) == sorted(b)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert again.config == sess.config
+    back = tmp_path / "back.safetensors"
+    JaxSession.from_pretrained("qwen3-4b", QWEN).export(back)
+    want, meta = jax_compat.load_checkpoint(back)
+    got, got_meta = compat.read_safetensors(path)
+    assert got_meta == meta and sorted(got) == sorted(want)
+    assert sorted(got) == sorted(jax_compat.load_checkpoint(QWEN)[0])
+    assert got_meta["repro.config"] == '{"arch_id": "qwen3-4b", "reduced": true}'
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    again = flatten_tree(Session.from_pretrained("qwen3-4b", back,
+                                                 device="cpu").params)
+    for k in a:
+        np.testing.assert_array_equal(again[k], a[k], err_msg=k)
+
+
+@pytest.mark.parametrize("preset", ["exact", "segmented3", "segmented2",
+                                    "segmented1"])
+def test_qwen3_from_pretrained_tokens_match_jax(preset, rng):
+    prompts = rng.integers(0, 256, (2, 11))
+    mine = Session.from_pretrained("qwen3-4b", QWEN, policy=preset,
+                                   device="cpu")
+    ref = JaxSession.from_pretrained("qwen3-4b", QWEN, policy=preset)
+    np.testing.assert_array_equal(
+        mine.generate(prompts=prompts, gen_len=8).tokens,
+        ref.generate(prompts=prompts, gen_len=8).tokens)
+
+
+def test_lm_converter_refuses_what_the_reference_refuses():
+    """The LM converter maps dense GQA stacks only, as the reference's:
+    SSD and shared blocks (mamba2, zamba2) raise one-line errors."""
+    from repro_torch.configs import get_arch
+
+    conv = compat.converter_for("qwen3-4b")
+    for arch, match in [("mamba2-130m", "kind='ssm'"),
+                        ("zamba2-7b", "kind='ssm'")]:
+        with pytest.raises(CompatError, match=match):
+            conv.mapping(get_arch(arch).reduced())
+    spec = conv.config_json(get_arch("qwen3-4b"))
+    assert spec == jax_compat.converter_for("qwen3-4b").config_json(
+        __import__("repro.configs", fromlist=["get_arch"]).get_arch("qwen3-4b"))
+    assert conv.config_from_json(spec) == get_arch("qwen3-4b")

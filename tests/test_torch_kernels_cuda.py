@@ -37,8 +37,10 @@ def _need_card():
 @pytest.mark.parametrize("passes", [1, 2, 3])
 def test_afpm_matmul_kernel_matches_plain(passes, rng):
     _need_card()
+    # zamba2-7b's projections at a 4-slot decode and a 150-token prefill
+    zamba2 = [((M, K), (K, N)) for K, N in ZAMBA2_PROJ for M in (4, 150)]
     for xs, ws in [((4, 2560), (2560, 1024)), ((32, 9728), (9728, 2560)),
-                   ((3, 5, 2500), (2500, 1000)), ((1, 7), (7, 5))]:
+                   ((3, 5, 2500), (2500, 1000)), ((1, 7), (7, 5))] + zamba2:
         x = torch.from_numpy(rng.standard_normal(xs).astype(np.float32)).cuda()
         w = torch.from_numpy(rng.standard_normal(ws).astype(np.float32)).cuda()
         for xx in (x, x.to(torch.bfloat16)):
@@ -58,7 +60,12 @@ def test_afpm_matmul_kernel_matches_plain(passes, rng):
 # takes whole mode at (2560, 4096); every other (M, shape) is split mode.
 # (9728, 2560) takes 128-column tiles up to M = 32
 INVARIANCE_M = (1, 4, 8, 13, 22, 32, 40, 77, 150, 300)
-INVARIANCE_KN = [(2560, 4096), (2560, 1024), (9728, 2560)]
+# (K, N) of zamba2-7b's projections: in_proj (N 14576 = 16 x 911, ragged
+# at every column tile from 32 up), out_proj, the shared block's wq / wk /
+# wv / wo, wi / wg and mlp.wo
+ZAMBA2_PROJ = [(3584, 14576), (7168, 3584), (3584, 3584), (3584, 14336),
+               (14336, 3584)]
+INVARIANCE_KN = [(2560, 4096), (2560, 1024), (9728, 2560)] + ZAMBA2_PROJ
 
 
 @pytest.mark.cuda
@@ -72,7 +79,12 @@ def test_afpm_matmul_kernel_rows_do_not_depend_on_M(passes, dtype, rng):
     plans = [k1.plan(M, K, N) for K, N in INVARIANCE_KN for M in INVARIANCE_M]
     whole = [(M, K, N) for K, N in INVARIANCE_KN
              for M in INVARIANCE_M if not k1.plan(M, K, N).split]
-    assert whole == [(300, 2560, 4096)], whole   # both modes are exercised
+    # both modes are exercised: qwen3-4b's shapes take whole mode only at
+    # (300, 2560, 4096), zamba2-7b's at 300 and its wide ones at 77 and 150
+    assert whole == [(300, 2560, 4096), (77, 3584, 14576), (150, 3584, 14576),
+                     (300, 3584, 14576), (300, 7168, 3584), (300, 3584, 3584),
+                     (77, 3584, 14336), (150, 3584, 14336), (300, 3584, 14336),
+                     (300, 14336, 3584)], whole
     assert {p.bn for p in plans} == {k1.BN, k1.WIDE_BN}
     for K, N in INVARIANCE_KN:
         x = torch.from_numpy(rng.standard_normal((max(INVARIANCE_M), K))
@@ -248,6 +260,10 @@ def _assert_within_ulps(got, want, what):
     (1, 96, 3, 8, 4, 32, True),
     # a chunk of 1024: shared memory grows by only 8 bytes a step of Q
     (1, 1024, 1, 128, 128, 1024, False),
+    # zamba2-7b's prompts of 40 / 77 (padded to 128) and 150 (to 256)
+    # tokens: H 112, N 64
+    (4, 128, 112, 64, 64, 128, True),
+    (4, 256, 112, 64, 64, 128, True),
 ])
 def test_ssd_scan_kernel_matches_plain(dims, rng):
     _need_card()
@@ -261,18 +277,25 @@ def test_ssd_scan_kernel_matches_plain(dims, rng):
 
 
 @pytest.mark.cuda
-def test_ssd_scan_kernel_pads_any_length_and_is_batch_invariant(rng):
+@pytest.mark.parametrize("L,H,N,strided", [
+    # mamba2-130m's served prompt; zamba2-7b's at every served length
+    (150, 24, 128, False), (40, 112, 64, True), (77, 112, 64, True),
+    (150, 112, 64, True)])
+def test_ssd_scan_kernel_pads_any_length_and_is_batch_invariant(L, H, N,
+                                                                strided, rng):
     _need_card()
-    x, dt, A, B, C = _ssd_inputs(rng, 4, 150, 24, 64, 128)
+    x, dt, A, B, C = _ssd_inputs(rng, 4, L, H, 64, N, strided)
     got = dispatch.ssd(x, dt, A, B, C, chunk=128, backend="hopper")
     want = dispatch.ssd(x, dt, A, B, C, chunk=128, backend="torch")
     torch.cuda.synchronize()
-    _assert_within_ulps(got, want, "L=150 padded to 256")
+    _assert_within_ulps(got, want, f"L={L} H={H} N={N} padded")
     # an element depends only on its (batch row, head): batch 1 == batch 4
     for i in range(4):
         one = dispatch.ssd(x[i], dt[i], A, B[i], C[i], chunk=128,
                            backend="hopper")
         assert torch.equal(one, got[i]), i
+    assert torch.equal(dispatch.ssd(x, dt, A, B, C, chunk=128,
+                                    backend="hopper"), got)   # repeatable
     # the reduced config's ragged shape: N 16, P 8, Q 16, L 50
     x, dt, A, B, C = _ssd_inputs(rng, 1, 50, 16, 8, 16)
     _assert_within_ulps(dispatch.ssd(x, dt, A, B, C, chunk=16, backend="hopper"),
