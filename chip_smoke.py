@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fifteen phases, each printing a line or a few; any failed check ends the
+Eighteen phases, each printing a line or a few; any failed check ends the
 run with a nonzero exit and no result line:
 
 1. device: the card, its power limit, torch and the kernels' build time
@@ -12,7 +12,12 @@ run with a nonzero exit and no result line:
    at the full-width qwen3-4b and mamba2-130m projection shapes, passes
    1/2/3, fp32 and bf16 activations, within 64 ulps of the largest output;
    every row of a call equal to the same row at M = 1, bit for bit, for
-   every M the serve phases give it and 300; the zamba2-7b projections
+   every M the serve phases give it and 300; whisper-tiny's projections
+   (M = 4, 32 and 6000, rows M-invariant at all three) and the wide
+   projections of gemma2-9b, gemma3-12b and minitron-8b (M = 4 and 32,
+   rows M-invariant) within the same bound, whisper's cross-attention K/V
+   (M 6000) and a decode layer of each dense decoder timed beside their
+   bounds; the zamba2-7b projections
    (in_proj N 14576, out_proj, the shared block's seven) checked at M = 4
    and 32 and timed at 4 and 150, with the kernel time of a zamba2 decode
    step's 227 projections beside its bound; timed at M = 1, 4, 32 and 150
@@ -94,7 +99,30 @@ run with a nonzero exit and no result line:
    configs), each exit 0 (lines to ``chiprun_out/chip_smoke_cli.txt``);
    the fixture's params through ``Session.from_pretrained`` on the card
    equal ``qwen3-4b_reference.npz`` bit for bit;
-11. train-grad: one full-width mamba2-130m training step (8 x 128 tokens,
+11. whisper: full-width whisper-tiny (61.07 M seeded params) through
+   ``transformer.prefill`` / ``decode_step`` (the reference has no whisper
+   ``generate`` and no whisper serving): 4 x 1500 seeded frames, an
+   8-token prompt and 32 greedy tokens under exact, segmented3 and
+   segmented1; the segmented matmul 72 times a prefill (28 in the
+   encoder, 44 in the decoder) and 44 a decode step, none under exact;
+   the kernel route's prefill and decode logits within 2**-6 of the plain
+   route's fed the same tokens; the committed whisper-tiny checkpoint
+   through ``Session.from_pretrained`` on the card bit for bit equal to
+   ``whisper-tiny_reference.npz``; encoder ms, prefill ms and ms a decode
+   step per tier;
+12. gemma2: full-width gemma2-9b (42 layers, sliding window and softcaps,
+   9.24 B seeded params) served as phase 3 serves qwen3-4b; every request
+   completes, the segmented matmul ran 294 times per segmented forward,
+   standard-tier tokens equal a solo ``Session.generate``, and every logit
+   the engine computes lies within the softcap of 30; per tier decode ms
+   a step, prefill ms a chunk, tok/s and a solo generate's peak memory
+   (``chiprun_out/chip_smoke_gemma2.json``);
+13. dense-zoo: full-width gemma3-12b (one 1200-token prompt, past the
+   1024 window of 40 of its 48 layers) and then minitron-8b (batch 4,
+   40-token prompts), each a solo ``Session.generate`` of 16 tokens under
+   standard: 336 and 224 segmented-matmul launches a forward, and the
+   kernel route's prefill logits within 2**-6 of the plain route's;
+14. train-grad: one full-width mamba2-130m training step (8 x 128 tokens,
    remat full) through the kernels and through the plain route on the
    same params and batch: with fp32 activations under exact (K3) and
    segmented3 (K1 and K3) every leaf's gradient within 2**-6 of the plain
@@ -103,18 +131,18 @@ run with a nonzero exit and no result line:
    spread when its K1 outputs move by one ulp (the early layers'
    gradients are chaotic there at init); K1 and K3 launches a step (the
    remat recompute runs each forward twice);
-12. train-qwen3: four full-width qwen3-4b steps (8 x 128 tokens) through
+15. train-qwen3: four full-width qwen3-4b steps (8 x 128 tokens) through
    ``repro_torch.launch.train.train`` (AdamW, fp32 moments, remat full, 8
    loss chunks): finite losses, the first near sqrt(d_model) (the
    untrained tied model predicts its input token), parameters changed;
    ms a step, tokens/s, peak memory, and the last step under
    ``torch.profiler``;
-13. train-mamba2: full-width mamba2-130m trained 30 steps (lr 3e-3), the
+16. train-mamba2: full-width mamba2-130m trained 30 steps (lr 3e-3), the
     loss falling, K3 launches counted, the last step profiled; then the
     reduced qwen3-4b trained 20 steps with a checkpoint every 10, and a
     second run restored from the step-10 checkpoint alone ends on the
     same bits;
-14. train-resnet: Table IV's ResNet-18 at full width trained as the
+17. train-resnet: Table IV's ResNet-18 at full width trained as the
     reference trains it (120 steps of 64 ``cifar_like`` images, AdamW;
     two short trainings first, equal bit for bit), then top-1 on the
     reference's 48 evaluation images under exact (at least 0.9), segmented 1/2/3 (K1, 21 launches a forward) and the eight
@@ -123,17 +151,17 @@ run with a nonzero exit and no result line:
     all), and AC5-5's 48-image forward is timed on the plain route too, at
     least 10x slower, its logits within 1e-4 of the kernel route's
     (``chiprun_out/chip_smoke_train.json``);
-15. resnet: the paper's Table IV network.  The committed resnet18
+18. resnet: the paper's Table IV network.  The committed resnet18
    checkpoint loads through ``Session.from_pretrained`` onto the card bit
    for bit equal to ``resnet18_reference.npz``; then the full-width
-   ResNet-18 trained in phase 14 on 256 ``cifar_like`` images: top-1 and
+   ResNet-18 trained in phase 17 on 256 ``cifar_like`` images: top-1 and
    argmax agreement per mode; exact (the native conv with TF32 off) beside
    the same forward with TF32 on and the fp32 im2col route; segmented
    1/2/3 through the segmented matmul kernel, 21 launches a forward,
    every conv within 64 ulps of the plain version on the same operands and
    the logits within 2**-6 of the plain route's; the kernel timed at
    stage 0's conv shape (M 262144, K 576, N 64); the eight designs' rows
-   from phase 14, their emulated-matmul launches a forward (21 for an AFPM
+   from phase 17, their emulated-matmul launches a forward (21 for an AFPM
    design, 0 for a baseline), and AC5-5 at batch 8 through the kernel
    against the plain route conv by conv (64 ulps) and by its logits
    (1e-4); the
@@ -180,6 +208,25 @@ ZAMBA2_PROJ = [(ZD, ZIN), (2 * ZD, ZD), (ZD, ZD), (ZD, ZFF), (ZFF, ZD)]
 # 13 applications of the shared block x 7 projections: 227
 ZAMBA2_STEP = ([(ZD, ZIN), (2 * ZD, ZD)] * 68
                + [(ZD, ZD)] * 4 * 13 + [(ZD, ZFF)] * 2 * 13 + [(ZFF, ZD)] * 13)
+# whisper-tiny (d 384, d_ff 1536): its encoder's 1500 frames at batch 4
+# give the encoder's projections and the cross-attention's K/V projections
+# (both recomputed in every decode step, as the reference does) M = 6000
+WD, WFF, WHISPER_M = 384, 1536, 4 * 1500
+WHISPER_PROJ = [(WD, WD), (WD, WFF), (WFF, WD)]
+# (K, N) of one decode layer's seven projections (wq, wk, wv, wo, mlp.wi,
+# mlp.wg, mlp.wo) of the three dense decoders of phases [gemma2] and
+# [dense-zoo]
+GEMMA2_LAYER = [(3584, 4096), (3584, 2048), (3584, 2048), (4096, 3584),
+                (3584, 14336), (3584, 14336), (14336, 3584)]
+GEMMA3_LAYER = [(3840, 4096), (3840, 2048), (3840, 2048), (4096, 3840),
+                (3840, 15360), (3840, 15360), (15360, 3840)]
+MINITRON_LAYER = [(4096, 4096), (4096, 1024), (4096, 1024), (4096, 4096),
+                  (4096, 16384), (4096, 16384), (16384, 4096)]
+ZOO_LAYERS = {"gemma2-9b": GEMMA2_LAYER, "gemma3-12b": GEMMA3_LAYER,
+              "minitron-8b": MINITRON_LAYER}
+# those not among zamba2-7b's (gemma2's MLP shapes are)
+ZOO_PROJ = sorted(set(GEMMA2_LAYER + GEMMA3_LAYER + MINITRON_LAYER)
+                  - set(ZAMBA2_PROJ))
 # every M the serve phases give the segmented matmul (decode 1 and 4,
 # prefill tails 8 / 13 / 22, chunks of 32, whole prompts 40 / 77 / 150) and
 # 300, which takes the kernel's whole mode at (2560, 4096)
@@ -197,7 +244,7 @@ LOGIT_BOUND = 2.0 ** -6
 # every matmul operand is rounded to bf16
 FP32_LOGIT_BOUND = {"segmented3": 2.0 ** -10, "exact": 2.0 ** -6}
 SERVE_LENGTHS = (40, 77, 150)
-# phase 15: the ResNet forwards' batch, and the emulated designs' (the
+# phase 18: the ResNet forwards' batch, and the emulated designs' (the
 # bit-level datapath is O(M * N * K) elementwise work)
 RESNET_BATCH = 256
 EMULATED_BATCH = 8
@@ -434,6 +481,11 @@ def phase_kernel(peaks):
     # zamba2-7b's at decode (4 slots), 32 rows and its whole prompts
     cases += [((M, K), (K, N)) for K, N in ZAMBA2_PROJ
               for M in (4, 32) + SERVE_LENGTHS]
+    # the three dense decoders' at decode (4 slots) and 32 rows, whisper's
+    # at M = 6000 too
+    cases += [((M, K), (K, N)) for K, N in ZOO_PROJ for M in (4, 32)]
+    cases += [((M, K), (K, N)) for K, N in WHISPER_PROJ
+              for M in (4, 32, WHISPER_M)]
     cases.append(((3, 5, 2500), (2500, 1000)))   # ragged, batched
     for xs, ws in cases:
         x = torch.randn(xs, generator=gen, device="cuda")
@@ -465,6 +517,28 @@ def phase_kernel(peaks):
                             f"{torch.nonzero(~same).flatten()[:8].tolist()} "
                             f"differ from the same rows at M = 1")
                     n_rows += M
+    # the new shapes of this slice: rows at M = 4 and 32 (and whisper's
+    # 6000, its first 32 rows) equal the same rows at M = 1
+    for K, N in ZOO_PROJ + WHISPER_PROJ:
+        w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
+        big = WHISPER_M if (K, N) in WHISPER_PROJ else 32
+        x32 = torch.randn((big, K), generator=gen, device="cuda")
+        for x in (x32, x32.to(torch.bfloat16)):
+            for passes in (1, 2, 3):
+                alone = torch.cat([k1.afpm_matmul(x[i:i + 1], w, passes)
+                                   for i in range(32)])
+                for M in sorted({4, 32, big}):
+                    got = k1.afpm_matmul(x[:M], w, passes)[:32]
+                    same = (got.view(torch.int32)
+                            == alone[:min(M, 32)].view(torch.int32)).all(1)
+                    if not bool(same.all()):
+                        raise AssertionError(
+                            f"afpm_matmul ({M}, {K}) @ ({K}, {N}) passes="
+                            f"{passes} {x.dtype}: rows "
+                            f"{torch.nonzero(~same).flatten()[:8].tolist()} "
+                            f"differ from the same rows at M = 1")
+                    n_rows += min(M, 32)
+        del w, x32
 
     # timing: bf16 activations (the full-width models' dtype) at decode
     # M = 1 (solo) and 4 (engine), a 32-row prefill chunk and a 150-token
@@ -484,6 +558,10 @@ def phase_kernel(peaks):
     timed.append((D, FF, 2048, 3))
     # zamba2-7b's projections at a 4-slot decode step and a 150-token prompt
     timed += [(K, N, M, 3) for K, N in ZAMBA2_PROJ for M in (4, 150)]
+    # whisper's cross-attention K/V projection over 4 x 1500 frames, and
+    # the three dense decoders' projections at a 4-slot decode step
+    timed += [(WD, WD, WHISPER_M, passes) for passes in (1, 3)]
+    timed += [(K, N, 4, 3) for K, N in ZOO_PROJ]
     weights = {}
     for K, N, M, passes in timed:
         if (K, N) not in weights:
@@ -531,9 +609,9 @@ def phase_kernel(peaks):
     layer["bound_by"] = "bytes" if b_ms >= o_ms else "operations"
     # one zamba2-7b decode step of the standard tier: its 227 projections
     # at M = 4, passes = 3
-    def row_of(kn):
+    def row_of(kn, M=4, passes=3):
         return next(r for r in rows if (r["K"], r["N"]) == kn
-                    and r["M"] == 4 and r["passes"] == 3)
+                    and r["M"] == M and r["passes"] == passes)
 
     zamba2 = {k: sum(row_of(kn)[k] for kn in ZAMBA2_STEP)
               for k in ("kernel_ms", "plain_ms", "library_ms", "bytes_ms",
@@ -544,6 +622,22 @@ def phase_kernel(peaks):
     zamba2["in_proj"] = {k: row_of((ZD, ZIN))[k] for k in (
         "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
     layer["zamba2_step"] = zamba2
+    # one decode layer of each dense decoder (standard tier, M = 4) and
+    # whisper's cross-attention K/V projection, with their bounds
+    for arch, shapes in ZOO_LAYERS.items():
+        zoo = {k: sum(row_of(kn)[k] for kn in shapes)
+               for k in ("kernel_ms", "plain_ms", "library_ms", "bytes_ms",
+                         "ops_ms")}
+        zoo["bound_ms"] = max(zoo["bytes_ms"], zoo["ops_ms"])
+        zoo["bound_by"] = ("bytes" if zoo["bytes_ms"] >= zoo["ops_ms"]
+                           else "operations")
+        layer[f"{arch}_layer"] = zoo
+    layer["whisper_cross_kv"] = {
+        f"passes{passes}": {k: row_of((WD, WD), WHISPER_M, passes)[k]
+                            for k in ("kernel_ms", "plain_ms", "library_ms",
+                                      "bytes_ms", "ops_ms", "bound_ms",
+                                      "bound_by")}
+        for passes in (1, 3)}
     big = next(r for r in rows if r["M"] == 2048)
     (ROOT / "chiprun_out" / "chip_smoke_kernels.json").write_text(
         json.dumps({"card": smi("name,power.limit"), "layer": layer,
@@ -570,6 +664,19 @@ def phase_kernel(peaks):
           f"projections of a decode step: kernel {zamba2['kernel_ms']:.4f} ms,"
           f" torch.matmul x3 {zamba2['library_ms']:.4f} ms, bound "
           f"{zamba2['bound_ms']:.4f} ms ({zamba2['bound_by']})")
+    kv = layer["whisper_cross_kv"]
+    print(f"[kernel] whisper-tiny cross-attention K/V (M {WHISPER_M}, K {WD}, "
+          f"N {WD}): " + "; ".join(
+              f"passes={p[-1]} kernel {v['kernel_ms']:.4f} ms, plain "
+              f"{v['plain_ms']:.4f} ms, torch.matmul x{p[-1]} "
+              f"{v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
+              f"({v['bound_by']})" for p, v in kv.items())
+          + "; one decode layer (M=4, passes=3): " + "; ".join(
+              f"{arch} kernel {layer[arch + '_layer']['kernel_ms']:.4f} ms, "
+              f"plain {layer[arch + '_layer']['plain_ms']:.4f} ms, "
+              f"torch.matmul x3 {layer[arch + '_layer']['library_ms']:.4f} ms,"
+              f" bound {layer[arch + '_layer']['bound_ms']:.4f} ms "
+              f"({layer[arch + '_layer']['bound_by']})" for arch in ZOO_LAYERS))
     for r in rows:
         print(f"[kernel]   M {r['M']:4d} K {r['K']:4d} N {r['N']:4d} passes "
               f"{r['passes']}: kernel {r['kernel_ms']:.4f} (call "
@@ -1631,6 +1738,373 @@ def phase_cli():
     return lines
 
 
+def zoo_shapes_of(cfg):
+    """(K, N) of one decode layer's seven projections, from the model's
+    own parameter shapes."""
+    from repro_torch.models import transformer
+
+    shapes = transformer.param_shapes(cfg)
+    return [tuple(shapes[f"seg0_p0.{site}"][0][-2:]) for site in (
+        "attn.wq", "attn.wk", "attn.wv", "attn.wo", "mlp.wi", "mlp.wg",
+        "mlp.wo")]
+
+
+def phase_whisper():
+    """Full-width whisper-tiny through the model API (the reference has no
+    whisper ``generate`` and no whisper serving): 4 x 1500 seeded frames,
+    an 8-token prompt, 32 greedy tokens, under exact, segmented3 and
+    segmented1; K1 launches counted per prefill and per decode step; the
+    kernel route's prefill and decode logits against the plain route's
+    (fed the same tokens); the committed fixture bit for bit on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.compat import flatten_tree
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.models import transformer
+    from repro_torch.numerics import numerics_scope
+    from repro_torch.session import Session
+
+    cfg = get_arch("whisper-tiny")
+    assert (cfg.encoder_layers, cfg.n_layers, cfg.d_model, cfg.vocab,
+            cfg.enc_len) == (4, 4, WD, 51865, 1500)
+    n_params = sum(int(np.prod(shape)) for shape, _ in
+                   transformer.param_shapes(cfg).values())
+    assert n_params == 61_074_432, n_params
+    per_enc, per_dec = 7 * cfg.encoder_layers, 11 * cfg.n_layers
+    assert (per_enc, per_dec) == (28, 44)
+    B, plen, gen_len = 4, 8, 32
+    assert plen + gen_len <= cfg.decoder_len
+    sess = Session(cfg, seed=0)
+    sess.params  # seeded random init on the card
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, plen), generator=gen,
+                                     device="cuda"),
+             "enc_embeds": torch.randn((B, cfg.enc_len, cfg.d_model),
+                                       generator=gen, device="cuda")}
+
+    def run(s, forced=None):
+        """Prefill, then gen_len - 1 decode steps (greedy, or fed
+        ``forced``); returns the logits of every step, the tokens, the
+        launches of the prefill and of each step, and the host ms."""
+        c = s.config
+        with torch.inference_mode():
+            b1 = k1.afpm_matmul.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, state = transformer.prefill(s.params, c, batch,
+                                                max_len=plen + gen_len)
+            torch.cuda.synchronize()
+            prefill_ms = 1e3 * (time.perf_counter() - t0)
+            pre = k1.afpm_matmul.launches - b1
+            out, toks = [logits], [logits[:, -1:].argmax(-1)]
+            t0 = time.perf_counter()
+            for i in range(gen_len - 1):
+                tok = toks[-1] if forced is None else forced[:, i:i + 1]
+                logits, state = transformer.decode_step(
+                    s.params, c, {"token": tok}, state, plen + i)
+                out.append(logits)
+                toks.append(logits[:, -1:].argmax(-1))
+            torch.cuda.synchronize()
+            decode_ms = 1e3 * (time.perf_counter() - t0) / (gen_len - 1)
+            steps = k1.afpm_matmul.launches - b1 - pre
+        return dict(logits=out, tokens=torch.cat(toks, 1), pre=pre,
+                    steps=steps, prefill_ms=prefill_ms, decode_ms=decode_ms)
+
+    run(sess.replace(policy="segmented3"))    # warm
+    tiers = {}
+    k1.afpm_matmul.launches = 0
+    for policy in ("exact", "segmented3", "segmented1"):
+        tiers[policy] = run(sess.replace(policy=policy))
+    launches = k1.afpm_matmul.launches
+    for policy, r in tiers.items():
+        want = ((per_enc + per_dec, per_dec * (gen_len - 1))
+                if policy != "exact" else (0, 0))
+        if (r["pre"], r["steps"]) != want:
+            raise AssertionError(
+                f"whisper {policy}: afpm_matmul ran {r['pre']} times in the "
+                f"prefill and {r['steps']} in {gen_len - 1} decode steps, "
+                f"expected {want[0]} and {want[1]}")
+        bad = [i for i, lg in enumerate(r["logits"])
+               if lg.shape != (B, 1, cfg.vocab) or not torch.isfinite(lg).all()]
+        if bad or r["tokens"].shape != (B, gen_len):
+            raise AssertionError(f"whisper {policy}: bad logits at steps "
+                                 f"{bad[:4]}")
+    # the kernel route against the plain route, fed the kernel route's
+    # tokens; and the encoder alone, timed
+    errs, enc_ms = {}, {}
+    for policy, r in tiers.items():
+        s = sess.replace(policy=policy)
+        plain = run(s.replace(backend="torch"), forced=r["tokens"][:, :-1])
+        if plain["pre"] or plain["steps"]:
+            raise AssertionError(f"whisper {policy}: the plain route ran "
+                                 f"afpm_matmul")
+        errs[policy] = [rel_err(a, b) for a, b in zip(r["logits"],
+                                                     plain["logits"])]
+        with torch.inference_mode(), numerics_scope(s.config.numerics):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                transformer.encoder_apply(s.params["encoder"], s.config, batch)
+            torch.cuda.synchronize()
+            enc_ms[policy] = 1e3 * (time.perf_counter() - t0) / 5
+    over = [f"{p}: prefill {e[0]:.3g}, decode up to {max(e[1:]):.3g}"
+            for p, e in errs.items() if max(e) > LOGIT_BOUND]
+    if over:
+        raise AssertionError(f"whisper kernel-route logits differ from the "
+                             f"plain route's by more than {LOGIT_BOUND:.3g} "
+                             f"of the largest: {'; '.join(over)}")
+
+    fixture = ROOT / "tests" / "golden" / "compat" / "whisper-tiny"
+    loaded = Session.from_pretrained("whisper-tiny", fixture)
+    ref = dict(np.load(fixture.parent / "whisper-tiny_reference.npz"))
+    got = flatten_tree(loaded.params)
+    if loaded.params["embed"].device.type != "cuda" \
+            or sorted(got) != sorted(ref):
+        raise AssertionError("whisper from_pretrained: params not on the "
+                             "card, or names differ from the reference")
+    for k, v in ref.items():
+        if got[k].dtype != v.dtype or not np.array_equal(
+                got[k].view(np.uint32), v.view(np.uint32)):
+            raise AssertionError(f"whisper from_pretrained: {k} differs from "
+                                 f"the reference bit for bit")
+    del loaded, sess
+    torch.cuda.empty_cache()
+
+    rows = {p: dict(encoder_ms=enc_ms[p], prefill_ms=r["prefill_ms"],
+                    decode_ms_step=r["decode_ms"],
+                    prefill_launches=r["pre"], step_launches=r["steps"]
+                    // (gen_len - 1),
+                    logits_rel_err=max(errs[p]))
+            for p, r in tiers.items()}
+    print(f"[whisper] whisper-tiny full width ({n_params / 1e6:.2f} M params"
+          f" on the card), {B} x {cfg.enc_len} frames, {plen}-token prompt, "
+          f"{gen_len} greedy tokens: " + "; ".join(
+              f"{p} encoder {v['encoder_ms']:.2f} ms, prefill "
+              f"{v['prefill_ms']:.2f} ms, decode {v['decode_ms_step']:.2f} "
+              f"ms/step, afpm_matmul {v['prefill_launches']} a prefill and "
+              f"{v['step_launches']} a step, kernel vs plain logits "
+              f"{v['logits_rel_err']:.3g} of the largest"
+              for p, v in rows.items())
+          + f" (bound {LOGIT_BOUND:.3g}); afpm_matmul launches {launches}; "
+          f"from_pretrained('whisper-tiny') on the card == "
+          f"whisper-tiny_reference.npz bit for bit ({len(ref)} tensors)")
+    return dict(k1=launches, tiers=rows, params=n_params)
+
+
+def phase_gemma2():
+    """Full-width gemma2-9b served by the engine as [serve] serves
+    qwen3-4b; every logit the engine computes within the logit softcap."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.models import transformer
+    from repro_torch.serving import DEFAULT_TIERS
+    from repro_torch.session import Session
+
+    cfg = get_arch("gemma2-9b")
+    assert (cfg.n_layers, cfg.d_model, cfg.vocab, cfg.logit_softcap,
+            cfg.attn_softcap) == (42, 3584, 256000, 30.0, 50.0)
+    assert zoo_shapes_of(cfg) == GEMMA2_LAYER
+    per_forward = 7 * cfg.n_layers
+    assert per_forward == 294
+    n_params = sum(int(np.prod(shape)) for shape, _ in
+                   transformer.param_shapes(cfg).values())
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sess = Session(cfg, seed=0)
+    sess.params  # seeded random init on the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params_gb = torch.cuda.memory_allocated() / 1e9 - held_gb
+    eng = sess.serving_engine(slots=4, max_len=256)
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i in range(6):
+        tier = DEFAULT_TIERS[i % 3].name
+        plen = SERVE_LENGTHS[(i + i // 3) % 3]
+        reqs.append(eng.submit(rng.integers(0, cfg.vocab, plen), tier=tier,
+                               max_new_tokens=16))
+
+    # the largest |logit| of every engine step, on the card (no sync)
+    real = transformer.logits_fn
+    top = torch.zeros((), device="cuda")
+
+    def watched(params, c, hidden):
+        nonlocal top
+        out = real(params, c, hidden)
+        top = torch.maximum(top, out.abs().amax())
+        return out
+
+    transformer.logits_fn = watched
+    try:
+        k1.afpm_matmul.launches = 0
+        t0 = time.perf_counter()
+        stats = eng.run()
+        serve_s = time.perf_counter() - t0
+        launches = k1.afpm_matmul.launches
+    finally:
+        transformer.logits_fn = real
+    serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
+    top = top.item()
+
+    bad = [r.id for r in reqs if not r.done or len(r.result()) != 16]
+    if bad:
+        raise AssertionError(f"requests did not finish with 16 tokens: {bad}")
+    segmented = [t.name for t in DEFAULT_TIERS if t.policy != "exact"]
+    forwards = sum(stats[n].n_prefill_chunks + stats[n].n_decode_steps
+                   for n in segmented)
+    if launches != per_forward * forwards:
+        raise AssertionError(f"afpm_matmul launched {launches} times, "
+                             f"expected {per_forward} x {forwards} segmented "
+                             f"forwards")
+    if not 0.0 < top <= cfg.logit_softcap:
+        raise AssertionError(f"gemma2 engine logits reach {top}, outside "
+                             f"the softcap {cfg.logit_softcap}")
+
+    del eng
+    torch.cuda.empty_cache()
+    longest = next(r for r in reqs if len(r.prompt) == SERVE_LENGTHS[2])
+    peak = {}
+    for t in DEFAULT_TIERS:
+        solo_sess = sess.replace(policy=t.policy)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        solo_sess.generate(prompts=longest.prompt[None], gen_len=16)
+        peak[t.name] = torch.cuda.max_memory_allocated() / 1e9 - held_gb
+        if t.name != "standard":
+            continue
+        for r in (r for r in reqs if r.tier == "standard"):
+            solo = solo_sess.generate(prompts=r.prompt[None], gen_len=16)
+            if not np.array_equal(solo.tokens[0], r.result()):
+                raise AssertionError(
+                    f"gemma2 standard request {r.id}: engine "
+                    f"{r.result().tolist()} != solo generate "
+                    f"{solo.tokens[0].tolist()}")
+    del sess, solo_sess
+    torch.cuda.empty_cache()
+
+    tiers, parts = {}, []
+    for t in DEFAULT_TIERS:
+        st = stats[t.name]
+        dec_tokens = st.n_tokens - st.n_finished
+        tiers[t.name] = dict(
+            policy=t.policy, decode_tok_s=dec_tokens / st.decode_s,
+            decode_ms_step=1e3 * st.decode_s / st.n_decode_steps,
+            decode_steps=st.n_decode_steps,
+            prefill_ms_chunk=1e3 * st.prefill_s / st.n_prefill_chunks,
+            prefill_chunks=st.n_prefill_chunks, solo_peak_gb=peak[t.name])
+        v = tiers[t.name]
+        parts.append(f"{t.name}({t.policy}) decode {v['decode_tok_s']:.1f} "
+                     f"tok/s {v['decode_ms_step']:.2f} ms/step prefill "
+                     f"{v['prefill_ms_chunk']:.2f} ms/chunk, a solo generate"
+                     f" of {SERVE_LENGTHS[2]} + 16 tokens peaks at "
+                     f"{v['solo_peak_gb']:.2f} GB")
+    print(f"[gemma2] gemma2-9b full width ({n_params / 1e9:.3f} B params, "
+          f"{params_gb:.2f} GB on the card, init {init_s:.1f} s): 6 requests "
+          f"x 16 tokens in {serve_s:.2f} s; {'; '.join(parts)}; engine peak "
+          f"{serve_peak_gb:.2f} GB; afpm_matmul launches {launches} = "
+          f"{per_forward} x {forwards} segmented forwards; standard tokens == "
+          f"solo generate; largest |logit| {top:.4f} (softcap "
+          f"{cfg.logit_softcap})")
+    out = dict(k1=launches, forwards=forwards, params=n_params,
+               params_gb=params_gb, init_s=init_s, serve_s=serve_s,
+               serve_peak_gb=serve_peak_gb, top_logit=top, tiers=tiers)
+    (ROOT / "chiprun_out" / "chip_smoke_gemma2.json").write_text(json.dumps(
+        dict(out, card=smi("name,power.limit")), indent=1))
+    return out
+
+
+def phase_dense_zoo():
+    """Full-width gemma3-12b (a 1200-token prompt past its 1024 window,
+    batch 1) and minitron-8b (batch 4, 40-token prompts) through a solo
+    ``Session.generate`` of 16 tokens under standard, one after the
+    other; K1 launches a forward, the kernel route's prefill logits
+    against the plain route's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.models import transformer
+    from repro_torch.session import Session
+
+    out, parts = {}, []
+    for arch, batch, plen in (("gemma3-12b", 1, 1200), ("minitron-8b", 4, 40)):
+        cfg = get_arch(arch)
+        assert zoo_shapes_of(cfg) == ZOO_LAYERS[arch]
+        per_forward = 7 * cfg.n_layers
+        local = sum(r * sum(s.attn == "local" and s.window < plen
+                            for s in p) for r, p in cfg.segments)
+        assert (per_forward, local) == {"gemma3-12b": (336, 40),
+                                        "minitron-8b": (224, 0)}[arch]
+        n_params = sum(int(np.prod(shape)) for shape, _ in
+                       transformer.param_shapes(cfg).values())
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        sess = Session(cfg, policy="segmented3", seed=0)
+        sess.params  # seeded random init on the card
+        torch.cuda.synchronize()
+        params_gb = torch.cuda.memory_allocated() / 1e9 - held_gb
+        prompts = np.random.default_rng(0).integers(0, cfg.vocab,
+                                                    (batch, plen))
+        k1.afpm_matmul.launches = 0
+        res = sess.generate(prompts=prompts, gen_len=16)
+        launches = k1.afpm_matmul.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
+        if launches != per_forward * 16 or res.tokens.shape != (batch, 16):
+            raise AssertionError(f"{arch}: afpm_matmul launched {launches} "
+                                 f"times in a generate of 16 tokens, "
+                                 f"expected {per_forward} x 16")
+        tokens = torch.as_tensor(prompts, device="cuda")
+        logits, ms = {}, {}
+        with torch.inference_mode():
+            for backend in ("auto", "torch"):
+                s = sess.replace(backend=backend)
+                b1 = k1.afpm_matmul.launches
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits[backend], _ = transformer.prefill(
+                    s.params, s.config, {"tokens": tokens})
+                torch.cuda.synchronize()
+                ms[backend] = 1e3 * (time.perf_counter() - t0)
+                ran = k1.afpm_matmul.launches - b1
+                if ran != (per_forward if backend == "auto" else 0):
+                    raise AssertionError(f"{arch} {backend}: afpm_matmul ran "
+                                         f"{ran} times in a prefill")
+        lg = logits["auto"]
+        if lg.shape != (batch, 1, cfg.vocab) or not torch.isfinite(lg).all():
+            raise AssertionError(f"{arch}: bad prefill logits "
+                                 f"{tuple(lg.shape)}")
+        err = rel_err(lg, logits["torch"])
+        if err > LOGIT_BOUND:
+            raise AssertionError(f"{arch}: kernel-route prefill logits "
+                                 f"{err:.3g} of the largest from the plain "
+                                 f"route's > {LOGIT_BOUND:.3g}")
+        del sess, s, logits, lg
+        torch.cuda.empty_cache()
+        out[arch] = dict(params=n_params, params_gb=params_gb,
+                         generate_s=res.seconds, tok_s=res.tokens_per_s,
+                         peak_gb=peak_gb, k1=launches,
+                         prefill_ms=ms["auto"], plain_prefill_ms=ms["torch"],
+                         logits_rel_err=err, local_layers_masking=local)
+        parts.append(
+            f"{arch} ({n_params / 1e9:.3f} B params, {params_gb:.2f} GB) "
+            f"batch {batch} x {plen}-token prompts: generate of 16 tokens "
+            f"{res.seconds:.2f} s ({res.tokens_per_s:.1f} tok/s), peak "
+            f"{peak_gb:.2f} GB, afpm_matmul {launches} = {per_forward} x 16 "
+            f"forwards; prefill {ms['auto']:.1f} ms (plain route "
+            f"{ms['torch']:.1f} ms), kernel vs plain logits {err:.3g} of the "
+            f"largest (bound {LOGIT_BOUND:.3g}); {local} local layers mask")
+    print(f"[dense-zoo] standard tier, full width: {'; '.join(parts)}")
+    out["k1"] = sum(v["k1"] for v in out.values())
+    return out
+
+
 def train_batch(cfg, step: int, seq_len: int, batch: int):
     """A seeded batch of the training token stream on the card."""
     import torch
@@ -2113,7 +2587,8 @@ def host_ms(fn, repeats: int):
 
 
 def kernel_group(name: str, convs: bool = True) -> str:
-    """The group a device kernel's time is reported under (phases 10-13);
+    """The group a device kernel's time is reported under (the profiles of
+    the training phases and [resnet]);
     ``convs=False`` for a model without cuDNN convs, whose cuBLAS kernels
     may carry conv-like names (``xmma``)."""
     n = name.lower()
@@ -2486,6 +2961,12 @@ def main() -> int:
     z = phase_zamba2()
     torch.cuda.empty_cache()
     phase_cli()
+    w = phase_whisper()
+    torch.cuda.empty_cache()
+    g2 = phase_gemma2()
+    torch.cuda.empty_cache()
+    dz = phase_dense_zoo()
+    torch.cuda.empty_cache()
     tg = phase_train_grad()
     tq = phase_train_qwen3()
     tm = phase_train_mamba2()
@@ -2511,6 +2992,12 @@ def main() -> int:
         "resnet_launches": r["launches"], "resnet_max_ulp_err": r["max_ulp_err"],
         "resnet_conv": r["conv"], "train_grad_launches": tg["k1"],
         "zamba2_launches": z["k1"], "zamba2_step": k["zamba2_step"],
+        "whisper_launches": w["k1"], "gemma2_launches": g2["k1"],
+        "dense_zoo_launches": dz["k1"],
+        "whisper_cross_kv": k["whisper_cross_kv"],
+        "gemma2_layer": k["gemma2-9b_layer"],
+        "gemma3_layer": k["gemma3-12b_layer"],
+        "minitron_layer": k["minitron-8b_layer"],
         "backward": "plain (repro_torch/kernels/autograd.py)"}, {
         "name": "afpm_bitwise", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/afpm_bitwise.cu",

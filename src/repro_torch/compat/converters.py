@@ -11,12 +11,16 @@ family         foreign layout                             native model
 =============  =========================================  ==============
 ``qwen3-4b``   HF ``Qwen3ForCausalLM`` (``model.layers.   decoder LM,
                {i}.self_attn.q_proj...``, tied lm_head)   ``seg{s}_p{p}``
+``whisper-tiny`` HF ``WhisperForConditionalGeneration``   enc-dec LM
+               (``model.encoder/decoder.layers.{i}...``)  + ``encoder.*``
 ``resnet18``   torchvision ``resnet18`` state dict        CIFAR ResNet
                (``layer{1..4}.{b}``, OIHW convs)          + bn state
 =============  =========================================  ==============
 
-The whisper-tiny converter of the reference comes with the port's
-encoder.
+As in the reference, the whisper mapping reads an extension key
+(``...layers.{i}.fc_gate.weight``) for the gate of the model's gated MLP,
+which real Whisper checkpoints do not have; their LayerNorm and attention
+biases have no native counterpart (``unknown="ignore"`` drops them).
 
 :func:`load_pretrained` reads the checkpoint (safetensors single or
 sharded, or a torch pickle by extension), builds the family mapping for
@@ -41,7 +45,7 @@ from .state_dict import (CompatError, Leaf, MapRule, Mapping, flatten_tree,
                          unflatten_tree)
 
 __all__ = ["Converter", "DecoderLMConverter", "LoadedCheckpoint",
-           "ResNet18Converter",
+           "ResNet18Converter", "WhisperConverter",
            "converter_for", "export_pretrained", "families",
            "load_pretrained", "register_converter"]
 
@@ -82,11 +86,29 @@ _QWEN_NAMES = {
     "mlp.wo": "mlp.down_proj.weight",
 }
 
+_WHISPER_NAMES = {
+    "ln1": "self_attn_layer_norm.weight",
+    "ln2": "final_layer_norm.weight",
+    "attn.wq": "self_attn.q_proj.weight",
+    "attn.wk": "self_attn.k_proj.weight",
+    "attn.wv": "self_attn.v_proj.weight",
+    "attn.wo": "self_attn.out_proj.weight",
+    "mlp.wi": "fc1.weight",
+    "mlp.wg": "fc_gate.weight",      # extension: the model's MLP is gated
+    "mlp.wo": "fc2.weight",
+    "cross.wq": "encoder_attn.q_proj.weight",
+    "cross.wk": "encoder_attn.k_proj.weight",
+    "cross.wv": "encoder_attn.v_proj.weight",
+    "cross.wo": "encoder_attn.out_proj.weight",
+    "ln_cross": "encoder_attn_layer_norm.weight",
+}
+
 # norms store HF's raw weight as our ``1 + scale``: an import shift
 _NORM_SHIFT = -1.0
 
 
-def _block_rules(prefix, dst_prefix, names, stack_kw, *, qk_norm=False):
+def _block_rules(prefix, dst_prefix, names, stack_kw, *, qk_norm=False,
+                 cross=False):
     """MapRules for one (stacked) transformer block position."""
     def mk(slot, dst, **kw):
         return MapRule(prefix + names[slot], dst_prefix + dst,
@@ -103,6 +125,12 @@ def _block_rules(prefix, dst_prefix, names, stack_kw, *, qk_norm=False):
     if qk_norm:
         rules += [mk("attn.q_norm", "attn.q_norm.scale", shift=_NORM_SHIFT),
                   mk("attn.k_norm", "attn.k_norm.scale", shift=_NORM_SHIFT)]
+    if cross:
+        rules += [mk("cross.wq", "cross.wq", transpose=True),
+                  mk("cross.wk", "cross.wk", transpose=True),
+                  mk("cross.wv", "cross.wv", transpose=True),
+                  mk("cross.wo", "cross.wo", transpose=True),
+                  mk("ln_cross", "ln_cross.scale", shift=_NORM_SHIFT)]
     rules += [
         mk("mlp.wi", "mlp.wi", transpose=True),
         mk("mlp.wg", "mlp.wg", transpose=True),
@@ -111,7 +139,7 @@ def _block_rules(prefix, dst_prefix, names, stack_kw, *, qk_norm=False):
     return rules
 
 
-def _decoder_stack_rules(cfg, layer_tpl, names):
+def _decoder_stack_rules(cfg, layer_tpl, names, *, cross=False):
     """Rules for every ``seg{s}_p{p}`` against global HF layer indices."""
     rules = []
     base = 0
@@ -128,7 +156,7 @@ def _decoder_stack_rules(cfg, layer_tpl, names):
                                   f"blocks (seg{si}_p{pi} of {cfg.arch_id})")
             stack_kw = dict(stack=repeats, start=base + pi, stride=period)
             rules += _block_rules(layer_tpl, f"seg{si}_p{pi}.", names,
-                                  stack_kw, qk_norm=cfg.qk_norm)
+                                  stack_kw, qk_norm=cfg.qk_norm, cross=cross)
         base += repeats * period
     return rules
 
@@ -230,6 +258,32 @@ class DecoderLMConverter(Converter):
         return Mapping(rules)
 
 
+class WhisperConverter(DecoderLMConverter):
+    """HF whisper encoder-decoder (the ``model.encoder/decoder.layers.{i}``
+    split)."""
+
+    def mapping(self, cfg) -> Mapping:
+        if not cfg.encoder_layers:
+            raise CompatError(f"{self.family}: whisper converter needs an "
+                              f"encoder (encoder_layers=0 in config)")
+        rules = [MapRule("model.decoder.embed_tokens.weight", "embed")]
+        rules += _decoder_stack_rules(cfg, "model.decoder.layers.{i}.",
+                                      _WHISPER_NAMES, cross=True)
+        rules.append(MapRule("model.decoder.layer_norm.weight",
+                             "final_norm.scale", shift=_NORM_SHIFT))
+        if not cfg.tie_embeddings:
+            rules.append(MapRule("proj_out.weight", "unembed",
+                                 transpose=True))
+        # the encoder's layers are one stacked block set
+        enc_stack = dict(stack=cfg.encoder_layers, start=0, stride=1)
+        rules += _block_rules("model.encoder.layers.{i}.", "encoder.blocks.",
+                              _WHISPER_NAMES, enc_stack,
+                              qk_norm=cfg.qk_norm, cross=False)
+        rules.append(MapRule("model.encoder.layer_norm.weight",
+                             "encoder.norm.scale", shift=_NORM_SHIFT))
+        return Mapping(rules)
+
+
 class ResNet18Converter(Converter):
     """torchvision ``resnet18`` naming onto the CIFAR ResNet family."""
 
@@ -321,6 +375,7 @@ def families() -> list:
 
 
 register_converter(DecoderLMConverter("qwen3-4b"))
+register_converter(WhisperConverter("whisper-tiny"))
 register_converter(ResNet18Converter("resnet18"))
 
 

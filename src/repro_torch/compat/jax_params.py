@@ -6,7 +6,10 @@ stacked-layer layout of ``tests/golden/compat/qwen3-4b_reference.npz``:
 ``(repeats, d, H * hd)`` and so on; an SSD stack's blocks carry
 ``seg0_p0.ln1.scale`` and ``seg0_p0.ssm.{in_proj, conv_w, conv_b, A_log,
 dt_bias, norm, out_proj}`` (mamba2-130m); a shared block entry (zamba2-7b's
-``seg0_p5``) has no repeats axis.  The port uses the same layout
+``seg0_p5``) has no repeats axis; an encoder-decoder's decoder blocks add
+``cross.{wq, wk, wv, wo}`` and ``ln_cross.scale``, and its encoder is
+``encoder.blocks.*`` stacked over the encoder's layers plus
+``encoder.norm.scale`` (whisper-tiny).  The port uses the same layout
 (:func:`repro_torch.models.transformer.param_shapes`), so carrying weights
 across is a check of names and shapes plus a copy.  The ResNet's
 ``(params, state)`` trees carry across the same way

@@ -102,7 +102,8 @@ class ArchConfig:
 
     def param_count(self) -> int:
         """Parameter count: embeddings plus blocks (dense GQA and SSD
-        blocks; the families the port serves)."""
+        blocks, the encoder and cross-attention; the families the port
+        serves)."""
         d, hd = self.d_model, self.resolved_head_dim
         total = self.vocab * d * (1 if self.tie_embeddings else 2)
         for repeats, pattern in self.segments:
@@ -123,6 +124,11 @@ class ArchConfig:
                     raise ValueError(f"param_count: layer kind {spec.kind!r} "
                                      f"arrives in a later slice of the port")
             total += seg * (1 if all(s.shared for s in pattern) else repeats)
+        if self.encoder_layers:
+            # the whisper-style encoder's blocks and the decoder's
+            # cross-attention (norms not counted, as in the reference)
+            total += self.encoder_layers * (4 * d * d + 3 * d * self.d_ff)
+            total += self.n_layers * 4 * d * d
         return total
 
     def reduced(self) -> "ArchConfig":

@@ -9,13 +9,17 @@ slots and returns the greedy continuations.
     python -m repro_torch.launch.serve --numerics segmented3 --batch 2
     python -m repro_torch.launch.serve --arch mamba2-130m --batch 2
     python -m repro_torch.launch.serve --arch zamba2-7b --batch 2
+    python -m repro_torch.launch.serve --arch gemma2-9b --batch 2
     python -m repro_torch.launch.serve --policy policy.json
 
 runs on the GPU; ``--device cpu`` runs the plain PyTorch path.  The
-archs are the reduced (CPU-sized) configs: ``qwen3-4b`` (dense GQA),
+archs are the reduced (CPU-sized) configs: the dense decoders
+``qwen3-4b``, ``gemma2-9b`` (sliding-window layers, softcaps),
+``gemma3-12b`` (sliding-window layers) and ``minitron-8b``,
 ``mamba2-130m`` (SSD blocks) and ``zamba2-7b`` (SSD blocks with one shared
 attention block, whose lanes page its KV caches and keep the SSD states
-per slot, prefilling whole prompts).
+per slot, prefilling whole prompts).  ``whisper-tiny`` is refused with a
+one-line error: a request carries no encoder inputs.
 ``--policy`` serves under a per-layer
 :class:`~repro_torch.core.policy.NumericsPolicy` JSON file (either
 package's, e.g. one ``Session.auto_configure`` emitted) and prints the
@@ -69,8 +73,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
     ap.add_argument("--arch", default="qwen3-4b",
-                    help="qwen3-4b, mamba2-130m or zamba2-7b (reduced, "
-                         "CPU-sized configs)")
+                    help="qwen3-4b, gemma2-9b, gemma3-12b, minitron-8b, "
+                         "mamba2-130m or zamba2-7b (reduced, CPU-sized "
+                         "configs)")
     ap.add_argument("--numerics", default="exact",
                     choices=["exact", "segmented3", "segmented2", "segmented1"])
     ap.add_argument("--batch", type=int, default=4)

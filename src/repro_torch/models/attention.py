@@ -1,12 +1,15 @@
-"""Attention: GQA with qk-norm and RoPE, blockwise prefill, grouped decode.
+"""Attention: GQA with qk-norm and RoPE (sliding-window and softcapped
+variants), blockwise prefill, grouped decode, and whisper's
+cross-attention.
 
 Numerics: q/k/v/o projections route through ``nmatmul`` (the paper's
 configurable multiplier); the score and PV products stay bf16 operands
 with fp32 accumulation, as in the JAX package, computed as fp32 einsums
-of bf16-rounded operands (exact products, fp32 sums); a decode step
-runs the scores, the softmax and the PV sum in fp64 and rounds once
-(:func:`~.layers.einsum_f64`), so a row's attention does not depend on
-the batch it is decoded in.  The
+of bf16-rounded operands (exact products, fp32 sums); a decode step's
+self-attention runs the scores, the softmax and the PV sum in fp64 and
+rounds once (:func:`~.layers.einsum_f64`), so a row's attention does not
+depend on the batch it is decoded in (the cross-attention keeps the
+blockwise form in decode, as the reference does).  The
 reference's algorithm is kept (no ``scaled_dot_product_attention``) so
 the bits stay comparable.
 
@@ -56,18 +59,22 @@ def _cache_update(buf: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
     return buf
 
 
-def _mask_for(qp, kp, kvalid, window):
-    mask = kvalid[None, None, None, :] & (
-        qp[None, None, :, None] >= kp[None, None, None, :])
+def _mask_for(qp, kp, kvalid, causal, window):
+    mask = kvalid[None, None, None, :]
+    if causal:
+        mask = mask & (qp[None, None, :, None] >= kp[None, None, None, :])
     if window is not None:
         mask = mask & (qp[None, None, :, None] - kp[None, None, None, :] < window)
     return mask
 
 
-def blockwise_attention(q, k, v, *, window=None, attn_cap=None,
-                        q_chunk=1024, kv_chunk=1024, q_offset=0):
-    """Causal flash-style online-softmax attention over (q_chunk x kv_chunk)
-    blocks.
+def blockwise_attention(q, k, v, *, causal=True, window=None,
+                        attn_cap=None, q_chunk=1024, kv_chunk=1024,
+                        q_offset=0):
+    """Flash-style online-softmax attention over (q_chunk x kv_chunk)
+    blocks, causal unless ``causal=False`` (the encoder and the
+    cross-attention), where only the key-validity mask applies: the keys
+    that pad the last chunk still add an exact zero.
 
     q: (B, Sq, H, D); k/v: (B, Sk, H, D) (kv already head-repeated);
     ``q_offset`` is the absolute position of the first query.  bf16
@@ -106,7 +113,7 @@ def blockwise_attention(q, k, v, *, window=None, attn_cap=None,
             s = torch.einsum("bqhd,bkhd->bhqk", qb, kb) * scale
             if attn_cap is not None:
                 s = softcap(s, attn_cap)
-            mask = _mask_for(q_pos[i], k_pos[j], k_valid[j], window)
+            mask = _mask_for(q_pos[i], k_pos[j], k_valid[j], causal, window)
             s = s.masked_fill(~mask, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1)).detach()
             alpha = torch.exp(m - m_new)
@@ -120,9 +127,11 @@ def blockwise_attention(q, k, v, *, window=None, attn_cap=None,
     return torch.cat(outs, dim=1)[:, :Sq]
 
 
-def gqa_apply(params, x, cfg, spec, positions, cache=None, q_offset=0):
+def gqa_apply(params, x, cfg, spec, positions, cache=None, q_offset=0,
+              causal=True):
     """Returns (out, new_cache); cache = dict(k, v) of (B, S_max, KH, D)
-    tensors, updated in place."""
+    tensors, updated in place.  ``causal=False`` is the encoder's
+    bidirectional self-attention (no cache)."""
     B, S, d = x.shape
     H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     with layer_scope("wq"):
@@ -142,7 +151,8 @@ def gqa_apply(params, x, cfg, spec, positions, cache=None, q_offset=0):
     if cache is None:
         out = blockwise_attention(
             q, _repeat_kv(k, H // KH), _repeat_kv(v, H // KH),
-            window=window, attn_cap=cfg.attn_softcap, q_offset=q_offset)
+            causal=causal, window=window, attn_cap=cfg.attn_softcap,
+            q_offset=q_offset)
         new_cache = {"k": k, "v": v}
     else:
         # decode (S == 1) or chunked prefill (S > 1, scalar q_offset):
@@ -191,3 +201,24 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=None, attn_cap=None):
     p = torch.softmax(s, dim=-1)
     o = einsum_f64("bkgs,bskd->bkgd", p.to(bf), v_cache.to(bf))
     return o.reshape(B, 1, H, D)
+
+
+def cross_attn_apply(params, x, enc_out, cfg):
+    """Whisper's cross-attention: queries from the decoder's ``x`` (B, S,
+    d), keys and values projected from ``enc_out`` (B, Se, d) in every
+    call, as the reference computes them (nothing cached), attended with
+    :func:`blockwise_attention` (``causal=False``, chunks of 1024), a
+    decode step's one-token query too."""
+    B, S, d = x.shape
+    Se = enc_out.shape[1]
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    with layer_scope("wq"):
+        q = nmatmul(x, params["wq"]).reshape(B, S, H, hd)
+    with layer_scope("wk"):
+        k = nmatmul(enc_out, params["wk"]).reshape(B, Se, H, hd)
+    with layer_scope("wv"):
+        v = nmatmul(enc_out, params["wv"]).reshape(B, Se, H, hd)
+    out = blockwise_attention(q, k, v, causal=False)
+    out = out.to(x.dtype).reshape(B, S, H * hd)
+    with layer_scope("wo"):
+        return nmatmul(out, params["wo"]).to(x.dtype)

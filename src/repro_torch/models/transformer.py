@@ -1,6 +1,8 @@
-"""Model assembly: the LM decoder stack, dense GQA blocks (qwen3-4b),
-attention-free SSD blocks (mamba2-130m) and the hybrid of both with one
-shared attention block (zamba2-7b).
+"""Model assembly: the LM decoder stack, dense GQA blocks (qwen3-4b,
+minitron-8b; sliding-window layers and softcaps: gemma2-9b, gemma3-12b),
+attention-free SSD blocks (mamba2-130m), the hybrid of both with one
+shared attention block (zamba2-7b), and the whisper-style encoder-decoder
+(whisper-tiny).
 
 Depth is organized as ``segments``: ``(repeats, pattern)`` pairs whose
 params are stacked on a leading ``repeats`` axis, as in the JAX package
@@ -12,8 +14,16 @@ its numerics under its own ``blocks.{i}`` path, so one weight set may run
 under as many configs as it has applications.  Its gradient is the sum
 over the applications (autograd accumulates it).
 
+An encoder-decoder (``cfg.encoder_layers``) runs a bidirectional encoder
+over ``batch["enc_embeds"]`` (B, Se, d), its stacked layers all resolving
+under the one unindexed ``encoder.blocks`` path as in the reference (which
+scans them with one trace); every decoder block then cross-attends the
+encoder's output after its self-attention.  Prefill keeps that output in
+the serving state (``enc_out``) and a decode step attends it again.
+
 Public API:
   init(cfg, seed, device)                      -> params (nested dict)
+  encoder_apply(params["encoder"], cfg, batch) -> encoder output
   loss_fn(params, cfg, batch)                  -> mean next-token NLL
   prefill(params, cfg, batch, max_len)         -> (last_logits, state)
   decode_step(params, cfg, batch, state, pos)  -> (logits, state)
@@ -26,6 +36,7 @@ prefill computes them in closed form.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -41,10 +52,10 @@ from .layers import bf16_round, embed_lookup, mlp_apply, normal, rmsnorm, softca
 
 
 def check_supported(cfg):
-    """The port's model layer covers dense GQA blocks and attention-free
-    SSD blocks, shared or not; MoE and MLA blocks, attention-free dense
-    blocks, the encoder (whisper) and M-RoPE sections (qwen2-vl) arrive in
-    later slices."""
+    """The port's model layer covers dense GQA blocks (global or sliding
+    window) and attention-free SSD blocks, shared or not, and the
+    whisper-style encoder; MoE and MLA blocks, attention-free dense blocks
+    and M-RoPE sections (qwen2-vl) arrive in later slices."""
     for _, pattern in cfg.segments:
         for spec in pattern:
             dense = spec.kind == "dense" and spec.attn in ("global", "local")
@@ -53,25 +64,57 @@ def check_supported(cfg):
                 raise NotImplementedError(
                     f"{cfg.arch_id}: layer {spec} arrives in a later slice "
                     f"of the PyTorch port (dense GQA and SSD blocks only)")
-    if cfg.encoder_layers or cfg.mrope_sections or cfg.moe or cfg.mla:
+    if cfg.mrope_sections or cfg.moe or cfg.mla:
         raise NotImplementedError(
-            f"{cfg.arch_id}: encoder, M-RoPE, MoE and MLA arrive in a "
-            f"later slice of the PyTorch port")
+            f"{cfg.arch_id}: M-RoPE, MoE and MLA arrive in a later slice "
+            f"of the PyTorch port")
 
 
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
 
+def _dense_block_shapes(cfg, r: tuple, cross: bool) -> dict:
+    """A dense block's leaves, each with the leading axes ``r``; ``cross``
+    adds the decoder's cross-attention and its norm."""
+    d, H, KH, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.resolved_head_dim)
+    ff = cfg.dense_ff
+    blk = {
+        "ln1.scale": ((*r, d), ("zeros",)),
+        "ln2.scale": ((*r, d), ("zeros",)),
+        "attn.wq": ((*r, d, H * hd), ("normal", d ** -0.5)),
+        "attn.wk": ((*r, d, KH * hd), ("normal", d ** -0.5)),
+        "attn.wv": ((*r, d, KH * hd), ("normal", d ** -0.5)),
+        "attn.wo": ((*r, H * hd, d), ("normal", (H * hd) ** -0.5)),
+        "mlp.wi": ((*r, d, ff), ("normal", d ** -0.5)),
+        "mlp.wg": ((*r, d, ff), ("normal", d ** -0.5)),
+        "mlp.wo": ((*r, ff, d), ("normal", ff ** -0.5)),
+    }
+    if cfg.qk_norm:
+        blk["attn.q_norm.scale"] = ((*r, hd), ("zeros",))
+        blk["attn.k_norm.scale"] = ((*r, hd), ("zeros",))
+    if cross:
+        # every head attends the encoder: k and v have H heads, not KH
+        blk.update({
+            "cross.wq": ((*r, d, H * hd), ("normal", d ** -0.5)),
+            "cross.wk": ((*r, d, H * hd), ("normal", d ** -0.5)),
+            "cross.wv": ((*r, d, H * hd), ("normal", d ** -0.5)),
+            "cross.wo": ((*r, H * hd, d), ("normal", (H * hd) ** -0.5)),
+            "ln_cross.scale": ((*r, d), ("zeros",)),
+        })
+    return blk
+
+
 def param_shapes(cfg) -> dict:
     """Flat ``{dotted name: (shape, init)}`` in the JAX package's layout;
     ``init`` is ``("normal", scale)``, ``("zeros",)`` or
     ``("log_linspace", lo, hi)`` (the same in every repeat).  A ``shared``
-    entry's leaves have no repeats axis."""
+    entry's leaves have no repeats axis; an encoder's layers are stacked
+    under ``encoder.blocks`` (no cross-attention there), with
+    ``encoder.norm.scale`` after them."""
     check_supported(cfg)
-    d, H, KH, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                    cfg.resolved_head_dim)
-    ff = cfg.dense_ff
+    d = cfg.d_model
     out = {"embed": ((cfg.vocab, d), ("normal", 1.0)),
            "final_norm.scale": ((d,), ("zeros",))}
     for si, (repeats, pattern) in enumerate(cfg.segments):
@@ -84,38 +127,46 @@ def param_shapes(cfg) -> dict:
                             in ssm_mod.ssm_param_shapes(cfg).items()})
                 out.update({f"{pre}.{k}": v for k, v in blk.items()})
                 continue
-            blk = {
-                "ln1.scale": ((*r, d), ("zeros",)),
-                "ln2.scale": ((*r, d), ("zeros",)),
-                "attn.wq": ((*r, d, H * hd), ("normal", d ** -0.5)),
-                "attn.wk": ((*r, d, KH * hd), ("normal", d ** -0.5)),
-                "attn.wv": ((*r, d, KH * hd), ("normal", d ** -0.5)),
-                "attn.wo": ((*r, H * hd, d), ("normal", (H * hd) ** -0.5)),
-                "mlp.wi": ((*r, d, ff), ("normal", d ** -0.5)),
-                "mlp.wg": ((*r, d, ff), ("normal", d ** -0.5)),
-                "mlp.wo": ((*r, ff, d), ("normal", ff ** -0.5)),
-            }
-            if cfg.qk_norm:
-                blk["attn.q_norm.scale"] = ((*r, hd), ("zeros",))
-                blk["attn.k_norm.scale"] = ((*r, hd), ("zeros",))
+            blk = _dense_block_shapes(cfg, r, cross=bool(cfg.encoder_layers))
             out.update({f"{pre}.{k}": v for k, v in blk.items()})
     if not cfg.tie_embeddings:
         out["unembed"] = ((d, cfg.vocab), ("normal", d ** -0.5))
+    if cfg.encoder_layers:
+        enc = _dense_block_shapes(cfg, (cfg.encoder_layers,), cross=False)
+        out.update({f"encoder.blocks.{k}": v for k, v in enc.items()})
+        out["encoder.norm.scale"] = ((d,), ("zeros",))
     return out
 
 
-def block_numerics_sites(spec) -> tuple:
+def block_numerics_sites(cfg, spec) -> tuple:
     """Relative resolution paths inside one block: every ``nmatmul`` call
-    site, plus the SSD scan's backend lookup."""
+    site, plus the SSD scan's backend lookup; a decoder block of an
+    encoder-decoder has its cross-attention's four."""
     if spec.kind == "ssm":
         return ("ssm.in_proj", "ssm.out_proj", "ssm.scan")
-    return ("attn.wq", "attn.wk", "attn.wv", "attn.wo",
-            "mlp.wi", "mlp.wg", "mlp.wo")
+    sites = ("attn.wq", "attn.wk", "attn.wv", "attn.wo")
+    if cfg.encoder_layers:
+        sites += ("cross.wq", "cross.wk", "cross.wv", "cross.wo")
+    return sites + ("mlp.wi", "mlp.wg", "mlp.wo")
+
+
+def _enc_spec(cfg):
+    """The encoder's layers: dense, global attention (bidirectional)."""
+    return dataclasses.replace(cfg.segments[0][1][0], kind="dense",
+                               attn="global")
+
+
+def _encoder_paths(cfg) -> list:
+    enc_cfg = dataclasses.replace(cfg, encoder_layers=0)  # no cross there
+    return [f"encoder.blocks.{s}"
+            for s in block_numerics_sites(enc_cfg, _enc_spec(cfg))]
 
 
 def layer_paths(cfg) -> list:
-    """All policy paths of the decoder stack and ``lm_head``, in execution
-    order: what the auto-configurer and the PPA roll-up enumerate."""
+    """All policy paths of the decoder stack, the encoder and ``lm_head``,
+    in the reference's order: what the auto-configurer and the PPA roll-up
+    enumerate.  The encoder's unindexed ``encoder.blocks.*`` paths each
+    stand for ``cfg.encoder_layers`` layers (:func:`layer_path_counts`)."""
     check_supported(cfg)
     paths = []
     idx = 0
@@ -123,18 +174,24 @@ def layer_paths(cfg) -> list:
         for _ in range(repeats):
             for spec in pattern:
                 paths += [f"blocks.{idx}.{s}"
-                          for s in block_numerics_sites(spec)]
+                          for s in block_numerics_sites(cfg, spec)]
                 idx += 1
+    if cfg.encoder_layers:
+        paths += _encoder_paths(cfg)
     paths.append("lm_head")
     return paths
 
 
 def layer_path_counts(cfg) -> dict:
-    """Instance multiplicity of paths that stand for more than one layer.
-    Every path of the port's decoders stands for one (the reference's
-    scanned encoder is not ported yet), so this is empty."""
+    """Instance multiplicity of paths that stand for more than one layer:
+    every encoder layer resolves under the same unindexed
+    ``encoder.blocks.*`` paths, so each of those stands for
+    ``cfg.encoder_layers`` multiplier-array instances; every other path
+    stands for one.  The PPA roll-ups take this as ``counts=``."""
     check_supported(cfg)
-    return {}
+    if not cfg.encoder_layers:
+        return {}
+    return {p: cfg.encoder_layers for p in _encoder_paths(cfg)}
 
 
 def unflatten(flat: dict) -> dict:
@@ -191,12 +248,19 @@ def init_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     ``{"layers": [{pi: cache}]}``; an attention block's cache is
     ``{"k", "v": (repeats, batch, max_len, KH, hd)}`` in ``dtype``, an SSD
     block's ``{"conv": (repeats, batch, W-1, d_inner)}`` in ``dtype`` and
-    ``{"state": (repeats, batch, H, N, P)}`` in fp32."""
+    ``{"state": (repeats, batch, H, N, P)}`` in fp32.  An
+    encoder-decoder's state also holds the encoder's output, ``enc_out``
+    ``(batch, cfg.enc_len, d)`` in ``dtype`` (prefill puts the output of
+    its own length there)."""
     check_supported(cfg)
-    return {"layers": [
+    state = {"layers": [
         {pi: block_cache(cfg, spec, repeats, batch, max_len, dtype, device)
          for pi, spec in enumerate(pattern)}
         for repeats, pattern in cfg.segments]}
+    if cfg.encoder_layers:
+        state["enc_out"] = torch.zeros((batch, cfg.enc_len, cfg.d_model),
+                                       dtype=dtype, device=device)
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -204,7 +268,7 @@ def init_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 # ---------------------------------------------------------------------------
 
 def _block_apply(params, x, cfg, spec, positions, cache=None, q_offset=0,
-                 train=False):
+                 train=False, causal=True, enc=None):
     decoding = cache is not None and x.shape[1] == 1
     h = rmsnorm(params["ln1"], x, cfg.norm_eps, f64=decoding)
     if spec.kind == "ssm":
@@ -215,8 +279,13 @@ def _block_apply(params, x, cfg, spec, positions, cache=None, q_offset=0,
         return x + h, new_cache
     with layer_scope("attn"):
         h, new_cache = attn.gqa_apply(params["attn"], h, cfg, spec, positions,
-                                      cache=cache, q_offset=q_offset)
+                                      cache=cache, q_offset=q_offset,
+                                      causal=causal)
     x = x + h
+    if "cross" in params and enc is not None:
+        h = rmsnorm(params["ln_cross"], x, cfg.norm_eps, f64=decoding)
+        with layer_scope("cross"):
+            x = x + attn.cross_attn_apply(params["cross"], h, enc, cfg)
     h = rmsnorm(params["ln2"], x, cfg.norm_eps, f64=decoding)
     with layer_scope("mlp"):
         h = mlp_apply(params["mlp"], h).to(x.dtype)
@@ -283,18 +352,49 @@ def _positions_for(B: int, S: int, offset, device) -> torch.Tensor:
     return pos.expand(B, S)
 
 
-def backbone(params, cfg, batch, caches=None, q_offset=0, train=False):
-    """Embeds -> decoder stack -> final norm, under ``cfg.numerics``.
+def encoder_apply(params, cfg, batch, train=False):
+    """The whisper-style encoder over ``batch["enc_embeds"]`` (B, Se, d):
+    bidirectional blocks at positions ``0..Se-1`` (RoPE applies, as in the
+    reference), then the encoder's final norm.  Runs under the ambient
+    numerics; every layer resolves under the one unindexed
+    ``encoder.blocks`` path, as the reference's scanned encoder does, so
+    a policy cannot tell the layers apart and the calibration tap sees
+    each site ``cfg.encoder_layers`` times.  ``train=True`` runs each
+    layer under ``cfg.remat``."""
+    x = batch["enc_embeds"].to(torch_dtype(cfg.dtype))
+    B, S = x.shape[:2]
+    positions = _positions_for(B, S, 0, x.device)
+    block = functools.partial(_encoder_block, cfg=cfg, spec=_enc_spec(cfg),
+                              positions=positions)
+    for p in _unstack(params["blocks"], cfg.encoder_layers):
+        with layer_scope("encoder.blocks"):
+            x = (checkpointed(block, p, x, remat=cfg.remat) if train
+                 else block(p, x))
+    return rmsnorm(params["norm"], x, cfg.norm_eps)
+
+
+def _encoder_block(p, x, cfg, spec, positions):
+    return _block_apply(p, x, cfg, spec, positions, causal=False)[0]
+
+
+def backbone(params, cfg, batch, caches=None, q_offset=0, train=False,
+             enc=None):
+    """Embeds -> (encoder) -> decoder stack -> final norm, under
+    ``cfg.numerics``.
 
     Without ``caches`` (prefill) every block returns its fresh cache (k/v,
     or an SSD block's conv tail and final state), stacked over repeats;
     with ``caches`` (decode / chunked prefill) each block updates its cache
     in place.  ``train=True`` keeps no cache and runs every block under
-    ``cfg.remat`` (:func:`checkpointed`).  Returns ``(hidden, caches)``
+    ``cfg.remat`` (:func:`checkpointed`).  An encoder-decoder's blocks
+    cross-attend ``enc``, the encoder's output, computed here from
+    ``batch["enc_embeds"]`` when not given.  Returns ``(hidden, caches)``
     (``caches`` None in train mode)."""
     check_supported(cfg)
     dt = torch_dtype(cfg.dtype)
     with numerics_scope(cfg.numerics):
+        if cfg.encoder_layers and enc is None:
+            enc = encoder_apply(params["encoder"], cfg, batch, train=train)
         tokens = batch["tokens"]
         x = embed_lookup(params["embed"], tokens).to(dt)
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
@@ -320,11 +420,13 @@ def backbone(params, cfg, batch, caches=None, q_offset=0, train=False):
                             x = checkpointed(
                                 functools.partial(_train_block, cfg=cfg,
                                                   spec=spec,
-                                                  positions=positions),
+                                                  positions=positions,
+                                                  enc=enc),
                                 p, x, remat=cfg.remat)
                             continue
                         x, nc = _block_apply(p, x, cfg, spec, positions,
-                                             cache=c, q_offset=q_offset)
+                                             cache=c, q_offset=q_offset,
+                                             enc=enc)
                     collected[pi].append(nc)
             layer += repeats * P
             if train:
@@ -340,8 +442,8 @@ def backbone(params, cfg, batch, caches=None, q_offset=0, train=False):
         return x, (None if train else new_caches)
 
 
-def _train_block(p, x, cfg, spec, positions):
-    return _block_apply(p, x, cfg, spec, positions, train=True)[0]
+def _train_block(p, x, cfg, spec, positions, enc=None):
+    return _block_apply(p, x, cfg, spec, positions, train=True, enc=enc)[0]
 
 
 def logits_fn(params, cfg, hidden):
@@ -392,13 +494,20 @@ def loss_fn(params, cfg, batch, batch_chunks=None) -> torch.Tensor:
 
 
 def prefill(params, cfg, batch, max_len=None):
-    """Process the prompt; returns (last-token logits, serving state)."""
+    """Process the prompt (and an encoder-decoder's ``enc_embeds``);
+    returns (last-token logits, serving state)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     max_len = max_len or S
-    hidden, run = backbone(params, cfg, batch)
+    enc = None
+    if cfg.encoder_layers:
+        with numerics_scope(cfg.numerics):
+            enc = encoder_apply(params["encoder"], cfg, batch)
+    hidden, run = backbone(params, cfg, batch, enc=enc)
     state = init_state(cfg, B, max_len, dtype=torch_dtype(cfg.dtype),
                        device=hidden.device)
+    if enc is not None:
+        state["enc_out"] = enc   # in cfg.dtype, at its own length
     for seg, run_seg, (_, pattern) in zip(state["layers"], run, cfg.segments):
         for pi, cache in seg.items():
             for k, leaf in cache.items():
@@ -415,7 +524,9 @@ def decode_step(params, cfg, batch, state, pos):
     ``pos`` is a scalar for a lockstep batch (``Session.generate``; with
     S > 1 this is a chunked prefill) or a ``(B,)`` tensor when each row
     sits at its own position (the serving engine).  ``state`` is updated
-    in place and returned."""
+    in place and returned.  An encoder-decoder's blocks cross-attend
+    ``state["enc_out"]``."""
     hidden, _ = backbone(params, cfg, {"tokens": batch["token"]},
-                         caches=state["layers"], q_offset=pos)
+                         caches=state["layers"], q_offset=pos,
+                         enc=state.get("enc_out"))
     return logits_fn(params, cfg, hidden), state

@@ -123,6 +123,10 @@ class TransformerRunner(ModelRunner):
                  page_size: Optional[int] = None,
                  pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None, device=None):
+        if cfg.encoder_layers:
+            raise ServingError(
+                f"{cfg.arch_id}: encoder-decoder archs are not servable by "
+                f"the token-only engine (requests carry no encoder inputs)")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ServingError(

@@ -181,6 +181,10 @@ def paged_pool_init(cfg, n_slots: int, n_pages: int, page_size: int,
     ``(repeats, n_pages + 1, page_size, ...)`` (index ``n_pages`` is the
     null page), sequence-free leaves (SSD conv tail and state) stay
     per-slot ``(repeats, n_slots, ...)``."""
+    if cfg.encoder_layers:
+        raise ServingError(
+            f"{cfg.arch_id}: encoder-decoder archs are not servable by the "
+            f"token-only paged pool (requests carry no encoder inputs)")
     if page_size < 1:
         raise ServingError(f"page_size must be >= 1, got {page_size}")
     if n_pages < 1:

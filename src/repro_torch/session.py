@@ -10,11 +10,18 @@
 >>> res = r.auto_configure(1e-2, calib=images)            # proxy sweep
 >>> r.save_policy("policy.json")
 
-``arch`` is ``qwen3-4b`` (dense GQA), ``mamba2-130m`` (SSD blocks, whose
-every prefill runs the SSD scan kernel on the card) or ``zamba2-7b`` (SSD
-blocks and one shared attention block), or a
+``arch`` is a dense decoder (``qwen3-4b``, ``minitron-8b``; ``gemma2-9b``
+and ``gemma3-12b`` with sliding-window layers, gemma2 with softcaps),
+``mamba2-130m`` (SSD blocks, whose every prefill runs the SSD scan kernel
+on the card), ``zamba2-7b`` (SSD blocks and one shared attention block) or
+``whisper-tiny`` (an encoder-decoder), or a
 :class:`~repro_torch.models.resnet.ResNetConfig` (see :meth:`from_resnet`
-and :meth:`from_pretrained`).
+and :meth:`from_pretrained`).  An encoder-decoder has no
+:meth:`generate` and no serving engine (a request carries no encoder
+inputs, as in the reference): drive it through
+``repro_torch.models.transformer.prefill`` / ``decode_step`` with
+``{"tokens", "enc_embeds"}``, ``loss_fn``, :meth:`auto_configure` and
+:meth:`ppa_report`.
 
 ``policy`` accepts a :class:`~repro_torch.core.policy.NumericsPolicy`, a
 :class:`~repro_torch.core.numerics.NumericsConfig`, a preset name
@@ -291,7 +298,7 @@ class Session:
         """A Session over pretrained weights (:mod:`repro_torch.compat`).
 
         ``family`` names a registered checkpoint converter (``qwen3-4b``,
-        ``resnet18``);
+        ``whisper-tiny``, ``resnet18``);
         ``path`` is a safetensors file, a sharded
         ``*.safetensors.index.json`` (or a directory holding either), or a
         torch pickle.  The architecture comes from ``cfg`` when given,
@@ -396,6 +403,11 @@ class Session:
         from repro_torch.models import transformer
 
         cfg = self.config
+        if cfg.encoder_layers:
+            raise SessionError(
+                f"{self.arch_id}: generate() has no encoder inputs to give "
+                f"an encoder-decoder; call transformer.prefill / "
+                f"decode_step with {{'tokens', 'enc_embeds'}}")
         params = self.params
         if prompts is None:
             rng = np.random.default_rng(self.seed)
@@ -477,7 +489,10 @@ class Session:
 
         ``calib`` is the calibration input: an image batch for ResNet
         sessions (required), a token batch dict ``{"tokens": ...}`` for
-        the LM zoo (default: seeded random tokens, 2 x 16).
+        the LM zoo, plus ``"enc_embeds"`` for an encoder-decoder (default:
+        seeded random tokens, 2 x 16, then for an encoder-decoder seeded
+        normal encoder inputs, 2 x min(enc_len, 16) x d, drawn from the
+        same generator as the JAX package draws them).
         ``candidates`` is a ``(name, NumericsConfig)`` list,
         ``"segmented"`` (default: the split-float ladder) or
         ``"emulated"`` (the bit-level Pareto designs).
@@ -522,9 +537,21 @@ class Session:
             if calib is None:
                 rng = np.random.default_rng(self.seed)
                 calib = {"tokens": rng.integers(0, cfg.vocab, (2, 16))}
+                if cfg.encoder_layers:
+                    calib["enc_embeds"] = rng.standard_normal(
+                        (2, min(cfg.enc_len, 16), cfg.d_model)).astype(
+                            np.float32)
             batch = {"tokens": torch.as_tensor(np.asarray(calib["tokens"]),
                                                dtype=torch.int64,
                                                device=self.device)}
+            if cfg.encoder_layers:
+                if "enc_embeds" not in calib:
+                    raise SessionError(
+                        f"{self.arch_id}: the calibration batch needs "
+                        f"'enc_embeds' (B, Se, {cfg.d_model})")
+                batch["enc_embeds"] = torch.as_tensor(
+                    np.asarray(calib["enc_embeds"]), dtype=torch.float32,
+                    device=self.device)
             # the default must match the network's own exact numerics
             # (bf16 for the LM zoo) so the baseline reads as zero error
             default = ref_numerics = default or NumericsConfig(mode="exact")

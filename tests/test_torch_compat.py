@@ -9,6 +9,9 @@
   sharded) exactly as the JAX package's does, and its writer, the mapping
   DSL and the torch-pickle reader agree with the reference's;
 - malformed files raise one-line ``CompatError``s naming the file;
+- loader errors as the reference's (an unregistered family, unmapped and
+  missing keys); whisper-tiny loads (its converter is held in
+  tests/test_torch_whisper.py);
 - the qwen3-4b converter: the committed sharded fixture loads bit for bit
   equal to the JAX loader's trees and ``qwen3-4b_reference.npz``, an export
   reload is bit-exact (the config JSON in the reference's format), and
@@ -148,10 +151,14 @@ def test_malformed_files_raise_one_line_errors(damage, match, tmp_path):
 
 
 def test_loader_errors_match_jax(tmp_path):
-    with pytest.raises(CompatError, match="no checkpoint converter"):
-        Session.from_pretrained("whisper-tiny",
-                                os.path.join(GOLDEN, "whisper-tiny"),
-                                device="cpu")
+    for mod in (compat, jax_compat):
+        with pytest.raises(mod.CompatError, match="no checkpoint converter"):
+            mod.load_pretrained("alexnet", "nowhere")
+    # whisper-tiny is a supported family (tests/test_torch_whisper.py)
+    assert compat.families() == jax_compat.families()
+    assert Session.from_pretrained("whisper-tiny",
+                                   os.path.join(GOLDEN, "whisper-tiny"),
+                                   device="cpu").config.encoder_layers == 2
     foreign, meta = compat.load_checkpoint(RESNET)
     foreign = dict(foreign, **{"bn1.num_batches_tracked":
                                np.zeros((), np.float32)})

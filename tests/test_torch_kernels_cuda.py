@@ -37,10 +37,16 @@ def _need_card():
 @pytest.mark.parametrize("passes", [1, 2, 3])
 def test_afpm_matmul_kernel_matches_plain(passes, rng):
     _need_card()
-    # zamba2-7b's projections at a 4-slot decode and a 150-token prefill
+    # zamba2-7b's projections at a 4-slot decode and a 150-token prefill;
+    # whisper-tiny's encoder and cross K/V over 4 x 1500 frames, and the
+    # wide projections of gemma2-9b, gemma3-12b and minitron-8b at decode
     zamba2 = [((M, K), (K, N)) for K, N in ZAMBA2_PROJ for M in (4, 150)]
+    zoo = [((6000, 384), (384, 384)), ((6000, 1536), (1536, 384)),
+           ((4, 3584), (3584, 14336)), ((4, 15360), (15360, 3840)),
+           ((4, 4096), (4096, 16384))]
     for xs, ws in [((4, 2560), (2560, 1024)), ((32, 9728), (9728, 2560)),
-                   ((3, 5, 2500), (2500, 1000)), ((1, 7), (7, 5))] + zamba2:
+                   ((3, 5, 2500), (2500, 1000)), ((1, 7), (7, 5))] + zamba2 \
+            + zoo:
         x = torch.from_numpy(rng.standard_normal(xs).astype(np.float32)).cuda()
         w = torch.from_numpy(rng.standard_normal(ws).astype(np.float32)).cuda()
         for xx in (x, x.to(torch.bfloat16)):
