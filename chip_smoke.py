@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eighteen phases, each printing a line or a few; any failed check ends the
+Twenty-one phases, each printing a line or a few; any failed check ends the
 run with a nonzero exit and no result line:
 
 1. device: the card, its power limit, torch and the kernels' build time
@@ -17,7 +17,11 @@ run with a nonzero exit and no result line:
    projections of gemma2-9b, gemma3-12b and minitron-8b (M = 4 and 32,
    rows M-invariant) within the same bound, whisper's cross-attention K/V
    (M 6000) and a decode layer of each dense decoder timed beside their
-   bounds; the zamba2-7b projections
+   bounds; the projections of qwen2-vl-72b, llama4-maverick (experts,
+   attention, dense MLP) and deepseek-v3 (MLA, experts, dense MLP) at M =
+   4, 16 and 32 within the bound and M-invariant, a qwen2-vl decode layer
+   (M 4) and a llama4 and a deepseek expert projection (M 16) timed beside
+   their bounds; the zamba2-7b projections
    (in_proj N 14576, out_proj, the shared block's seven) checked at M = 4
    and 32 and timed at 4 and 150, with the kernel time of a zamba2 decode
    step's 227 projections beside its bound; timed at M = 1, 4, 32 and 150
@@ -122,7 +126,31 @@ run with a nonzero exit and no result line:
    40-token prompts), each a solo ``Session.generate`` of 16 tokens under
    standard: 336 and 224 segmented-matmul launches a forward, and the
    kernel route's prefill logits within 2**-6 of the plain route's;
-14. train-grad: one full-width mamba2-130m training step (8 x 128 tokens,
+   gemma3's prompt also through the engine (4 slots, chunks of 256,
+   ``max_len`` 1216: the window masks over the paged cache), its tokens
+   equal to the solo generate's;
+14. qwen2-vl: full-width qwen2-vl-72b (M-RoPE) cut to 8 of its 80 layers
+   (38 GB seeded) served as phase 3 serves qwen3-4b: every request
+   completes, 56 segmented-matmul launches a forward, standard tokens
+   equal a solo generate; then the vision stub through the model API: a
+   prefill of seeded patch embeddings (1, 256, d) at a 16 x 16 image's
+   3-D positions and 8 greedy decode steps, the kernel route's logits
+   within 2**-6 of the plain route's;
+15. llama4: full-width llama4-maverick (experts at d_ff 8192, top-1 plus
+   a shared expert) cut to one (moe, dense) repeat and 64 of 128 experts
+   (42.5 GB) served alike with prefill chunks of 160 (a routing group's
+   capacity depends on its length, so a prompt is routed whole as a solo
+   prefill routes it): 206 launches a forward (192 expert projections),
+   standard == solo, a 150-token prefill's kernel-route logits within
+   2**-6 of the plain route's;
+16. deepseek: full-width deepseek-v3 (MLA, 256 experts, top-8, a shared
+   expert) cut to one dense-MLA and one MoE-MLA layer (55.8 GB) served as
+   phase 15 with its latent caches paged: 782 launches a forward (768
+   expert projections), standard == solo, kernel-route logits within
+   2**-6; a decode step's ms per tier beside the byte bound of its 768
+   expert projections (``chiprun_out/chip_smoke_giants.json`` for the
+   three);
+17. train-grad: one full-width mamba2-130m training step (8 x 128 tokens,
    remat full) through the kernels and through the plain route on the
    same params and batch: with fp32 activations under exact (K3) and
    segmented3 (K1 and K3) every leaf's gradient within 2**-6 of the plain
@@ -131,18 +159,18 @@ run with a nonzero exit and no result line:
    spread when its K1 outputs move by one ulp (the early layers'
    gradients are chaotic there at init); K1 and K3 launches a step (the
    remat recompute runs each forward twice);
-15. train-qwen3: four full-width qwen3-4b steps (8 x 128 tokens) through
+18. train-qwen3: four full-width qwen3-4b steps (8 x 128 tokens) through
    ``repro_torch.launch.train.train`` (AdamW, fp32 moments, remat full, 8
    loss chunks): finite losses, the first near sqrt(d_model) (the
    untrained tied model predicts its input token), parameters changed;
    ms a step, tokens/s, peak memory, and the last step under
    ``torch.profiler``;
-16. train-mamba2: full-width mamba2-130m trained 30 steps (lr 3e-3), the
+19. train-mamba2: full-width mamba2-130m trained 30 steps (lr 3e-3), the
     loss falling, K3 launches counted, the last step profiled; then the
     reduced qwen3-4b trained 20 steps with a checkpoint every 10, and a
     second run restored from the step-10 checkpoint alone ends on the
     same bits;
-17. train-resnet: Table IV's ResNet-18 at full width trained as the
+20. train-resnet: Table IV's ResNet-18 at full width trained as the
     reference trains it (120 steps of 64 ``cifar_like`` images, AdamW;
     two short trainings first, equal bit for bit), then top-1 on the
     reference's 48 evaluation images under exact (at least 0.9), segmented 1/2/3 (K1, 21 launches a forward) and the eight
@@ -151,17 +179,17 @@ run with a nonzero exit and no result line:
     all), and AC5-5's 48-image forward is timed on the plain route too, at
     least 10x slower, its logits within 1e-4 of the kernel route's
     (``chiprun_out/chip_smoke_train.json``);
-18. resnet: the paper's Table IV network.  The committed resnet18
+21. resnet: the paper's Table IV network.  The committed resnet18
    checkpoint loads through ``Session.from_pretrained`` onto the card bit
    for bit equal to ``resnet18_reference.npz``; then the full-width
-   ResNet-18 trained in phase 17 on 256 ``cifar_like`` images: top-1 and
+   ResNet-18 trained in phase 20 on 256 ``cifar_like`` images: top-1 and
    argmax agreement per mode; exact (the native conv with TF32 off) beside
    the same forward with TF32 on and the fp32 im2col route; segmented
    1/2/3 through the segmented matmul kernel, 21 launches a forward,
    every conv within 64 ulps of the plain version on the same operands and
    the logits within 2**-6 of the plain route's; the kernel timed at
    stage 0's conv shape (M 262144, K 576, N 64); the eight designs' rows
-   from phase 17, their emulated-matmul launches a forward (21 for an AFPM
+   from phase 20, their emulated-matmul launches a forward (21 for an AFPM
    design, 0 for a baseline), and AC5-5 at batch 8 through the kernel
    against the plain route conv by conv (64 ulps) and by its logits
    (1e-4); the
@@ -227,6 +255,35 @@ ZOO_LAYERS = {"gemma2-9b": GEMMA2_LAYER, "gemma3-12b": GEMMA3_LAYER,
 # those not among zamba2-7b's (gemma2's MLP shapes are)
 ZOO_PROJ = sorted(set(GEMMA2_LAYER + GEMMA3_LAYER + MINITRON_LAYER)
                   - set(ZAMBA2_PROJ))
+# (K, N) of the last three families' projections.  qwen2-vl-72b: one
+# layer's seven (d 8192, 64 heads of 128 over 8 KV heads, d_ff 29568)
+QWEN2VL_LAYER = [(8192, 8192), (8192, 1024), (8192, 1024), (8192, 8192),
+                 (8192, 29568), (8192, 29568), (29568, 8192)]
+# llama4-maverick (d 5120, 40 heads of 128 over 8): attention, an expert's
+# (and the shared expert's) wi / wg / wo, the dense layers' MLP
+LLAMA4_ATTN = [(5120, 5120), (5120, 1024), (5120, 1024), (5120, 5120)]
+LLAMA4_EXPERT = [(5120, 8192), (5120, 8192), (8192, 5120)]
+LLAMA4_DENSE = [(5120, 16384), (5120, 16384), (16384, 5120)]
+# deepseek-v3 (d 7168, 128 heads): MLA's wq_a, wq_b (q rank 1536 -> 128 x
+# 192), wkv_a (kv rank 512 + rope 64) and wo; an expert's; the dense MLP
+DSV3_MLA = [(7168, 1536), (1536, 24576), (7168, 576), (16384, 7168)]
+DSV3_EXPERT = [(7168, 2048), (7168, 2048), (2048, 7168)]
+DSV3_DENSE = [(7168, 18432), (7168, 18432), (18432, 7168)]
+GIANT_PROJ = sorted(set(QWEN2VL_LAYER + LLAMA4_ATTN + LLAMA4_EXPERT
+                        + LLAMA4_DENSE + DSV3_MLA + DSV3_EXPERT + DSV3_DENSE))
+# the depths and expert counts the card runs: qwen2-vl 8 of 80 layers;
+# llama4 one (moe, dense) repeat of 24 with 64 of 128 experts; deepseek one
+# dense and one MoE layer of 3 + 58, every one of the 256 experts
+QWEN2VL_LAYERS, LLAMA4_EXPERTS = 8, 64
+# K1 calls a segmented forward: 7 a qwen2-vl layer; llama4's MoE layer 4 +
+# 3 x 64 + 3 (shared), its dense layer 7; deepseek's dense-MLA layer 4 + 3,
+# its MoE-MLA layer 4 + 3 x 256 + 3
+QWEN2VL_STEP = QWEN2VL_LAYER * QWEN2VL_LAYERS
+LLAMA4_STEP = (LLAMA4_ATTN + LLAMA4_EXPERT * LLAMA4_EXPERTS + LLAMA4_EXPERT
+               + LLAMA4_ATTN + LLAMA4_DENSE)
+DSV3_STEP = DSV3_MLA + DSV3_DENSE + DSV3_MLA + DSV3_EXPERT * 256 + DSV3_EXPERT
+# M of an expert's K1 call in a 4-slot decode step: 4 rows x capacity 4
+EXPERT_M = 16
 # every M the serve phases give the segmented matmul (decode 1 and 4,
 # prefill tails 8 / 13 / 22, chunks of 32, whole prompts 40 / 77 / 150) and
 # 300, which takes the kernel's whole mode at (2560, 4096)
@@ -244,7 +301,7 @@ LOGIT_BOUND = 2.0 ** -6
 # every matmul operand is rounded to bf16
 FP32_LOGIT_BOUND = {"segmented3": 2.0 ** -10, "exact": 2.0 ** -6}
 SERVE_LENGTHS = (40, 77, 150)
-# phase 18: the ResNet forwards' batch, and the emulated designs' (the
+# phase 21: the ResNet forwards' batch, and the emulated designs' (the
 # bit-level datapath is O(M * N * K) elementwise work)
 RESNET_BATCH = 256
 EMULATED_BATCH = 8
@@ -486,6 +543,10 @@ def phase_kernel(peaks):
     cases += [((M, K), (K, N)) for K, N in ZOO_PROJ for M in (4, 32)]
     cases += [((M, K), (K, N)) for K, N in WHISPER_PROJ
               for M in (4, 32, WHISPER_M)]
+    # the last three families' at a decode step, an expert's rows in a
+    # 4-slot decode step and 32 rows
+    cases += [((M, K), (K, N)) for K, N in GIANT_PROJ
+              for M in (4, EXPERT_M, 32)]
     cases.append(((3, 5, 2500), (2500, 1000)))   # ragged, batched
     for xs, ws in cases:
         x = torch.randn(xs, generator=gen, device="cuda")
@@ -517,9 +578,10 @@ def phase_kernel(peaks):
                             f"{torch.nonzero(~same).flatten()[:8].tolist()} "
                             f"differ from the same rows at M = 1")
                     n_rows += M
-    # the new shapes of this slice: rows at M = 4 and 32 (and whisper's
-    # 6000, its first 32 rows) equal the same rows at M = 1
-    for K, N in ZOO_PROJ + WHISPER_PROJ:
+    # the dense decoders', whisper's and the last three families' shapes:
+    # rows at M = 4, 16 and 32 (and whisper's 6000, its first 32 rows)
+    # equal the same rows at M = 1
+    for K, N in ZOO_PROJ + WHISPER_PROJ + GIANT_PROJ:
         w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
         big = WHISPER_M if (K, N) in WHISPER_PROJ else 32
         x32 = torch.randn((big, K), generator=gen, device="cuda")
@@ -527,7 +589,7 @@ def phase_kernel(peaks):
             for passes in (1, 2, 3):
                 alone = torch.cat([k1.afpm_matmul(x[i:i + 1], w, passes)
                                    for i in range(32)])
-                for M in sorted({4, 32, big}):
+                for M in sorted({4, EXPERT_M, 32, big}):
                     got = k1.afpm_matmul(x[:M], w, passes)[:32]
                     same = (got.view(torch.int32)
                             == alone[:min(M, 32)].view(torch.int32)).all(1)
@@ -539,7 +601,6 @@ def phase_kernel(peaks):
                             f"differ from the same rows at M = 1")
                     n_rows += min(M, 32)
         del w, x32
-
     # timing: bf16 activations (the full-width models' dtype) at decode
     # M = 1 (solo) and 4 (engine), a 32-row prefill chunk and a 150-token
     # prompt, for the qwen3-4b and mamba2-130m projections; M = 2048 once.
@@ -562,6 +623,11 @@ def phase_kernel(peaks):
     # the three dense decoders' projections at a 4-slot decode step
     timed += [(WD, WD, WHISPER_M, passes) for passes in (1, 3)]
     timed += [(K, N, 4, 3) for K, N in ZOO_PROJ]
+    # a qwen2-vl-72b decode layer (4 slots), and one llama4 and one
+    # deepseek-v3 expert projection at a 4-slot decode step's M
+    timed += [(K, N, 4, 3) for K, N in sorted(set(QWEN2VL_LAYER))]
+    timed += [(K, N, EXPERT_M, 3) for K, N in (LLAMA4_EXPERT[0],
+                                               DSV3_EXPERT[0])]
     weights = {}
     for K, N, M, passes in timed:
         if (K, N) not in weights:
@@ -632,6 +698,17 @@ def phase_kernel(peaks):
         zoo["bound_by"] = ("bytes" if zoo["bytes_ms"] >= zoo["ops_ms"]
                            else "operations")
         layer[f"{arch}_layer"] = zoo
+    qv = {k: sum(row_of(kn)[k] for kn in QWEN2VL_LAYER)
+          for k in ("kernel_ms", "plain_ms", "library_ms", "bytes_ms",
+                    "ops_ms")}
+    qv["bound_ms"] = max(qv["bytes_ms"], qv["ops_ms"])
+    qv["bound_by"] = "bytes" if qv["bytes_ms"] >= qv["ops_ms"] else "operations"
+    layer["qwen2-vl-72b_layer"] = qv
+    for name, kn in (("llama4_expert", LLAMA4_EXPERT[0]),
+                     ("deepseek_expert", DSV3_EXPERT[0])):
+        layer[name] = {k: row_of(kn, EXPERT_M)[k] for k in (
+            "M", "K", "N", "kernel_ms", "plain_ms", "library_ms", "bytes_ms",
+            "ops_ms", "bound_ms", "bound_by")}
     layer["whisper_cross_kv"] = {
         f"passes{passes}": {k: row_of((WD, WD), WHISPER_M, passes)[k]
                             for k in ("kernel_ms", "plain_ms", "library_ms",
@@ -677,6 +754,17 @@ def phase_kernel(peaks):
               f"torch.matmul x3 {layer[arch + '_layer']['library_ms']:.4f} ms,"
               f" bound {layer[arch + '_layer']['bound_ms']:.4f} ms "
               f"({layer[arch + '_layer']['bound_by']})" for arch in ZOO_LAYERS))
+    print("[kernel] the last three families (passes=3): qwen2-vl-72b decode "
+          "layer (M=4): " + (
+              f"kernel {qv['kernel_ms']:.4f} ms, plain {qv['plain_ms']:.4f} ms, "
+              f"torch.matmul x3 {qv['library_ms']:.4f} ms, bound "
+              f"{qv['bound_ms']:.4f} ms ({qv['bound_by']})") + "; " + "; ".join(
+              f"{n} (M={v['M']}, K {v['K']}, N {v['N']}): kernel "
+              f"{v['kernel_ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, "
+              f"torch.matmul x3 {v['library_ms']:.4f} ms, bound "
+              f"{v['bound_ms']:.4f} ms ({v['bound_by']})"
+              for n, v in ((n, layer[n]) for n in ("llama4_expert",
+                                                   "deepseek_expert"))))
     for r in rows:
         print(f"[kernel]   M {r['M']:4d} K {r['K']:4d} N {r['N']:4d} passes "
               f"{r['passes']}: kernel {r['kernel_ms']:.4f} (call "
@@ -2031,6 +2119,7 @@ def phase_dense_zoo():
     from repro_torch.configs import get_arch
     from repro_torch.kernels import afpm_matmul as k1
     from repro_torch.models import transformer
+    from repro_torch.serving import TierSpec
     from repro_torch.session import Session
 
     out, parts = {}, []
@@ -2060,48 +2149,399 @@ def phase_dense_zoo():
             raise AssertionError(f"{arch}: afpm_matmul launched {launches} "
                                  f"times in a generate of 16 tokens, "
                                  f"expected {per_forward} x 16")
-        tokens = torch.as_tensor(prompts, device="cuda")
-        logits, ms = {}, {}
-        with torch.inference_mode():
-            for backend in ("auto", "torch"):
-                s = sess.replace(backend=backend)
-                b1 = k1.afpm_matmul.launches
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                logits[backend], _ = transformer.prefill(
-                    s.params, s.config, {"tokens": tokens})
-                torch.cuda.synchronize()
-                ms[backend] = 1e3 * (time.perf_counter() - t0)
-                ran = k1.afpm_matmul.launches - b1
-                if ran != (per_forward if backend == "auto" else 0):
-                    raise AssertionError(f"{arch} {backend}: afpm_matmul ran "
-                                         f"{ran} times in a prefill")
-        lg = logits["auto"]
-        if lg.shape != (batch, 1, cfg.vocab) or not torch.isfinite(lg).all():
-            raise AssertionError(f"{arch}: bad prefill logits "
-                                 f"{tuple(lg.shape)}")
-        err = rel_err(lg, logits["torch"])
-        if err > LOGIT_BOUND:
-            raise AssertionError(f"{arch}: kernel-route prefill logits "
-                                 f"{err:.3g} of the largest from the plain "
-                                 f"route's > {LOGIT_BOUND:.3g}")
-        del sess, s, logits, lg
+        engine = {}
+        if arch == "gemma3-12b":
+            # the engine under a window that masks: the 1200-token prompt
+            # prefilled in chunks of 256 over the paged cache (40 of 48
+            # layers attend only their last 1024 positions), then 15
+            # decode steps over the 4-slot pool; the tokens equal the solo
+            # generate's above
+            eng = sess.serving_engine((TierSpec("standard", "segmented3"),),
+                                      slots=4, max_len=plen + 16,
+                                      prefill_chunk=256)
+            req = eng.submit(prompts[0], tier="standard", max_new_tokens=16)
+            b1 = k1.afpm_matmul.launches
+            t0 = time.perf_counter()
+            st = eng.run()["standard"]
+            engine = dict(serve_s=time.perf_counter() - t0,
+                          k1=k1.afpm_matmul.launches - b1,
+                          prefill_chunks=st.n_prefill_chunks,
+                          decode_steps=st.n_decode_steps,
+                          decode_ms_step=1e3 * st.decode_s / st.n_decode_steps)
+            if not req.done or not np.array_equal(req.result(), res.tokens[0]):
+                raise AssertionError(
+                    f"{arch} engine under the masking window: "
+                    f"{req.result().tolist()} != solo generate "
+                    f"{res.tokens[0].tolist()}")
+            if engine["k1"] != per_forward * (st.n_prefill_chunks
+                                              + st.n_decode_steps):
+                raise AssertionError(f"{arch} engine: afpm_matmul launched "
+                                     f"{engine['k1']} times")
+            del eng
+            torch.cuda.empty_cache()
+        err, k_ms, p_ms = prompt_logits(
+            sess, arch, torch.as_tensor(prompts, device="cuda"), per_forward)
+        del sess
         torch.cuda.empty_cache()
         out[arch] = dict(params=n_params, params_gb=params_gb,
                          generate_s=res.seconds, tok_s=res.tokens_per_s,
                          peak_gb=peak_gb, k1=launches,
-                         prefill_ms=ms["auto"], plain_prefill_ms=ms["torch"],
-                         logits_rel_err=err, local_layers_masking=local)
+                         prefill_ms=k_ms, plain_prefill_ms=p_ms,
+                         logits_rel_err=err, local_layers_masking=local,
+                         engine=engine)
+        if engine:
+            parts.append(
+                f"{arch} through the engine (4 slots, chunks of 256, "
+                f"max_len {plen + 16}): {engine['prefill_chunks']} chunks + "
+                f"{engine['decode_steps']} decode steps in "
+                f"{engine['serve_s']:.2f} s ({engine['decode_ms_step']:.1f} "
+                f"ms/step), afpm_matmul {engine['k1']}, tokens == solo "
+                f"generate under the masking window")
         parts.append(
             f"{arch} ({n_params / 1e9:.3f} B params, {params_gb:.2f} GB) "
             f"batch {batch} x {plen}-token prompts: generate of 16 tokens "
             f"{res.seconds:.2f} s ({res.tokens_per_s:.1f} tok/s), peak "
             f"{peak_gb:.2f} GB, afpm_matmul {launches} = {per_forward} x 16 "
-            f"forwards; prefill {ms['auto']:.1f} ms (plain route "
-            f"{ms['torch']:.1f} ms), kernel vs plain logits {err:.3g} of the "
+            f"forwards; prefill {k_ms:.1f} ms (plain route "
+            f"{p_ms:.1f} ms), kernel vs plain logits {err:.3g} of the "
             f"largest (bound {LOGIT_BOUND:.3g}); {local} local layers mask")
     print(f"[dense-zoo] standard tier, full width: {'; '.join(parts)}")
     out["k1"] = sum(v["k1"] for v in out.values())
+    out["engine_k1"] = out["gemma3-12b"]["engine"]["k1"]
+    return out
+
+
+def giant_shapes_of(cfg):
+    """(K, N) of every K1 call of one segmented forward, in call order,
+    from the model's own parameter shapes (an MoE layer's experts each
+    once a projection)."""
+    from repro_torch.models import transformer
+
+    shapes = transformer.param_shapes(cfg)
+    out = []
+    for si, (repeats, pattern) in enumerate(cfg.segments):
+        for _ in range(repeats):
+            for pi, spec in enumerate(pattern):
+                pre = f"seg{si}_p{pi}"
+                sites = (("wq_a", "wq_b", "wkv_a", "wo") if spec.attn == "mla"
+                         else ("wq", "wk", "wv", "wo"))
+                out += [tuple(shapes[f"{pre}.attn.{n}"][0][-2:]) for n in sites]
+                if spec.kind == "moe":
+                    for _ in range(cfg.moe.n_experts):
+                        out += [tuple(shapes[f"{pre}.mlp.{n}"][0][-2:])
+                                for n in ("wi", "wg", "wo")]
+                    pre += ".mlp.shared"
+                else:
+                    pre += ".mlp"
+                out += [tuple(shapes[f"{pre}.{n}"][0][-2:])
+                        for n in ("wi", "wg", "wo")]
+    return out
+
+
+def serve_cut(tag: str, cfg, per_forward: int, prefill_chunk=None):
+    """``cfg`` (full width, cut depth) seeded on the card and served by the
+    engine as [serve] serves qwen3-4b: 4 slots, ``max_len`` 256, six
+    requests of 40 / 77 / 150 tokens and 16 new tokens under the three
+    tiers.  Every request completes, K1 runs ``per_forward`` times a
+    segmented forward, and the standard tier's tokens equal a solo
+    ``Session.generate``'s bit for bit.  Returns (session, numbers)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.models import transformer
+    from repro_torch.serving import DEFAULT_TIERS
+    from repro_torch.session import Session
+
+    if len(giant_shapes_of(cfg)) != per_forward:
+        raise AssertionError(f"{tag}: {len(giant_shapes_of(cfg))} K1 calls a "
+                             f"forward by the parameter shapes, expected "
+                             f"{per_forward}")
+    n_params = sum(int(np.prod(shape)) for shape, _ in
+                   transformer.param_shapes(cfg).values())
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sess = Session(cfg, seed=0)
+    sess.params  # seeded random init on the card
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params_gb = torch.cuda.memory_allocated() / 1e9 - held_gb
+    eng = sess.serving_engine(slots=4, max_len=256,
+                              prefill_chunk=prefill_chunk)
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i in range(6):
+        tier = DEFAULT_TIERS[i % 3].name
+        plen = SERVE_LENGTHS[(i + i // 3) % 3]
+        reqs.append(eng.submit(rng.integers(0, cfg.vocab, plen), tier=tier,
+                               max_new_tokens=16))
+    k1.afpm_matmul.launches = 0
+    t0 = time.perf_counter()
+    stats = eng.run()
+    serve_s = time.perf_counter() - t0
+    launches = k1.afpm_matmul.launches
+    serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
+    bad = [r.id for r in reqs if not r.done or len(r.result()) != 16]
+    if bad:
+        raise AssertionError(f"{tag}: requests did not finish with 16 "
+                             f"tokens: {bad}")
+    segmented = [t.name for t in DEFAULT_TIERS if t.policy != "exact"]
+    forwards = sum(stats[n].n_prefill_chunks + stats[n].n_decode_steps
+                   for n in segmented)
+    if launches != per_forward * forwards:
+        raise AssertionError(f"{tag}: afpm_matmul launched {launches} times, "
+                             f"expected {per_forward} x {forwards} segmented "
+                             f"forwards")
+    del eng
+    torch.cuda.empty_cache()
+    solo_sess = sess.replace(policy="segmented3")
+    for r in (r for r in reqs if r.tier == "standard"):
+        solo = solo_sess.generate(prompts=r.prompt[None], gen_len=16)
+        if not np.array_equal(solo.tokens[0], r.result()):
+            raise AssertionError(
+                f"{tag} standard request {r.id}: engine "
+                f"{r.result().tolist()} != solo generate "
+                f"{solo.tokens[0].tolist()}")
+    tiers = {}
+    for t in DEFAULT_TIERS:
+        st = stats[t.name]
+        tiers[t.name] = dict(
+            policy=t.policy,
+            decode_tok_s=(st.n_tokens - st.n_finished) / st.decode_s,
+            decode_ms_step=1e3 * st.decode_s / st.n_decode_steps,
+            decode_steps=st.n_decode_steps,
+            prefill_ms_chunk=1e3 * st.prefill_s / st.n_prefill_chunks,
+            prefill_chunks=st.n_prefill_chunks)
+    return sess, dict(k1=launches, forwards=forwards, params=n_params,
+                      params_gb=params_gb, init_s=init_s, serve_s=serve_s,
+                      serve_peak_gb=serve_peak_gb, tiers=tiers,
+                      per_forward=per_forward)
+
+
+def tier_text(tiers: dict) -> str:
+    return "; ".join(
+        f"{name}({v['policy']}) decode {v['decode_ms_step']:.2f} ms/step "
+        f"({v['decode_tok_s']:.1f} tok/s), prefill {v['prefill_ms_chunk']:.2f}"
+        f" ms/chunk" for name, v in tiers.items())
+
+
+def prompt_logits(sess, tag: str, tokens, per_forward: int):
+    """One full-prompt prefill through the kernels and through the plain
+    route (the standard tier): K1 launches per_forward times and never,
+    and the kernel route's logits within LOGIT_BOUND of the plain
+    route's largest.  Returns (relative error, kernel ms, plain ms)."""
+    import torch
+
+    from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.models import transformer
+
+    logits, ms = {}, {}
+    with torch.inference_mode():
+        for backend in ("auto", "torch"):
+            s = sess.replace(policy="segmented3", backend=backend)
+            b1 = k1.afpm_matmul.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits[backend], _ = transformer.prefill(s.params, s.config,
+                                                     {"tokens": tokens})
+            torch.cuda.synchronize()
+            ms[backend] = 1e3 * (time.perf_counter() - t0)
+            ran = k1.afpm_matmul.launches - b1
+            if ran != (per_forward if backend == "auto" else 0):
+                raise AssertionError(f"{tag} {backend}: afpm_matmul ran {ran} "
+                                     f"times in a prefill")
+    lg = logits["auto"]
+    if lg.shape != (tokens.shape[0], 1, sess.config.vocab) \
+            or not torch.isfinite(lg).all():
+        raise AssertionError(f"{tag}: bad prefill logits {tuple(lg.shape)}")
+    err = rel_err(lg, logits["torch"])
+    if err > LOGIT_BOUND:
+        raise AssertionError(f"{tag}: kernel-route prefill logits {err:.3g} of "
+                             f"the largest from the plain route's > "
+                             f"{LOGIT_BOUND:.3g}")
+    return err, ms["auto"], ms["torch"]
+
+
+def phase_qwen2_vl():
+    """Full-width qwen2-vl-72b cut to 8 layers, served as [serve] serves
+    qwen3-4b; then the model API on its vision-stub input: a prefill of
+    seeded patch embeddings (1, 256, d) at an image's 3-D positions and 8
+    greedy decode steps, the kernel route against the plain route."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.models import transformer
+
+    full = get_arch("qwen2-vl-72b")
+    assert (full.n_layers, full.d_model, full.vocab, full.mrope_sections) \
+        == (80, 8192, 152064, (16, 24, 24))
+    cfg = dataclasses.replace(full, segments=((QWEN2VL_LAYERS,
+                                               full.segments[0][1]),))
+    assert giant_shapes_of(cfg) == QWEN2VL_STEP
+    sess, out = serve_cut("qwen2-vl", cfg, len(QWEN2VL_STEP))
+
+    # the model API on the vision stub: patch embeddings of a 16 x 16
+    # image at t = 0, h = i // 16, w = i % 16; decode steps then take the
+    # absolute position in all three streams
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    S, n = 256, 8
+    embeds = torch.randn((1, S, cfg.d_model), generator=gen, device="cuda")
+    i = torch.arange(S, device="cuda")
+    positions = torch.stack([torch.zeros_like(i), i // 16, i % 16], -1)[None]
+    steps, toks, ms, errs = {}, None, {}, []
+    with torch.inference_mode():
+        for backend in ("auto", "torch"):
+            s = sess.replace(policy="segmented3", backend=backend)
+            b1 = k1.afpm_matmul.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, state = transformer.prefill(
+                s.params, s.config, {"embeds": embeds, "positions": positions},
+                max_len=S + n)
+            torch.cuda.synchronize()
+            ms[backend] = 1e3 * (time.perf_counter() - t0)
+            # both routes take the kernel route's greedy tokens
+            seq, fed = [lg], []
+            for j in range(n):
+                tok = lg[:, -1:].argmax(-1) if toks is None else toks[j]
+                fed.append(tok)
+                lg, state = transformer.decode_step(s.params, s.config,
+                                                    {"token": tok}, state,
+                                                    S + j)
+                seq.append(lg)
+            toks, steps[backend] = fed, seq
+            ran = k1.afpm_matmul.launches - b1
+            want = (n + 1) * len(QWEN2VL_STEP) if backend == "auto" else 0
+            if ran != want:
+                raise AssertionError(f"qwen2-vl {backend}: afpm_matmul ran "
+                                     f"{ran} times in a prefill and {n} steps,"
+                                     f" expected {want}")
+            del state
+    for j, (a, b) in enumerate(zip(steps["auto"], steps["torch"])):
+        if a.shape != (1, 1, cfg.vocab) or not torch.isfinite(a).all():
+            raise AssertionError(f"qwen2-vl step {j}: bad logits "
+                                 f"{tuple(a.shape)}")
+        errs.append(rel_err(a, b))
+    if max(errs) > LOGIT_BOUND:
+        raise AssertionError(f"qwen2-vl: kernel-route logits {max(errs):.3g} "
+                             f"of the largest from the plain route's > "
+                             f"{LOGIT_BOUND:.3g} (prefill, then per step: "
+                             f"{[f'{e:.2g}' for e in errs]})")
+    del sess, s, steps, embeds
+    torch.cuda.empty_cache()
+    out.update(vision_prefill_ms=ms["auto"], vision_plain_prefill_ms=ms["torch"],
+               vision_logits_rel_err=max(errs))
+    print(f"[qwen2-vl] qwen2-vl-72b full width, {QWEN2VL_LAYERS} of "
+          f"{full.n_layers} layers ({out['params'] / 1e9:.3f} B params, "
+          f"{out['params_gb']:.2f} GB on the card, init {out['init_s']:.1f} s):"
+          f" 6 requests x 16 tokens in {out['serve_s']:.2f} s; "
+          f"{tier_text(out['tiers'])}; engine peak {out['serve_peak_gb']:.2f} "
+          f"GB; afpm_matmul launches {out['k1']} = {out['per_forward']} x "
+          f"{out['forwards']} segmented forwards; standard tokens == solo "
+          f"generate; vision stub (1 x {S} patch embeddings at 3-D positions)"
+          f" prefill {ms['auto']:.1f} ms (plain route {ms['torch']:.1f} ms) "
+          f"and {n} decode steps: kernel vs plain logits {max(errs):.3g} of "
+          f"the largest (bound {LOGIT_BOUND:.3g})")
+    return out
+
+
+def phase_llama4():
+    """Full-width llama4-maverick (an expert at full width) cut to one
+    (moe, dense) repeat and 64 of its 128 experts, served as [serve]
+    serves qwen3-4b with whole-prompt chunks (capacity depends on a
+    routing group's length); a full-prompt prefill's kernel route against
+    its plain route."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    full = get_arch("llama4-maverick-400b-a17b")
+    assert (full.n_layers, full.d_model, full.d_ff, full.dense_ff,
+            full.vocab, full.moe.n_experts, full.moe.top_k,
+            full.moe.n_shared) == (48, 5120, 8192, 16384, 202048, 128, 1, 1)
+    cfg = dataclasses.replace(
+        full, segments=((1, full.segments[0][1]),),
+        moe=dataclasses.replace(full.moe, n_experts=LLAMA4_EXPERTS))
+    assert giant_shapes_of(cfg) == LLAMA4_STEP
+    sess, out = serve_cut("llama4", cfg, len(LLAMA4_STEP),
+                          prefill_chunk=max(SERVE_LENGTHS) + 10)
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab,
+                                               (1, max(SERVE_LENGTHS)))
+    err, k_ms, p_ms = prompt_logits(sess, "llama4", torch.as_tensor(
+        prompt, device="cuda"), len(LLAMA4_STEP))
+    del sess
+    torch.cuda.empty_cache()
+    out.update(logits_rel_err=err, prefill_ms=k_ms, plain_prefill_ms=p_ms)
+    print(f"[llama4] llama4-maverick-400b-a17b full width, 1 of 24 (moe, "
+          f"dense) repeats, {LLAMA4_EXPERTS} of 128 experts "
+          f"({out['params'] / 1e9:.3f} B params, {out['params_gb']:.2f} GB on "
+          f"the card, init {out['init_s']:.1f} s): 6 requests x 16 tokens in "
+          f"{out['serve_s']:.2f} s, prefill chunks of "
+          f"{max(SERVE_LENGTHS) + 10}; {tier_text(out['tiers'])}; engine peak "
+          f"{out['serve_peak_gb']:.2f} GB; afpm_matmul launches {out['k1']} = "
+          f"{out['per_forward']} x {out['forwards']} segmented forwards; "
+          f"standard tokens == solo generate; a {max(SERVE_LENGTHS)}-token "
+          f"prefill {k_ms:.1f} ms (plain route {p_ms:.1f} ms), kernel vs "
+          f"plain logits {err:.3g} of the largest (bound {LOGIT_BOUND:.3g})")
+    return out
+
+
+def phase_deepseek(peaks):
+    """Full-width deepseek-v3 (MLA, all 256 experts) cut to one dense-MLA
+    and one MoE-MLA layer, served as [llama4] is, its latent caches
+    paged; a decode step's ms per tier beside the byte bound of its 768
+    expert projections; a full-prompt prefill's kernel route against its
+    plain route."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    full = get_arch("deepseek-v3-671b")
+    assert (full.n_layers, full.d_model, full.n_heads, full.d_ff,
+            full.dense_ff, full.vocab, full.moe.n_experts, full.moe.top_k,
+            full.mla.kv_lora_rank, full.mla.q_lora_rank) \
+        == (61, 7168, 128, 2048, 18432, 129280, 256, 8, 512, 1536)
+    cfg = dataclasses.replace(full, segments=tuple(
+        (1, pattern) for _, pattern in full.segments))
+    assert giant_shapes_of(cfg) == DSV3_STEP
+    sess, out = serve_cut("deepseek", cfg, len(DSV3_STEP),
+                          prefill_chunk=max(SERVE_LENGTHS) + 10)
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab,
+                                               (1, max(SERVE_LENGTHS)))
+    err, k_ms, p_ms = prompt_logits(sess, "deepseek", torch.as_tensor(
+        prompt, device="cuda"), len(DSV3_STEP))
+    del sess
+    torch.cuda.empty_cache()
+    K, N = DSV3_EXPERT[0]
+    experts_gb = 3 * 256 * K * N * 4 / 1e9
+    bound_ms = sum(K_ * N_ * 4 + EXPERT_M * K_ * 2 + EXPERT_M * N_ * 4
+                   for K_, N_ in DSV3_EXPERT * 256) / peaks[0] * 1e3
+    out.update(logits_rel_err=err, prefill_ms=k_ms, plain_prefill_ms=p_ms,
+               experts_bound_ms=bound_ms, experts_gb=experts_gb)
+    print(f"[deepseek] deepseek-v3-671b full width, 1 dense-MLA + 1 MoE-MLA "
+          f"of 3 + 58 layers, all 256 experts ({out['params'] / 1e9:.3f} B "
+          f"params, {out['params_gb']:.2f} GB on the card, init "
+          f"{out['init_s']:.1f} s): 6 requests x 16 tokens in "
+          f"{out['serve_s']:.2f} s, prefill chunks of "
+          f"{max(SERVE_LENGTHS) + 10}, the latent ckv / kpe caches paged; "
+          f"{tier_text(out['tiers'])}; a decode step's 768 expert projections "
+          f"read {experts_gb:.2f} GB: byte bound {bound_ms:.2f} ms; engine "
+          f"peak {out['serve_peak_gb']:.2f} GB; afpm_matmul launches "
+          f"{out['k1']} = {out['per_forward']} x {out['forwards']} segmented "
+          f"forwards; standard tokens == solo generate; a "
+          f"{max(SERVE_LENGTHS)}-token prefill {k_ms:.1f} ms (plain route "
+          f"{p_ms:.1f} ms), kernel vs plain logits {err:.3g} of the largest "
+          f"(bound {LOGIT_BOUND:.3g})")
     return out
 
 
@@ -2967,6 +3407,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     dz = phase_dense_zoo()
     torch.cuda.empty_cache()
+    qv = phase_qwen2_vl()
+    torch.cuda.empty_cache()
+    l4 = phase_llama4()
+    torch.cuda.empty_cache()
+    ds = phase_deepseek(peaks)
+    torch.cuda.empty_cache()
+    (ROOT / "chiprun_out" / "chip_smoke_giants.json").write_text(json.dumps(
+        {"card": smi("name,power.limit"), "qwen2-vl-72b": qv,
+         "llama4-maverick-400b-a17b": l4, "deepseek-v3-671b": ds,
+         "gemma3_engine": dz["gemma3-12b"]["engine"]}, indent=1))
     tg = phase_train_grad()
     tq = phase_train_qwen3()
     tm = phase_train_mamba2()
@@ -2994,6 +3444,12 @@ def main() -> int:
         "zamba2_launches": z["k1"], "zamba2_step": k["zamba2_step"],
         "whisper_launches": w["k1"], "gemma2_launches": g2["k1"],
         "dense_zoo_launches": dz["k1"],
+        "gemma3_engine_launches": dz["engine_k1"],
+        "qwen2_vl_launches": qv["k1"], "llama4_launches": l4["k1"],
+        "deepseek_launches": ds["k1"],
+        "qwen2_vl_layer": k["qwen2-vl-72b_layer"],
+        "llama4_expert": k["llama4_expert"],
+        "deepseek_expert": k["deepseek_expert"],
         "whisper_cross_kv": k["whisper_cross_kv"],
         "gemma2_layer": k["gemma2-9b_layer"],
         "gemma3_layer": k["gemma3-12b_layer"],

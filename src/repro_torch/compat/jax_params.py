@@ -9,7 +9,11 @@ dt_bias, norm, out_proj}`` (mamba2-130m); a shared block entry (zamba2-7b's
 ``seg0_p5``) has no repeats axis; an encoder-decoder's decoder blocks add
 ``cross.{wq, wk, wv, wo}`` and ``ln_cross.scale``, and its encoder is
 ``encoder.blocks.*`` stacked over the encoder's layers plus
-``encoder.norm.scale`` (whisper-tiny).  The port uses the same layout
+``encoder.norm.scale`` (whisper-tiny); a MoE block's MLP is
+``mlp.router`` (d, E), the expert stacks ``mlp.{wi, wg, wo}``
+``(repeats, E, ...)`` and ``mlp.shared.{wi, wg, wo}`` (llama4,
+deepseek-v3), and an MLA block's attention ``attn.{wq_a, q_a_norm, wq_b,
+wkv_a, kv_a_norm, wk_b, wv_b, wo}`` (deepseek-v3).  The port uses the same layout
 (:func:`repro_torch.models.transformer.param_shapes`), so carrying weights
 across is a check of names and shapes plus a copy.  The ResNet's
 ``(params, state)`` trees carry across the same way

@@ -101,10 +101,13 @@ class ArchConfig:
         return self.dense_d_ff or self.d_ff
 
     def param_count(self) -> int:
-        """Parameter count: embeddings plus blocks (dense GQA and SSD
-        blocks, the encoder and cross-attention; the families the port
-        serves)."""
-        d, hd = self.d_model, self.resolved_head_dim
+        """Approximate parameter count (embeddings plus blocks; norms are
+        not counted), the reference's formula term for term.  As there, a
+        dense block's MLP counts ``d_ff`` wide, not ``dense_ff``: for
+        llama4 and deepseek-v3, whose dense layers are wider than their
+        experts, this undercounts them (``transformer.param_shapes`` has
+        the true shapes)."""
+        d, hd, ff = self.d_model, self.resolved_head_dim, self.d_ff
         total = self.vocab * d * (1 if self.tie_embeddings else 2)
         for repeats, pattern in self.segments:
             seg = 0
@@ -115,14 +118,26 @@ class ArchConfig:
                     nheads = din // s.head_dim
                     seg += d * (2 * din + 2 * s.state_size + nheads) + din * d
                     seg += s.conv_width * din + 2 * nheads
-                elif spec.kind == "dense":
-                    if spec.attn != "none":
+                elif spec.kind in ("dense", "moe"):
+                    if spec.attn == "mla":
+                        m = self.mla
+                        qd = self.n_heads * (m.nope_head_dim + m.rope_head_dim)
+                        seg += d * m.q_lora_rank + m.q_lora_rank * qd
+                        seg += d * (m.kv_lora_rank + m.rope_head_dim)
+                        seg += m.kv_lora_rank * self.n_heads * (
+                            m.nope_head_dim + m.v_head_dim)
+                        seg += self.n_heads * m.v_head_dim * d
+                    elif spec.attn != "none":
                         seg += (d * hd * (self.n_heads + 2 * self.n_kv_heads)
                                 + self.n_heads * hd * d)
-                    seg += 3 * d * self.dense_ff
+                    if spec.kind == "moe":
+                        e = self.moe
+                        seg += d * e.n_experts   # router
+                        seg += 3 * d * ff * (e.n_experts + e.n_shared)
+                    else:
+                        seg += 3 * d * ff
                 else:
-                    raise ValueError(f"param_count: layer kind {spec.kind!r} "
-                                     f"arrives in a later slice of the port")
+                    raise ValueError(spec.kind)
             total += seg * (1 if all(s.shared for s in pattern) else repeats)
         if self.encoder_layers:
             # the whisper-style encoder's blocks and the decoder's

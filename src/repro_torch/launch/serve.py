@@ -10,13 +10,16 @@ slots and returns the greedy continuations.
     python -m repro_torch.launch.serve --arch mamba2-130m --batch 2
     python -m repro_torch.launch.serve --arch zamba2-7b --batch 2
     python -m repro_torch.launch.serve --arch gemma2-9b --batch 2
+    python -m repro_torch.launch.serve --arch deepseek-v3-671b --batch 2
     python -m repro_torch.launch.serve --policy policy.json
 
 runs on the GPU; ``--device cpu`` runs the plain PyTorch path.  The
 archs are the reduced (CPU-sized) configs: the dense decoders
 ``qwen3-4b``, ``gemma2-9b`` (sliding-window layers, softcaps),
-``gemma3-12b`` (sliding-window layers) and ``minitron-8b``,
-``mamba2-130m`` (SSD blocks) and ``zamba2-7b`` (SSD blocks with one shared
+``gemma3-12b`` (sliding-window layers), ``minitron-8b`` and
+``qwen2-vl-72b`` (M-RoPE; text requests), the MoE decoders
+``llama4-maverick-400b-a17b`` and ``deepseek-v3-671b`` (MLA, its latent
+caches paged), ``mamba2-130m`` (SSD blocks) and ``zamba2-7b`` (SSD blocks with one shared
 attention block, whose lanes page its KV caches and keep the SSD states
 per slot, prefilling whole prompts).  ``whisper-tiny`` is refused with a
 one-line error: a request carries no encoder inputs.

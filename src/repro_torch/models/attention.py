@@ -1,5 +1,6 @@
 """Attention: GQA with qk-norm and RoPE (sliding-window and softcapped
-variants), blockwise prefill, grouped decode, and whisper's
+variants, M-RoPE sections), blockwise prefill, grouped decode, MLA
+(deepseek-v3's multi-head latent attention) and whisper's
 cross-attention.
 
 Numerics: q/k/v/o projections route through ``nmatmul`` (the paper's
@@ -21,6 +22,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.numerics import layer_scope, nmatmul
+
+import torch.nn.functional as F
 
 from .layers import apply_rope, bf16_round, einsum_f64, rmsnorm, softcap
 
@@ -144,8 +147,8 @@ def gqa_apply(params, x, cfg, spec, positions, cache=None, q_offset=0,
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps, f64=decoding)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps, f64=decoding)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     window = spec.window if spec.attn == "local" else None
 
     if cache is None:
@@ -222,3 +225,120 @@ def cross_attn_apply(params, x, enc_out, cfg):
     out = out.to(x.dtype).reshape(B, S, H * hd)
     with layer_scope("wo"):
         return nmatmul(out, params["wo"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v3 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_param_shapes(cfg) -> dict:
+    """MLA's leaves ``{name: (shape, init)}`` in the reference's layout
+    (``mla_init``): the q and kv low-rank projections with their norms,
+    the latent's per-head expansions ``wk_b`` / ``wv_b`` and ``wo``."""
+    d, H, m = cfg.d_model, cfg.n_heads, cfg.mla
+    qd = m.nope_head_dim + m.rope_head_dim
+    r = m.kv_lora_rank
+    return {
+        "wq_a": ((d, m.q_lora_rank), ("normal", d ** -0.5)),
+        "q_a_norm.scale": ((m.q_lora_rank,), ("zeros",)),
+        "wq_b": ((m.q_lora_rank, H * qd), ("normal", m.q_lora_rank ** -0.5)),
+        "wkv_a": ((d, r + m.rope_head_dim), ("normal", d ** -0.5)),
+        "kv_a_norm.scale": ((r,), ("zeros",)),
+        "wk_b": ((r, H * m.nope_head_dim), ("normal", r ** -0.5)),
+        "wv_b": ((r, H * m.v_head_dim), ("normal", r ** -0.5)),
+        "wo": ((H * m.v_head_dim, d), ("normal", (H * m.v_head_dim) ** -0.5)),
+    }
+
+
+def _mla_expanded(q_nope, q_pe, ckv, kpe, wk_b, wv_b, dt, q_offset):
+    """Attention with the latent ``ckv`` (B, L, r) expanded into per-head
+    K and V, blockwise and causal, as the reference's prefill computes it;
+    v is padded to K's head size for the shared kernel and sliced back.
+
+    The expansions are summed in fp64 and rounded once to ``dt``
+    (:func:`~.layers.einsum_f64`): a chunked prefill expands the whole
+    cache (L rows) where a prefill expands its S rows, and in fp64 a
+    row's result does not depend on how many rows the library's kernel
+    was given, so the two prefills agree bit for bit."""
+    B, L = ckv.shape[:2]
+    _, H, dn = wk_b.shape
+    dv, dr = wv_b.shape[-1], kpe.shape[-1]
+    k_nope = einsum_f64("bsr,rhd->bshd", ckv, wk_b.to(dt)).to(dt)
+    v = einsum_f64("bsr,rhd->bshd", ckv, wv_b.to(dt)).to(dt)
+    k = torch.cat([k_nope, kpe[:, :, None, :].expand(B, L, H, dr)], dim=-1)
+    qf = torch.cat([q_nope, q_pe], dim=-1)
+    out = blockwise_attention(qf, k, F.pad(v, (0, dn + dr - dv)),
+                              causal=True, q_offset=q_offset)
+    return out[..., :dv]
+
+
+def mla_apply(params, x, cfg, spec, positions, cache=None, q_offset=0):
+    """MLA with its latent cache ``{"ckv": (B, L, r), "kpe": (B, L, dr)}``,
+    updated in place.  Returns (out, new_cache).
+
+    ``wq_a``, ``wq_b``, ``wkv_a`` and ``wo`` go through ``nmatmul``;
+    ``wk_b`` and ``wv_b`` are plain products, as in the reference (which
+    keeps them outside the numerics knob).  Three forms, the reference's:
+    no cache (prefill, training) and a chunked prefill over the cache
+    expand the latent into per-head K/V, which keeps chunked serving bit
+    for bit equal to a whole prefill; a decode step attends the latent
+    cache directly (the absorbed form), its contractions, norms and
+    softmax in fp64, rounded once, so a row's step does not depend on the
+    batch it runs in (see :func:`~.layers.einsum_f64`)."""
+    B, S, _ = x.shape
+    H, m = cfg.n_heads, cfg.mla
+    dn, dr, dv, r = (m.nope_head_dim, m.rope_head_dim, m.v_head_dim,
+                     m.kv_lora_rank)
+    decoding = cache is not None and S == 1
+    with layer_scope("wq_a"):
+        q = nmatmul(x, params["wq_a"])
+    q = rmsnorm(params["q_a_norm"], q.to(x.dtype), cfg.norm_eps, f64=decoding)
+    with layer_scope("wq_b"):
+        q = nmatmul(q, params["wq_b"]).reshape(B, S, H, dn + dr)
+    q_nope, q_pe = q[..., :dn], q[..., dn:]
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+    with layer_scope("wkv_a"):
+        kv = nmatmul(x, params["wkv_a"])
+    ckv = rmsnorm(params["kv_a_norm"], kv[..., :r].to(x.dtype), cfg.norm_eps,
+                  f64=decoding)
+    k_pe = apply_rope(kv[..., r:].reshape(B, S, 1, dr), positions,
+                      cfg.rope_theta).reshape(B, S, dr)
+    wk_b = params["wk_b"].reshape(r, H, dn)
+    wv_b = params["wv_b"].reshape(r, H, dv)
+
+    if cache is None:
+        out = _mla_expanded(q_nope, q_pe, ckv, k_pe, wk_b, wv_b, x.dtype,
+                            q_offset)
+        new_cache = {"ckv": ckv, "kpe": k_pe}
+    else:
+        ckv_c = _cache_update(cache["ckv"], ckv, q_offset)
+        kpe_c = _cache_update(cache["kpe"], k_pe, q_offset)
+        new_cache = {"ckv": ckv_c, "kpe": kpe_c}
+        if not decoding:
+            # chunked prefill: the expanded form over the updated cache;
+            # cache rows hold the bits a whole prefill rounds to, and rows
+            # past the frontier mask to exact-zero contributions
+            out = _mla_expanded(q_nope, q_pe, ckv_c.to(x.dtype),
+                                kpe_c.to(x.dtype), wk_b, wv_b, x.dtype,
+                                q_offset)
+        else:
+            # decode: q projected into the latent space attends the latent
+            # cache (per-head K/V never materialise)
+            bf = torch.bfloat16
+            q_eff = einsum_f64("bshd,rhd->bshr", q_nope, wk_b.to(x.dtype)).to(
+                torch.promote_types(q_nope.dtype, x.dtype))
+            s = einsum_f64("bhr,bkr->bhk", q_eff[:, 0].to(bf), ckv_c.to(bf))
+            s = s + einsum_f64("bhd,bkd->bhk", q_pe[:, 0].to(bf),
+                               kpe_c.to(bf))
+            s = s * ((dn + dr) ** -0.5)
+            k_pos = torch.arange(ckv_c.shape[1], device=x.device)
+            s = s.masked_fill(~(k_pos[None, None, :] <= _row_pos(q_offset, 3)),
+                              NEG_INF)
+            p = torch.softmax(s, dim=-1)
+            o_lat = einsum_f64("bhk,bkr->bhr", p.to(bf), ckv_c.to(bf))
+            out = einsum_f64("bhr,rhd->bhd", o_lat.to(x.dtype),
+                             wv_b.to(x.dtype)).reshape(B, 1, H, dv)
+
+    out = out.to(x.dtype).reshape(B, S, H * dv)
+    with layer_scope("wo"):
+        return nmatmul(out, params["wo"]).to(x.dtype), new_cache

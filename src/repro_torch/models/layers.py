@@ -36,8 +36,10 @@ def einsum_f64(eq: str, *operands: torch.Tensor) -> torch.Tensor:
 
 def normal(gen: torch.Generator, shape, scale: float,
            device) -> torch.Tensor:
+    # scaled in place: a full-width expert stack (15 GB) is drawn once,
+    # with no second buffer for the product
     return torch.randn(shape, generator=gen, device=device,
-                       dtype=torch.float32) * scale
+                       dtype=torch.float32).mul_(scale)
 
 
 # ---------------------------------------------------------------------------
@@ -68,7 +70,7 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# RoPE (rotates split halves, not interleaved pairs)
+# RoPE (rotates split halves, not interleaved pairs; M-RoPE sections)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -78,12 +80,25 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10000.0) -> torch.Tensor:
-    """x: (..., S, H, D); positions: (..., S)."""
+               theta: float = 10000.0, sections=None) -> torch.Tensor:
+    """x: (..., S, H, D); positions: (..., S), or (..., S, 3) with M-RoPE
+    ``sections`` ``(t, h, w)``: the ``D/2`` frequency bands split into
+    three runs, each driven by its own position stream (qwen2-vl; text
+    gives the three streams equal positions, which is plain RoPE)."""
     D = x.shape[-1]
     half = D // 2
     freqs = rope_freqs(D, theta, x.device)
-    ang = positions[..., :, None, None].to(torch.float32) * freqs
+    if sections is None:
+        ang = positions[..., :, None, None].to(torch.float32) * freqs
+    else:
+        st, sh, sw = sections
+        if st + sh + sw != half:
+            raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum "
+                             f"to head_dim/2 = {half}")
+        # which position stream drives each band
+        sec = torch.tensor([0] * st + [1] * sh + [2] * sw, device=x.device)
+        pos = positions.to(torch.float32)[..., sec]       # (..., S, half)
+        ang = pos[..., :, None, :] * freqs
     cos = torch.cos(ang).to(x.dtype)
     sin = torch.sin(ang).to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]

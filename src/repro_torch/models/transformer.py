@@ -1,8 +1,15 @@
-"""Model assembly: the LM decoder stack, dense GQA blocks (qwen3-4b,
-minitron-8b; sliding-window layers and softcaps: gemma2-9b, gemma3-12b),
-attention-free SSD blocks (mamba2-130m), the hybrid of both with one
-shared attention block (zamba2-7b), and the whisper-style encoder-decoder
-(whisper-tiny).
+"""Model assembly: the LM decoder stack of all ten architectures: dense
+GQA blocks (qwen3-4b, minitron-8b; sliding-window layers and softcaps:
+gemma2-9b, gemma3-12b; M-RoPE: qwen2-vl-72b), MoE blocks (llama4, with
+GQA; deepseek-v3, with MLA attention), attention-free SSD blocks
+(mamba2-130m), the hybrid of both with one shared attention block
+(zamba2-7b), and the whisper-style encoder-decoder (whisper-tiny).
+
+A batch gives ``tokens`` (B, S), or ``embeds`` (B, S, d) in their place
+(qwen2-vl's vision stub: precomputed patch embeddings, not scaled by
+sqrt(d)), and optionally ``positions``, (B, S) or with M-RoPE (B, S, 3)
+(t, h, w); without them positions count from the call's offset, the same
+in all three M-RoPE streams.
 
 Depth is organized as ``segments``: ``(repeats, pattern)`` pairs whose
 params are stacked on a leading ``repeats`` axis, as in the JAX package
@@ -44,56 +51,71 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.core import scope
 from repro_torch.core.numerics import NumericsConfig, torch_dtype
-from repro_torch.numerics import layer_scope, nmatmul, numerics_scope
+from repro_torch.numerics import (expert_paths, layer_scope, nmatmul,
+                                  numerics_scope)
 
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import bf16_round, embed_lookup, mlp_apply, normal, rmsnorm, softcap
 
 
 def check_supported(cfg):
-    """The port's model layer covers dense GQA blocks (global or sliding
-    window) and attention-free SSD blocks, shared or not, and the
-    whisper-style encoder; MoE and MLA blocks, attention-free dense blocks
-    and M-RoPE sections (qwen2-vl) arrive in later slices."""
+    """The port builds every block the ten configs use: dense and MoE
+    blocks with GQA (global or sliding window) or MLA attention, and
+    attention-free SSD blocks, shared or not.  It refuses an
+    attention-free dense or MoE block (no config has one), and a block
+    whose config section (``ssm``, ``moe``, ``mla``) is missing."""
     for _, pattern in cfg.segments:
         for spec in pattern:
-            dense = spec.kind == "dense" and spec.attn in ("global", "local")
-            ssd = spec.kind == "ssm" and spec.attn == "none"
-            if not (dense or ssd) or (ssd and cfg.ssm is None):
+            if spec.kind == "ssm":
+                ok = spec.attn == "none" and cfg.ssm is not None
+            else:
+                ok = (spec.kind in ("dense", "moe")
+                      and spec.attn in ("global", "local", "mla")
+                      and (spec.kind != "moe" or cfg.moe is not None)
+                      and (spec.attn != "mla" or cfg.mla is not None))
+            if not ok:
                 raise NotImplementedError(
-                    f"{cfg.arch_id}: layer {spec} arrives in a later slice "
-                    f"of the PyTorch port (dense GQA and SSD blocks only)")
-    if cfg.mrope_sections or cfg.moe or cfg.mla:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: M-RoPE, MoE and MLA arrive in a later slice "
-            f"of the PyTorch port")
+                    f"{cfg.arch_id}: the PyTorch port has no layer {spec}")
 
 
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
 
-def _dense_block_shapes(cfg, r: tuple, cross: bool) -> dict:
-    """A dense block's leaves, each with the leading axes ``r``; ``cross``
-    adds the decoder's cross-attention and its norm."""
+def _block_shapes(cfg, spec, r: tuple, cross: bool) -> dict:
+    """A dense or MoE block's leaves, each with the leading axes ``r``:
+    GQA or (``spec.attn == "mla"``) MLA attention, a gated MLP of
+    ``dense_ff`` or (``spec.kind == "moe"``) the MoE layer; ``cross`` adds
+    the decoder's cross-attention and its norm."""
     d, H, KH, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                     cfg.resolved_head_dim)
     ff = cfg.dense_ff
-    blk = {
-        "ln1.scale": ((*r, d), ("zeros",)),
-        "ln2.scale": ((*r, d), ("zeros",)),
-        "attn.wq": ((*r, d, H * hd), ("normal", d ** -0.5)),
-        "attn.wk": ((*r, d, KH * hd), ("normal", d ** -0.5)),
-        "attn.wv": ((*r, d, KH * hd), ("normal", d ** -0.5)),
-        "attn.wo": ((*r, H * hd, d), ("normal", (H * hd) ** -0.5)),
-        "mlp.wi": ((*r, d, ff), ("normal", d ** -0.5)),
-        "mlp.wg": ((*r, d, ff), ("normal", d ** -0.5)),
-        "mlp.wo": ((*r, ff, d), ("normal", ff ** -0.5)),
-    }
-    if cfg.qk_norm:
-        blk["attn.q_norm.scale"] = ((*r, hd), ("zeros",))
-        blk["attn.k_norm.scale"] = ((*r, hd), ("zeros",))
+    blk = {"ln1.scale": ((*r, d), ("zeros",)),
+           "ln2.scale": ((*r, d), ("zeros",))}
+    if spec.attn == "mla":
+        blk.update({f"attn.{k}": ((*r, *shape), how) for k, (shape, how)
+                    in attn.mla_param_shapes(cfg).items()})
+    else:
+        blk.update({
+            "attn.wq": ((*r, d, H * hd), ("normal", d ** -0.5)),
+            "attn.wk": ((*r, d, KH * hd), ("normal", d ** -0.5)),
+            "attn.wv": ((*r, d, KH * hd), ("normal", d ** -0.5)),
+            "attn.wo": ((*r, H * hd, d), ("normal", (H * hd) ** -0.5)),
+        })
+        if cfg.qk_norm:
+            blk["attn.q_norm.scale"] = ((*r, hd), ("zeros",))
+            blk["attn.k_norm.scale"] = ((*r, hd), ("zeros",))
+    if spec.kind == "moe":
+        blk.update({f"mlp.{k}": ((*r, *shape), how) for k, (shape, how)
+                    in moe_mod.moe_param_shapes(cfg).items()})
+    else:
+        blk.update({
+            "mlp.wi": ((*r, d, ff), ("normal", d ** -0.5)),
+            "mlp.wg": ((*r, d, ff), ("normal", d ** -0.5)),
+            "mlp.wo": ((*r, ff, d), ("normal", ff ** -0.5)),
+        })
     if cross:
         # every head attends the encoder: k and v have H heads, not KH
         blk.update({
@@ -127,12 +149,13 @@ def param_shapes(cfg) -> dict:
                             in ssm_mod.ssm_param_shapes(cfg).items()})
                 out.update({f"{pre}.{k}": v for k, v in blk.items()})
                 continue
-            blk = _dense_block_shapes(cfg, r, cross=bool(cfg.encoder_layers))
+            blk = _block_shapes(cfg, spec, r, cross=bool(cfg.encoder_layers))
             out.update({f"{pre}.{k}": v for k, v in blk.items()})
     if not cfg.tie_embeddings:
         out["unembed"] = ((d, cfg.vocab), ("normal", d ** -0.5))
     if cfg.encoder_layers:
-        enc = _dense_block_shapes(cfg, (cfg.encoder_layers,), cross=False)
+        enc = _block_shapes(cfg, _enc_spec(cfg), (cfg.encoder_layers,),
+                            cross=False)
         out.update({f"encoder.blocks.{k}": v for k, v in enc.items()})
         out["encoder.norm.scale"] = ((d,), ("zeros",))
     return out
@@ -141,12 +164,22 @@ def param_shapes(cfg) -> dict:
 def block_numerics_sites(cfg, spec) -> tuple:
     """Relative resolution paths inside one block: every ``nmatmul`` call
     site, plus the SSD scan's backend lookup; a decoder block of an
-    encoder-decoder has its cross-attention's four."""
+    encoder-decoder has its cross-attention's four, a MoE block every
+    routed expert's three (``mlp.expert{k}.{wi,wg,wo}``: one multiplier
+    array an expert) and its shared expert's."""
     if spec.kind == "ssm":
         return ("ssm.in_proj", "ssm.out_proj", "ssm.scan")
-    sites = ("attn.wq", "attn.wk", "attn.wv", "attn.wo")
+    if spec.attn == "mla":
+        sites = ("attn.wq_a", "attn.wq_b", "attn.wkv_a", "attn.wo")
+    else:
+        sites = ("attn.wq", "attn.wk", "attn.wv", "attn.wo")
     if cfg.encoder_layers:
         sites += ("cross.wq", "cross.wk", "cross.wv", "cross.wo")
+    if spec.kind == "moe":
+        sites += expert_paths(cfg.moe.n_experts, prefix="mlp")
+        if cfg.moe.n_shared:
+            sites += ("mlp.shared.wi", "mlp.shared.wg", "mlp.shared.wo")
+        return sites
     return sites + ("mlp.wi", "mlp.wg", "mlp.wo")
 
 
@@ -237,6 +270,12 @@ def block_cache(cfg, spec, repeats: int, batch: int, max_len: int, dtype,
         one = ssm_mod.ssm_cache_init(cfg, batch, dtype, device="meta")
         return {k: torch.zeros((repeats, *v.shape), dtype=v.dtype,
                                device=device) for k, v in one.items()}
+    if spec.attn == "mla":   # the latent cache: no head axis
+        m = cfg.mla
+        return {"ckv": torch.zeros((repeats, batch, max_len, m.kv_lora_rank),
+                                   dtype=dtype, device=device),
+                "kpe": torch.zeros((repeats, batch, max_len, m.rope_head_dim),
+                                   dtype=dtype, device=device)}
     shape = (repeats, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -246,9 +285,11 @@ def init_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> dict:
     """Serving state: per-block caches stacked over repeats,
     ``{"layers": [{pi: cache}]}``; an attention block's cache is
-    ``{"k", "v": (repeats, batch, max_len, KH, hd)}`` in ``dtype``, an SSD
-    block's ``{"conv": (repeats, batch, W-1, d_inner)}`` in ``dtype`` and
-    ``{"state": (repeats, batch, H, N, P)}`` in fp32.  An
+    ``{"k", "v": (repeats, batch, max_len, KH, hd)}`` in ``dtype`` (an
+    MLA block's ``{"ckv": (repeats, batch, max_len, kv_lora_rank),
+    "kpe": (..., rope_head_dim)}``), an SSD block's ``{"conv": (repeats,
+    batch, W-1, d_inner)}`` in ``dtype`` and ``{"state": (repeats, batch,
+    H, N, P)}`` in fp32.  An
     encoder-decoder's state also holds the encoder's output, ``enc_out``
     ``(batch, cfg.enc_len, d)`` in ``dtype`` (prefill puts the output of
     its own length there)."""
@@ -278,9 +319,14 @@ def _block_apply(params, x, cfg, spec, positions, cache=None, q_offset=0,
                 want_state=cache is None and not train)
         return x + h, new_cache
     with layer_scope("attn"):
-        h, new_cache = attn.gqa_apply(params["attn"], h, cfg, spec, positions,
-                                      cache=cache, q_offset=q_offset,
-                                      causal=causal)
+        if spec.attn == "mla":
+            h, new_cache = attn.mla_apply(params["attn"], h, cfg, spec,
+                                          positions, cache=cache,
+                                          q_offset=q_offset)
+        else:
+            h, new_cache = attn.gqa_apply(params["attn"], h, cfg, spec,
+                                          positions, cache=cache,
+                                          q_offset=q_offset, causal=causal)
     x = x + h
     if "cross" in params and enc is not None:
         h = rmsnorm(params["ln_cross"], x, cfg.norm_eps, f64=decoding)
@@ -288,7 +334,10 @@ def _block_apply(params, x, cfg, spec, positions, cache=None, q_offset=0,
             x = x + attn.cross_attn_apply(params["cross"], h, enc, cfg)
     h = rmsnorm(params["ln2"], x, cfg.norm_eps, f64=decoding)
     with layer_scope("mlp"):
-        h = mlp_apply(params["mlp"], h).to(x.dtype)
+        if spec.kind == "moe":
+            h = moe_mod.moe_apply(params["mlp"], h, cfg, decoding=decoding)
+        else:
+            h = mlp_apply(params["mlp"], h).to(x.dtype)
     return x + h, new_cache
 
 
@@ -340,16 +389,32 @@ def checkpointed(fn, *args, remat: str = "full"):
                            preserve_rng_state=False, context_fn=context)
 
 
-def _positions_for(B: int, S: int, offset, device) -> torch.Tensor:
-    """(B, S) absolute positions from a scalar offset, or from per-row
-    ``(B,)`` offsets (continuous batching: each request at its own
-    position)."""
+def _positions_for(cfg, batch, B: int, S: int, offset, device):
+    """``batch["positions"]`` as given, else (B, S) absolute positions
+    from a scalar offset, or from per-row ``(B,)`` offsets (continuous
+    batching: each request at its own position); with M-RoPE sections
+    they are broadcast to the three streams, (B, S, 3)."""
+    if "positions" in batch:
+        return batch["positions"].to(device)
     pos = torch.arange(S, device=device)[None, :]
     if isinstance(offset, torch.Tensor) and offset.dim():
         pos = pos + offset.to(device)[:, None]
     else:
         pos = pos + int(offset)
-    return pos.expand(B, S)
+    pos = pos.expand(B, S)
+    if cfg.mrope_sections is not None:
+        pos = pos[..., None].expand(B, S, 3)
+    return pos
+
+
+def _embed_inputs(params, cfg, batch) -> torch.Tensor:
+    """``batch["embeds"]`` in ``cfg.dtype`` (a stub frontend's output,
+    taken as it is), else the token embedding scaled by sqrt(d)."""
+    dt = torch_dtype(cfg.dtype)
+    if "embeds" in batch:
+        return batch["embeds"].to(dt)
+    x = embed_lookup(params["embed"], batch["tokens"]).to(dt)
+    return x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
 
 
 def encoder_apply(params, cfg, batch, train=False):
@@ -363,7 +428,7 @@ def encoder_apply(params, cfg, batch, train=False):
     layer under ``cfg.remat``."""
     x = batch["enc_embeds"].to(torch_dtype(cfg.dtype))
     B, S = x.shape[:2]
-    positions = _positions_for(B, S, 0, x.device)
+    positions = _positions_for(cfg, {}, B, S, 0, x.device)
     block = functools.partial(_encoder_block, cfg=cfg, spec=_enc_spec(cfg),
                               positions=positions)
     for p in _unstack(params["blocks"], cfg.encoder_layers):
@@ -391,15 +456,12 @@ def backbone(params, cfg, batch, caches=None, q_offset=0, train=False,
     ``batch["enc_embeds"]`` when not given.  Returns ``(hidden, caches)``
     (``caches`` None in train mode)."""
     check_supported(cfg)
-    dt = torch_dtype(cfg.dtype)
     with numerics_scope(cfg.numerics):
         if cfg.encoder_layers and enc is None:
             enc = encoder_apply(params["encoder"], cfg, batch, train=train)
-        tokens = batch["tokens"]
-        x = embed_lookup(params["embed"], tokens).to(dt)
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+        x = _embed_inputs(params, cfg, batch)
         B, S = x.shape[:2]
-        positions = _positions_for(B, S, q_offset, x.device)
+        positions = _positions_for(cfg, batch, B, S, q_offset, x.device)
         new_caches = []
         layer = 0
         for si, (repeats, pattern) in enumerate(cfg.segments):
@@ -494,10 +556,11 @@ def loss_fn(params, cfg, batch, batch_chunks=None) -> torch.Tensor:
 
 
 def prefill(params, cfg, batch, max_len=None):
-    """Process the prompt (and an encoder-decoder's ``enc_embeds``);
-    returns (last-token logits, serving state)."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
+    """Process the prompt, ``tokens`` or ``embeds`` (and ``positions``, an
+    encoder-decoder's ``enc_embeds``); returns (last-token logits, serving
+    state)."""
+    first = batch["tokens"] if "tokens" in batch else batch["embeds"]
+    B, S = first.shape[:2]
     max_len = max_len or S
     enc = None
     if cfg.encoder_layers:

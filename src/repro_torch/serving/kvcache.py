@@ -8,10 +8,11 @@ vector of physical page ids) instead of a whole-``max_len`` slot.
 Layout: paged leaves are ``(repeats, n_pages + 1, page_size, ...)``.
 Physical page ``n_pages`` is the null page: table entries past a
 request's allocation point at it, and decode scatters for inactive pool
-rows land in it, so garbage never reaches a live page.  Sequence-free
-leaves (SSM/conv states, in later slices) stay per-slot
-(``(repeats, n_slots, ...)``); :func:`paged_layout` records which phases
-page.
+rows land in it, so garbage never reaches a live page.  A leaf's trailing
+axes are whatever its block caches: ``(KH, hd)`` for GQA's k / v, one
+axis for MLA's latent ``ckv`` / ``kpe``.  Sequence-free leaves (an SSD
+block's conv tail and state) stay per-slot (``(repeats, n_slots, ...)``);
+:func:`paged_layout` records which phases page.
 
 Host-side accounting: :class:`SlotAllocator` for decode rows and
 :class:`PageAllocator` for KV pages (a request's full worst-case need is

@@ -11,7 +11,10 @@
 >>> r.save_policy("policy.json")
 
 ``arch`` is a dense decoder (``qwen3-4b``, ``minitron-8b``; ``gemma2-9b``
-and ``gemma3-12b`` with sliding-window layers, gemma2 with softcaps),
+and ``gemma3-12b`` with sliding-window layers, gemma2 with softcaps;
+``qwen2-vl-72b`` with M-RoPE, whose image input goes through the model
+API as ``{"embeds", "positions"}``), a MoE decoder
+(``llama4-maverick-400b-a17b``; ``deepseek-v3-671b`` with MLA attention),
 ``mamba2-130m`` (SSD blocks, whose every prefill runs the SSD scan kernel
 on the card), ``zamba2-7b`` (SSD blocks and one shared attention block) or
 ``whisper-tiny`` (an encoder-decoder), or a

@@ -38,6 +38,13 @@ from repro_torch.serving import TierSpec
 from repro_torch.session import Session
 
 ARCHS = ["gemma2-9b", "gemma3-12b", "minitron-8b"]
+# the config and parameter-layout checks also hold the last three families
+# (tests/test_torch_{vlm,moe,mla}.py hold their models) and qwen3-4b and
+# mamba2-130m, so that with tests/test_torch_{hybrid,whisper}.py every one
+# of the ten architectures is held against jax.eval_shape
+PARAM_ARCHS = ARCHS + ["qwen2-vl-72b", "llama4-maverick-400b-a17b",
+                       "deepseek-v3-671b", "qwen3-4b", "mamba2-130m"]
+TIED = ("gemma2-9b", "gemma3-12b", "qwen3-4b", "mamba2-130m")
 PRESETS = ["exact", "segmented3", "segmented2", "segmented1"]
 PROMPT = 80   # longer than the reduced window of 64
 # logits in units of the largest |logit|, every preset: one bf16 ulp.  The
@@ -89,26 +96,33 @@ def _segments(cfg):
     return [(r, [dataclasses.asdict(s) for s in p]) for r, p in cfg.segments]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", PARAM_ARCHS)
 def test_config_and_param_count_match_jax(arch):
     for mine, ref in [(get_arch(arch), jax_get_arch(arch)),
                       (get_arch(arch).reduced(), jax_get_arch(arch).reduced())]:
         for f in dataclasses.fields(mine):
-            if f.name in ("numerics", "segments"):
+            if f.name in ("numerics", "segments", "moe", "mla", "ssm"):
                 continue
             assert getattr(mine, f.name) == getattr(ref, f.name), f.name
+        for f in ("moe", "mla", "ssm"):   # the packages' own dataclasses
+            a, b = getattr(mine, f), getattr(ref, f)
+            assert (a is None) == (b is None), f
+            assert a is None or dataclasses.asdict(a) == dataclasses.asdict(b)
         assert _segments(mine) == _segments(ref)
         assert mine.param_count() == ref.param_count()
     want = {"gemma2-9b": 9_241_100_288, "gemma3-12b": 11_765_022_720,
-            "minitron-8b": 9_881_780_224}
+            "minitron-8b": 9_881_780_224, "qwen2-vl-72b": 72_704_065_536,
+            "llama4-maverick-400b-a17b": 397_691_453_440,
+            "deepseek-v3-671b": 669_968_433_152, "qwen3-4b": 4_022_272_000,
+            "mamba2-130m": 128_859_264}
     assert get_arch(arch).param_count() == want[arch]
     windows = {s.window for _, p in get_arch(arch).reduced().segments
                for s in p if s.attn == "local"}
-    assert windows == ({64} if arch != "minitron-8b" else set())
+    assert windows == ({64} if arch in ("gemma2-9b", "gemma3-12b") else set())
 
 
 @pytest.mark.parametrize("reduced", [True, False])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", PARAM_ARCHS)
 def test_param_names_and_shapes_match_jax_eval_shape(arch, reduced):
     cfg_j, cfg_t = jax_get_arch(arch), get_arch(arch)
     if reduced:
@@ -118,7 +132,8 @@ def test_param_names_and_shapes_match_jax_eval_shape(arch, reduced):
             for path, a in jax.tree_util.tree_flatten_with_path(unzip(pp)[0])[0]}
     got = {k: tuple(s) for k, (s, _) in ttr.param_shapes(cfg_t).items()}
     assert got == want
-    assert ("unembed" in got) == (arch == "minitron-8b")
+    assert ("unembed" in got) == (not cfg_t.tie_embeddings)
+    assert cfg_t.tie_embeddings == (arch in TIED)
     assert ttr.layer_paths(cfg_t) == jtr.layer_paths(cfg_j)
     assert ttr.layer_path_counts(cfg_t) == jtr.layer_path_counts(cfg_j) == {}
 

@@ -74,6 +74,43 @@ ZAMBA2_PROJ = [(3584, 14576), (7168, 3584), (3584, 3584), (3584, 14336),
 INVARIANCE_KN = [(2560, 4096), (2560, 1024), (9728, 2560)] + ZAMBA2_PROJ
 
 
+# (K, N) of the last three families' projections: qwen2-vl-72b's MLP
+# (its attention's are among them), llama4's expert slabs, attention and
+# dense MLP, deepseek-v3's MLA projections (wq_a, wq_b, wkv_a, wo), expert
+# slabs and dense MLP
+GIANT_PROJ = [(8192, 8192), (8192, 1024), (8192, 29568), (29568, 8192),
+              (5120, 8192), (8192, 5120), (5120, 5120), (5120, 1024),
+              (5120, 16384), (16384, 5120), (7168, 1536), (1536, 24576),
+              (7168, 576), (16384, 7168), (7168, 2048), (2048, 7168),
+              (7168, 18432), (18432, 7168)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [1, 2, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_afpm_matmul_kernel_at_the_giants_shapes(passes, dtype, rng):
+    """The last three families' projections at M = 4 (a decode step), 16
+    (an expert's rows in a 4-slot decode step: 4 slots x capacity 4) and
+    32: within 64 ulps of the plain version, and every row equal to the
+    same row computed alone, bit for bit."""
+    _need_card()
+    for K, N in GIANT_PROJ:
+        x = torch.from_numpy(rng.standard_normal((32, K)).astype(np.float32)
+                             ).cuda().to(getattr(torch, dtype))
+        w = torch.from_numpy((rng.standard_normal((K, N)) / np.sqrt(K))
+                             .astype(np.float32)).cuda()
+        alone = torch.cat([k1.afpm_matmul(x[i:i + 1], w, passes)
+                           for i in range(32)])
+        for M in (4, 16, 32):
+            got = k1.afpm_matmul(x[:M], w, passes)
+            want = k1.afpm_matmul_plain(x[:M], w, passes)
+            torch.cuda.synchronize()
+            tol = ULP_BOUND * np.spacing(np.float32(want.abs().max().item()))
+            assert (got - want).abs().max().item() <= tol, ((K, N), M)
+            same = (got.view(torch.int32) == alone[:M].view(torch.int32)).all(1)
+            assert same.all(), ((K, N), M, torch.nonzero(~same).flatten()[:8])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("passes", [1, 2, 3])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
