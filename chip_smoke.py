@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twenty-one phases, each printing a line or a few; any failed check ends the
+Twenty-four phases, each printing a line or a few; any failed check ends the
 run with a nonzero exit and no result line:
 
 1. device: the card, its power limit, torch and the kernels' build time
@@ -200,6 +200,32 @@ run with a nonzero exit and no result line:
    under ``torch.profiler``: device time by kernel group and the card's
    busy share (``chiprun_out/chip_smoke_resnet.json``).
 
+22. tune (run right after phase 3, on its weights): the kernel autotuner
+   (``repro_torch.kernels.autotune.sweep``) times every candidate launch
+   shape with ``timed_ms`` (behind a spin, after the 64 MB flush): K1's
+   tiles at qwen3-4b's projections at M = 4 and 150, K2's elementwise CTA
+   shape at 512^2 and 8192^2 (AC5-5), K3's chunk at mamba2's and zamba2's
+   150-token layers on both routes; every K1 and K2 candidate equal to the
+   static launch's output bit for bit, every K3 candidate within 64 ulps
+   of ``ssd_scan_chunked_ref``; the artifact written to
+   ``chiprun_out/TUNE_<device_kind>.json``, loaded back and activated; a
+   table of another device kind changes no call; a full-width
+   ``Session(tune=).generate`` under standard equals the untuned tokens;
+   each key's winner printed beside the static choice's time; the table
+   is dropped after the phase (``chiprun_out/chip_smoke_launch.json``
+   for phases 22-24);
+23. launch (after phase 22, on phase 3's weights): ``ContinuousBatcher``
+   with 2 slots serves 5 requests through full-width qwen3-4b under
+   segmented3: every request completes, 7 x 36 K1 launches a forward, and
+   one request's tokens equal a manual greedy loop's;
+24. dryrun (after phase 18): ``python -m repro_torch.launch.dryrun --arch
+   qwen3-4b --shape <s> --both-meshes`` for the four shapes, one
+   subprocess each, every record ok or skipped
+   (``chiprun_out/dryrun/``); at a 1 x 1 mesh the dry-run of phase 18's
+   step (8 x 128 tokens, AdamW) has argument bytes equal to the bytes of
+   the tensors that step took, and its peak estimate is printed beside
+   phase 18's measured peak.
+
 Then one JSON line on the kernels, the card's name and power limit, and
 the result line.  Per-shape kernel timings go to
 ``chiprun_out/chip_smoke_kernels.json``.
@@ -368,16 +394,11 @@ def smi(query: str) -> str:
 
 def card_peaks(name: str):
     """(bytes/s, dense bf16 FLOP/s, fp32 FLOP/s outside the tensor cores)
-    from NVIDIA's data sheets."""
-    if "H200" in name:
-        return 4.8e12, 989e12, 67e12
-    if "H100" in name and "PCIe" in name:
-        return 2.0e12, 756e12, 51e12
-    if "H100" in name and "NVL" in name:
-        return 3.9e12, 835e12, 60e12
-    if "H100" in name:
-        return 3.35e12, 989e12, 67e12
-    raise RuntimeError(f"no published peaks known for {name!r}")
+    from NVIDIA's data sheets: the package's one table, which the dry-run
+    prices its roofline with (``repro_torch.launch.hlo_analysis``)."""
+    from repro_torch.launch.hlo_analysis import card_peaks as peaks
+
+    return peaks(name)
 
 
 def timed_ms(fn, iters: int, flush, device_only: bool = False,
@@ -849,7 +870,7 @@ def phase_serve():
           f"{'; '.join(parts)}; afpm_matmul launches {launches} = "
           f"{per_forward} x {forwards} segmented forwards; standard tokens "
           f"== solo generate; peak memory {peak_gb:.2f} GB")
-    return launches
+    return launches, sess
 
 
 def phase_decode_attention():
@@ -2809,6 +2830,16 @@ def phase_train_qwen3():
     if moved == 0 or not params["final_norm"]["scale"].abs().max() > 0:
         raise AssertionError("train-qwen3: parameters did not change")
     profile_out = _device_groups(prof, 1e3 * step_s[-1])
+    # the tensors a step takes: params, the optimizer state (moments and
+    # its step counter) and the batch the trainer makes (int32 ids)
+    from repro_torch import tree as tree_util
+    from repro_torch.data.synthetic import DataConfig, lm_batch
+
+    batch = lm_batch(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH, seed=0), 0)
+    step_bytes = (sum(t.numel() * t.element_size()
+                      for t in tree_util.leaves((params, opt)))
+                  + sum(a.nbytes for a in batch.values()))
     print(f"[train-qwen3] qwen3-4b full width ({cfg.param_count() / 1e9:.2f} "
           f"B params), {n_steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
           f"through launch.train.train (AdamW fp32 moments, remat full, "
@@ -2822,7 +2853,8 @@ def phase_train_qwen3():
           + _profile_text(profile_out))
     del params, opt
     torch.cuda.empty_cache()
-    return dict(ms=ms, peak_gb=peak_gb, losses=losses, profile=profile_out)
+    return dict(ms=ms, peak_gb=peak_gb, losses=losses, profile=profile_out,
+                step_bytes=step_bytes)
 
 
 def phase_train_mamba2():
@@ -3376,6 +3408,290 @@ def phase_resnet(peaks, trained):
                 emu_logits_rel_err=emu_logits_err, emu_agreement=emu_agree)
 
 
+# [tune]: qwen3-4b's projections (K, N) at decode (M 4) and prefill (M 150),
+# K2 at 512^2 and 8192^2, K3 at mamba2's and zamba2's 150-token layers
+TUNE_M = (4, 150)
+TUNE_BITWISE = {"medium": 512, "large": 8192}
+TUNE_SSD = (("mamba2", 24, 64, 128), ("zamba2", 112, 64, 64))
+TUNE_SSD_L = 150
+# the [launch] phase's requests
+LAUNCH_PROMPTS = (40, 77, 150, 23, 61)
+LAUNCH_NEW = 8
+
+
+def phase_tune(sess):
+    """The autotuner on the card: every candidate of K1 (qwen3-4b's
+    projections), K2 (elementwise) and K3 (both routes) timed by
+    ``timed_ms``, each held against the static launch's output, the
+    artifact written, loaded and activated; then a table of another device
+    kind changes no call, and a tuned full-width standard generate gives
+    the untuned tokens.  The table is dropped at the end, so every later
+    phase runs the static launch shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.registry import afpm_config
+    from repro_torch.kernels import afpm_bitwise as k2
+    from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.kernels import autotune, dispatch, ref
+
+    kind = autotune.device_kind("cuda")
+    flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    ac55 = afpm_config("AC5-5")
+    k1_calls = [(torch.randn((M, K), generator=gen, device="cuda").to(
+                     torch.bfloat16),
+                 torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5)
+                for M in TUNE_M for K, N in SHAPES]
+    k1_static = [k1.afpm_matmul(x, w, 3) for x, w in k1_calls]
+    k2_ops = {b: [torch.randn((n, n), generator=gen, device="cuda")
+                  for _ in range(2)] for b, n in TUNE_BITWISE.items()}
+    k2_static = {b: k2.afpm_bitwise(x, y, ac55) for b, (x, y) in k2_ops.items()}
+    k3_ops = [ssd_inputs(gen, 1, TUNE_SSD_L, h, p, n) for _, h, p, n in TUNE_SSD]
+    k3_ref = [dispatch.ssd(*ops, chunk=dispatch.SCAN_CHUNKS[("torch", "small")],
+                           backend="torch") for ops in k3_ops]
+    worst = {"matmul": 0, "bitwise": 0, "ssd": 0.0}
+
+    def measure(kernel, backend, bucket, block, size):
+        """Device ms of every call of the key's shapes under ``block``
+        (behind a spin, after the 64 MB flush), returned in us; each
+        call's output held against the static launch's first."""
+        if kernel == "matmul":
+            fns = [lambda x=x, w=w: k1.afpm_matmul(x, w, 3, tile=block)
+                   for x, w in k1_calls]
+            for fn, want in zip(fns, k1_static):
+                worst["matmul"] = max(worst["matmul"],
+                                      bit_mismatches(fn(), want)[0])
+        elif kernel == "bitwise":
+            x, y = k2_ops[bucket]
+            fns = [lambda: k2.afpm_bitwise(x, y, ac55, block)]
+            worst["bitwise"] = max(worst["bitwise"],
+                                   bit_mismatches(fns[0](), k2_static[bucket])[0])
+        else:
+            fns = [lambda ops=ops: dispatch.ssd(*ops, chunk=block,
+                                                backend=backend)
+                   for ops in k3_ops]
+            for fn, want in zip(fns, k3_ref):
+                worst["ssd"] = max(worst["ssd"], max_ulps(fn(), want))
+        return 1e3 * sum(timed_ms(fn, 10, flush, device_only=True)
+                         for fn in fns)
+
+    t0 = time.perf_counter()
+    table = autotune.TuningTable(device=kind, meta={
+        "card": smi("name,power.limit"), "source": "chip_smoke.py [tune]"})
+    for kernels, backends, buckets in (
+            (("matmul",), ("hopper",), ("large",)),
+            (("bitwise",), ("hopper",), tuple(TUNE_BITWISE)),
+            (("ssd",), ("hopper", "torch"), ("small",))):
+        part = autotune.sweep(measure, kernels=kernels, backends=backends,
+                              buckets=buckets, device=kind)
+        table.entries.update(part.entries)
+    sweep_s = time.perf_counter() - t0
+    if worst["matmul"] or worst["bitwise"]:
+        raise AssertionError(f"[tune] a K1 / K2 candidate changed bits: "
+                             f"{worst}")
+    if worst["ssd"] > ULP_BOUND:
+        raise AssertionError(f"[tune] a K3 candidate is {worst['ssd']:.1f} "
+                             f"ulps from ssd_scan_chunked_ref")
+    out = ROOT / "chiprun_out" / autotune.artifact_name(kind)
+    table.save(str(out))
+    loaded = autotune.activate(str(out))
+    if loaded.to_dict() != json.loads(json.dumps(table.to_dict())) or \
+            loaded.device != kind:
+        raise AssertionError("[tune] the artifact did not load back")
+    statics = {"matmul": autotune.MATMUL_STATIC, "bitwise": k2.STATIC_BLOCK}
+    rows = {}
+    for key, e in sorted(loaded.entries.items()):
+        kernel, backend, bucket = key.split("/")
+        static = statics.get(kernel, dispatch.SCAN_CHUNKS.get((backend, bucket)))
+        label = autotune._block_label(static)
+        rows[key] = dict(winner=e["block"], winner_us=e["median_us"],
+                         static=label, static_us=e["candidates"][label],
+                         candidates=e["candidates"])
+    # the active table is the one every lookup now reads
+    x, w = k1_calls[0]
+    dev = x.device
+    bucket = autotune.shape_bucket(*x.shape, w.shape[1])
+    if k1.tuned_tile(*x.shape, w.shape[1], dev) != loaded.lookup(
+            "matmul", "hopper", bucket) or bucket != "large":
+        raise AssertionError("[tune] K1 does not read the active table")
+    # a table of another device kind changes no call
+    other = autotune.TuningTable(device="another_card")
+    other.put("matmul", "hopper", "large", (16, 64, 1), 1.0)
+    other.put("bitwise", "hopper", "large", (64, 1056), 1.0)
+    other.put("ssd", "hopper", "small", 64, 1.0)
+    autotune.activate(other)
+    if (k1.tuned_tile(*x.shape, w.shape[1], dev) is not None
+            or k2.launch_block(8192 * 8192, dev) != k2.STATIC_BLOCK
+            or dispatch.scan_chunk("hopper", TUNE_SSD_L, dev)
+            != dispatch.SCAN_CHUNKS[("hopper", "small")]
+            or bit_mismatches(k1.afpm_matmul(x, w, 3), k1_static[0])[0]):
+        raise AssertionError("[tune] a table of another device kind applied")
+    # a full-width standard generate under the table == untuned
+    autotune.deactivate()
+    rng = np.random.default_rng(22)
+    prompts = rng.integers(0, sess.config.vocab, (2, 40))
+    std = sess.replace(policy="segmented3")
+    k1.afpm_matmul.launches = 0
+    plain = std.generate(prompts=prompts, gen_len=16).tokens
+    n_plain = k1.afpm_matmul.launches
+    tuned_sess = std.replace(tune=str(out))
+    if autotune.active_source() != str(out):
+        raise AssertionError("[tune] Session(tune=) did not activate")
+    k1.afpm_matmul.launches = 0
+    tuned = tuned_sess.generate(prompts=prompts, gen_len=16).tokens
+    n_tuned = k1.afpm_matmul.launches
+    autotune.deactivate()
+    if not np.array_equal(tuned, plain) or n_tuned != n_plain or not n_plain:
+        raise AssertionError(f"[tune] tuned generate {tuned.tolist()} "
+                             f"({n_tuned} launches) != untuned "
+                             f"{plain.tolist()} ({n_plain})")
+    del k1_calls, k2_ops, k3_ops, flush
+    torch.cuda.empty_cache()
+    print(f"[tune] {kind}: {len(rows)} keys swept in {sweep_s:.1f} s -> "
+          f"{out.relative_to(ROOT)} (loaded back, activated); every K1 and "
+          f"K2 candidate == the static launch bit for bit, K3 candidates "
+          f"within {worst['ssd']:.2f} ulps of ssd_scan_chunked_ref; a table "
+          f"of another device kind changed no call; Session(tune=).generate "
+          f"under standard == untuned ({n_tuned} K1 launches each)")
+    for key, r in rows.items():
+        print(f"[tune]   {key}: winner {autotune._block_label(r['winner'])} "
+              f"{r['winner_us']:.2f} us, static {r['static']} "
+              f"{r['static_us']:.2f} us (sum over the key's calls)")
+    return dict(keys=rows, artifact=str(out.relative_to(ROOT)),
+                sweep_s=sweep_s, k3_max_ulps=worst["ssd"])
+
+
+def phase_launch(sess):
+    """``ContinuousBatcher`` (2 slots) serves 5 requests through
+    full-width qwen3-4b under segmented3 on [serve]'s weights: every
+    request completes, K1 runs, and one request's tokens equal a manual
+    greedy loop's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.launch import steps
+    from repro_torch.launch.scheduler import ContinuousBatcher, Request
+
+    std = sess.replace(policy="segmented3")
+    cfg, params = std.config, std.params
+    max_len = 256
+    prefill = steps.make_prefill_step(cfg, max_len=max_len)
+    decode = steps.make_decode_step(cfg)
+    prefill_fn = lambda toks: prefill(params, {"tokens": toks})
+    decode_fn = lambda tok, st, pos: decode(params, st, tok, pos)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in LAUNCH_PROMPTS]
+    b = ContinuousBatcher(2, prefill_fn, decode_fn, max_len)
+    for uid, pr in enumerate(prompts):
+        b.submit(Request(uid=uid, prompt=pr, max_new_tokens=LAUNCH_NEW))
+    k1.afpm_matmul.launches = 0
+    t0 = time.perf_counter()
+    done, ticks = b.run_to_completion()
+    run_s = time.perf_counter() - t0
+    launches = k1.afpm_matmul.launches
+    if sorted(r.uid for r in done) != list(range(len(prompts))) or any(
+            len(r.generated) != LAUNCH_NEW for r in done):
+        raise AssertionError(f"[launch] requests did not complete: "
+                             f"{[(r.uid, len(r.generated)) for r in done]}")
+    forwards = len(prompts) * LAUNCH_NEW   # a prefill + 7 decode steps each
+    if launches != 7 * cfg.n_layers * forwards:
+        raise AssertionError(f"[launch] {launches} K1 launches, expected "
+                             f"{7 * cfg.n_layers} x {forwards} forwards")
+    # request 2 by hand: the manual greedy loop
+    with torch.inference_mode():
+        logits, state = prefill_fn(torch.as_tensor(prompts[2], device="cuda")[None])
+        want = [int(logits[0, -1].argmax())]
+        for i in range(LAUNCH_NEW - 1):
+            tok = torch.tensor([[want[-1]]], device="cuda")
+            logits, state = decode_fn(tok, state, len(prompts[2]) + i)
+            want.append(int(logits[0, -1].argmax()))
+    got = next(r for r in done if r.uid == 2).generated
+    if got != want:
+        raise AssertionError(f"[launch] request 2: batcher {got} != manual "
+                             f"greedy loop {want}")
+    print(f"[launch] ContinuousBatcher, 2 slots: {len(prompts)} requests "
+          f"(prompts {LAUNCH_PROMPTS}) x {LAUNCH_NEW} tokens through "
+          f"full-width qwen3-4b under segmented3 in {ticks} ticks, "
+          f"{run_s:.2f} s; afpm_matmul launches {launches} = "
+          f"{7 * cfg.n_layers} x {forwards} forwards; request 2 == the "
+          f"manual greedy loop")
+    return dict(ticks=ticks, run_s=run_s, k1=launches)
+
+
+def phase_dryrun(train):
+    """The dry-run CLI for qwen3-4b at every shape on both production
+    meshes (one subprocess a shape, all at once); then at a 1 x 1 mesh the
+    dry-run of [train-qwen3]'s step (8 x 128 tokens, AdamW): its
+    argument bytes == the bytes of the tensors that phase's step took,
+    and its peak estimate beside that phase's measured peak."""
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.session import Session
+
+    out_dir = ROOT / "chiprun_out" / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = {s: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen3-4b", "--shape", s, "--both-meshes", "--out-dir",
+         str(out_dir)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for s in specs.SHAPES}
+    try:
+        logs = {s: p.communicate(timeout=600)[0] for s, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    recs = {}
+    for s, p in procs.items():
+        for tag in ("16x16", "2x16x16"):
+            path = out_dir / f"qwen3-4b__{s}__{tag}.json"
+            rec = json.loads(path.read_text()) if path.exists() else {}
+            recs[(s, tag)] = rec
+            st = rec.get("status", "missing")
+            if st != "ok" and not st.startswith("skipped"):
+                raise AssertionError(f"[dryrun] qwen3-4b {s} {tag}: {st}: "
+                                     f"{rec.get('error')}\n{logs[s][-2000:]}")
+        if p.returncode != 0:
+            raise AssertionError(f"[dryrun] {s} exited {p.returncode}: "
+                                 f"{logs[s][-2000:]}")
+    one = dryrun.lower_session_cell(
+        Session("qwen3-4b", reduced=False),
+        dict(kind="train", seq=TRAIN_SEQ, batch=TRAIN_BATCH),
+        mesh=Mesh((1, 1), ("data", "model")))
+    mem = one["memory"]
+    if mem["argument_bytes"] != train["step_bytes"]:
+        raise AssertionError(f"[dryrun] 1 x 1 argument_bytes "
+                             f"{mem['argument_bytes']} != [train-qwen3]'s "
+                             f"step tensors {train['step_bytes']}")
+    for (s, tag), rec in recs.items():
+        if rec["status"] == "ok":
+            r = rec["roofline"]
+            print(f"[dryrun]   {s} {tag}: args/chip "
+                  f"{rec['memory']['argument_bytes'] / 1e9:.3f} GB, "
+                  f"{r['hlo_flops_per_chip']:.4g} FLOP/chip, t_compute "
+                  f"{r['t_compute_s'] * 1e3:.4g} ms, t_memory "
+                  f"{r['t_memory_s'] * 1e3:.4g} ms ({r['dominant']}), "
+                  f"counted in {rec['count_s']} s ({rec['counted_ops']} ops)")
+        else:
+            print(f"[dryrun]   {s} {tag}: {rec['status']}")
+    print(f"[dryrun] qwen3-4b x {len(specs.SHAPES)} shapes x 2 meshes in "
+          f"{wall_s:.1f} s (every record ok or skipped, records -> "
+          f"{out_dir.relative_to(ROOT)}); 1 x 1 mesh, [train-qwen3]'s step "
+          f"({TRAIN_BATCH} x {TRAIN_SEQ}, AdamW): argument_bytes "
+          f"{mem['argument_bytes']} == the step's tensors' bytes; peak "
+          f"estimate {mem['peak_estimate_bytes'] / 1e9:.2f} GB (temp "
+          f"{mem['temp_bytes'] / 1e9:.2f} GB) beside the measured "
+          f"{train['peak_gb']:.2f} GB (max_memory_allocated); counted in "
+          f"{one['count_s']} s")
+    return dict(wall_s=wall_s, one_by_one=mem, records={
+        f"{s} {tag}": rec for (s, tag), rec in recs.items()})
+
+
 def main() -> int:
     import torch
 
@@ -3387,7 +3703,10 @@ def main() -> int:
     peaks = card_peaks(name)
     phase_device()
     k = phase_kernel(peaks)
-    launches = phase_serve()
+    launches, qwen3 = phase_serve()
+    tu = phase_tune(qwen3)
+    la = phase_launch(qwen3)
+    del qwen3
     torch.cuda.empty_cache()
     phase_decode_attention()
     b = phase_bitwise(peaks)
@@ -3419,6 +3738,10 @@ def main() -> int:
          "gemma3_engine": dz["gemma3-12b"]["engine"]}, indent=1))
     tg = phase_train_grad()
     tq = phase_train_qwen3()
+    dr = phase_dryrun(tq)
+    (ROOT / "chiprun_out" / "chip_smoke_launch.json").write_text(json.dumps(
+        {"card": smi("name,power.limit"), "tune": tu, "launch": la,
+         "dryrun": dr}, indent=1))
     tm = phase_train_mamba2()
     tr = phase_train_resnet()
     (ROOT / "chiprun_out" / "chip_smoke_train.json").write_text(json.dumps(

@@ -146,6 +146,21 @@ class ArchConfig:
             total += self.n_layers * 4 * d * d
         return total
 
+    def layer_specs(self) -> list:
+        """Flat list of LayerSpec in execution order (for counting)."""
+        return [spec for repeats, pattern in self.segments
+                for _ in range(repeats) for spec in pattern]
+
+    def active_param_count(self) -> int:
+        """Params a token touches (MoE: top_k routed experts and the
+        shared ones), the reference's formula: :meth:`param_count` with
+        ``n_experts`` set to ``top_k``."""
+        if not self.moe:
+            return self.param_count()
+        e = self.moe
+        return dataclasses.replace(
+            self, moe=dataclasses.replace(e, n_experts=e.top_k)).param_count()
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests."""
         def cut_pattern(pattern):

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -30,10 +31,12 @@ import torch
 from repro_torch.core.afpm import (AFPMConfig, afpm_matmul_emulated,
                                    check_config)
 
-from . import _build, ref
+from . import _build, autotune, ref
 
 #: rows and columns of an output tile (one CTA), as in the source
 TILE = 64
+#: the elementwise entry's static CTA shape: threads a CTA, most CTAs
+STATIC_BLOCK = autotune.BITWISE_STATIC
 #: SMs of an H100
 SMS = 132
 #: split mode's workspace (chunks x M x N fp32) is at most this many bytes;
@@ -123,7 +126,7 @@ def _launchers():
         lib = _build.load("afpm_bitwise")
         p, i = ctypes.c_void_p, ctypes.c_int
         ew = lib.afpm_bitwise_launch
-        ew.argtypes = [p, p, p, ctypes.c_longlong] + [i] * 10 + [p]
+        ew.argtypes = [p, p, p, ctypes.c_longlong] + [i] * 12 + [p]
         ew.restype = i
         mm = lib.afpm_emulated_launch
         mm.argtypes = [p] * 5 + [i] * 16 + [p]
@@ -154,13 +157,28 @@ def _workspace(device, stream: int, n_part: int, n_count: int):
     return ws[2], ws[3]
 
 
+def launch_block(nelems: int, device=None) -> tuple:
+    """The elementwise entry's CTA shape ``(threads, ctas)`` for ``nelems``
+    elements on ``device``: the active tuning table's ``bitwise/hopper``
+    entry for the bucket of the square the elements tile (as the JAX
+    package buckets them), else :data:`STATIC_BLOCK`."""
+    side = math.isqrt(max(nelems, 1))
+    if side * side < nelems:
+        side += 1
+    tuned = autotune.lookup("bitwise", "hopper", autotune.shape_bucket(side),
+                            device)
+    return tuned if tuned is not None else STATIC_BLOCK
+
+
 def afpm_bitwise(x: torch.Tensor, y: torch.Tensor,
-                 cfg: AFPMConfig = AFPMConfig()) -> torch.Tensor:
+                 cfg: AFPMConfig = AFPMConfig(), block=None) -> torch.Tensor:
     """Elementwise AFPM multiply of two equal-shape tensors (any rank) -> fp32.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel:
     both on one device, of one shape, contiguous once cast to fp32;
-    anything else raises, as does a config the datapath cannot run."""
+    anything else raises, as does a config the datapath cannot run.
+    ``block`` = ``(threads, ctas)`` overrides :func:`launch_block` (a shape
+    the kernel cannot launch raises); no shape changes a product."""
     args = _config_args(cfg)
     dev = x.device
     if dev.type == "cpu" and y.device.type == "cpu":
@@ -178,9 +196,10 @@ def afpm_bitwise(x: torch.Tensor, y: torch.Tensor,
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
+    threads, ctas = block or launch_block(out.numel(), dev)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     rc = _launchers()[0](x.data_ptr(), y.data_ptr(), out.data_ptr(),
-                         out.numel(), *args, dev.index, stream)
+                         out.numel(), *args, threads, ctas, dev.index, stream)
     if rc != 0:
         _raise_failed("afpm_bitwise", rc)
     afpm_bitwise.launches += 1

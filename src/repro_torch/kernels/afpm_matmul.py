@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build, ref
+from . import _build, autotune, ref
 
 #: K of one chunk (the canonical split of K, folded in order with IEEE
 #: adds), as in the source
@@ -64,27 +64,46 @@ def chunk_bounds(K: int) -> list:
 
 
 @functools.lru_cache(maxsize=4096)
-def plan(M: int, K: int, N: int) -> Plan:
+def plan(M: int, K: int, N: int, tile=None) -> Plan:
     """The kernel's tiles for ``x (M, K) @ w (K, N)``; raises beyond the
     kernel's limits (M, K and N below 2**31, at most 65535 chunks of K and
-    65535 blocks of 64 rows)."""
+    65535 blocks of rows).
+
+    ``tile`` = ``(rows, bn, split)`` bounds the rule's free choices (the
+    autotuner's ``matmul/hopper`` block, :mod:`.autotune`): the rows a CTA
+    still follow M, up to ``rows`` (8, 16, 32 or 64); ``bn`` 64 keeps every
+    tile 64 columns wide, 128 lets the rule widen it; ``split`` 1 keeps
+    whole mode, 2 lets the rule split K.  None, or
+    :data:`autotune.MATMUL_STATIC`, is the rule untouched."""
+    rows, bn_max, split_ok = tile or autotune.MATMUL_STATIC
+    if rows not in (8, 16, 32, MAX_TILE_ROWS) or bn_max not in (BN, WIDE_BN) \
+            or split_ok not in (1, 2):
+        raise ValueError(f"afpm_matmul: bad tile {tile!r}; expected (rows in "
+                         f"8/16/32/64, bn in {BN}/{WIDE_BN}, split in 1/2)")
     if min(M, K, N) < 0 or max(M, K, N) > _INT32_MAX:
         raise ValueError(f"afpm_matmul: M, K, N = {M}, {K}, {N} out of range")
     chunks = len(chunk_bounds(K))
     mt = 1
-    while mt < MAX_TILE_ROWS // 8 and 8 * mt < M:
+    while mt < rows // 8 and 8 * mt < M:
         mt *= 2
     mblocks = -(-M // (8 * mt))
     if chunks > MAX_GRID_YZ or mblocks > MAX_GRID_YZ:
         raise ValueError(f"afpm_matmul: (M, K) = ({M}, {K}) exceeds the "
                          f"kernel grid ({MAX_GRID_YZ} chunks of {KCHUNK}, "
-                         f"{MAX_GRID_YZ} blocks of {MAX_TILE_ROWS} rows)")
-    split = (chunks > 1 and N * mblocks < _FILL_COLUMNS
+                         f"{MAX_GRID_YZ} blocks of {8 * mt} rows)")
+    split = (split_ok == 2 and chunks > 1 and N * mblocks < _FILL_COLUMNS
              and chunks * M * N * 4 <= MAX_SPLIT_BYTES)
     gy = chunks if split else 1
-    bn = (WIDE_BN if mt <= 4 and -(-N // WIDE_BN) * gy * mblocks >= 2 * SMS
-          else BN)
+    bn = (WIDE_BN if bn_max == WIDE_BN and mt <= 4
+          and -(-N // WIDE_BN) * gy * mblocks >= 2 * SMS else BN)
     return Plan(mt, bn, split, (-(-N // bn), gy, mblocks))
+
+
+def tuned_tile(M: int, K: int, N: int, device=None):
+    """The active tuning table's ``matmul/hopper`` block for this shape's
+    bucket on ``device``, or None (the static rule)."""
+    return autotune.lookup("matmul", "hopper", autotune.shape_bucket(M, K, N),
+                           device)
 
 
 def afpm_matmul_plain(x: torch.Tensor, w: torch.Tensor,
@@ -127,13 +146,14 @@ def _workspace(device, stream: int, n_part: int, n_count: int):
     return ws[2], ws[3]
 
 
-def afpm_matmul(x: torch.Tensor, w: torch.Tensor,
-                passes: int = 3) -> torch.Tensor:
+def afpm_matmul(x: torch.Tensor, w: torch.Tensor, passes: int = 3,
+                tile=None) -> torch.Tensor:
     """Segmented matmul ``x (..., M, K) @ w (K, N) -> (..., M, N)`` fp32.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel:
     ``x`` fp32 or bf16 and ``w`` fp32, both contiguous and on one device;
-    anything else raises."""
+    anything else raises.  ``tile`` overrides :func:`tuned_tile` (see
+    :func:`plan`); no tile changes an element's arithmetic."""
     dev = x.device
     if dev.type == "cpu" and w.device.type == "cpu":
         return afpm_matmul_plain(x, w, passes)
@@ -155,7 +175,9 @@ def afpm_matmul(x: torch.Tensor, w: torch.Tensor,
     K, N = w.shape
     rows = x.shape[:-1].numel()
     x_bytes = 2 if bf16 else 4
-    p = plan(rows, K, N)
+    if tile is None:
+        tile = tuned_tile(rows, K, N, dev)
+    p = plan(rows, K, N, None if tile is None else tuple(tile))
     out = torch.empty((*x.shape[:-1], N), dtype=torch.float32, device=dev)
     if rows == 0 or N == 0:
         return out

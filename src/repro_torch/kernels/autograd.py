@@ -62,10 +62,10 @@ class SegmentedMatmul(torch.autograd.Function):
     (a bf16 ``x`` rounds it, as the reference's input cast does)."""
 
     @staticmethod
-    def forward(ctx, x, w, passes):
+    def forward(ctx, x, w, passes, tile=None):
         ctx.passes = passes
         ctx.save_for_backward(x, w)
-        return afpm_matmul(x, w, passes)
+        return afpm_matmul(x, w, passes, tile)
 
     @staticmethod
     def backward(ctx, g):
@@ -90,7 +90,7 @@ class SegmentedMatmul(torch.autograd.Function):
                  if passes >= 2 else None)
             # w's lo segment gets A at passes 3
             dw = _seg_grad(A, A if passes >= 3 else None, B, passes, 2)
-        return dx, dw, None
+        return dx, dw, None, None
 
 
 class EmulatedMatmul(torch.autograd.Function):
@@ -150,12 +150,12 @@ def _differentiable(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
-def segmented_matmul(x, w, passes: int = 3) -> torch.Tensor:
+def segmented_matmul(x, w, passes: int = 3, tile=None) -> torch.Tensor:
     """K1 with its gradient where autograd records one; the kernel's
-    forward either way."""
+    forward either way (``tile``: :func:`.afpm_matmul.plan`'s)."""
     if _differentiable(x, w):
-        return SegmentedMatmul.apply(x, w, passes)
-    return afpm_matmul(x, w, passes)
+        return SegmentedMatmul.apply(x, w, passes, tile)
+    return afpm_matmul(x, w, passes, tile)
 
 
 def emulated_matmul(x, w, cfg, k_chunk: int = 64) -> torch.Tensor:

@@ -83,8 +83,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int MAX_BLOCKS = 4096;
+constexpr int THREADS = 256;  // a CTA's threads (the elementwise entry's most)
 constexpr int MAX_DEVICES = 64;
 constexpr uint32_t INF_BITS = 0x7F800000u;
 constexpr uint32_t NAN_BITS = 0x7FC00000u;
@@ -271,8 +270,9 @@ __global__ void __launch_bounds__(THREADS)
                         const uint32_t* __restrict__ y,
                         uint32_t* __restrict__ out, long long count, int vec,
                         Params p) {
-  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
-  const long long first = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  // blockDim.x threads a CTA (at most THREADS): the launch's CTA shape
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   long long tail = 0;
   if (vec) {  // four elements an iteration: the loop chip_smoke.py counts
     const long long count4 = count >> 2;
@@ -560,8 +560,8 @@ cudaError_t on_device(int device, Fn fn) {
 }
 
 cudaError_t launch(const void* fn, dim3 grid, void** args, int smem,
-                   void* stream) {
-  const cudaError_t err = cudaLaunchKernel(fn, grid, dim3(THREADS), args, smem,
+                   void* stream, int threads = THREADS) {
+  const cudaError_t err = cudaLaunchKernel(fn, grid, dim3(threads), args, smem,
                                            static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();  // clears a launch error too
   return err != cudaSuccess ? err : last;
@@ -573,15 +573,18 @@ extern "C" {
 
 // x, y, out: `count` contiguous fp32 values (as bits).  acl selects ACL-n;
 // full says the storage format is fp32 itself (man_bits 23, exp_bits 8).
-// The ablation knobs only shape AC-n-n.  Launches on `stream` on CUDA
-// device `device`, does not synchronise, and returns the launch's
-// cudaError_t (0 on success).
+// The ablation knobs only shape AC-n-n.  The CTA shape: `threads` a CTA (a
+// multiple of 32, at most THREADS) and at most `max_blocks` CTAs, which
+// loop over the elements; no shape changes a product.  Launches on
+// `stream` on CUDA device `device`, does not synchronise, and returns the
+// launch's cudaError_t (0 on success).
 int afpm_bitwise_launch(const void* x, const void* y, void* out,
                         long long count, int seg_n, int man_bits, int bias,
                         int max_exp_field, int acl, int full, int conditional,
-                        int compensation, int skip_bd, int device,
-                        void* stream) {
-  if (count < 0 || bad_config(seg_n, man_bits, acl))
+                        int compensation, int skip_bd, int threads,
+                        int max_blocks, int device, void* stream) {
+  if (count < 0 || bad_config(seg_n, man_bits, acl) || threads < 32 ||
+      threads > THREADS || threads % 32 != 0 || max_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (count == 0) return 0;
   const void* fn = kernel_for<Elementwise>(
@@ -589,15 +592,15 @@ int afpm_bitwise_launch(const void* x, const void* y, void* out,
   int vec = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
              reinterpret_cast<uintptr_t>(out)) % 16 == 0;
   const long long items = vec ? (count + 3) / 4 : count;
-  const long long want = (items + THREADS - 1) / THREADS;
-  const dim3 grid(static_cast<unsigned>(want < MAX_BLOCKS ? want : MAX_BLOCKS));
+  const long long want = (items + threads - 1) / threads;
+  const dim3 grid(static_cast<unsigned>(want < max_blocks ? want : max_blocks));
   Params p = make_params(seg_n, man_bits, bias, max_exp_field, acl != 0);
   const void* xp = x;
   const void* yp = y;
   void* op = out;
   void* args[] = {&xp, &yp, &op, &count, &vec, &p};
   return static_cast<int>(
-      on_device(device, [&] { return launch(fn, grid, args, 0, stream); }));
+      on_device(device, [&] { return launch(fn, grid, args, 0, stream, threads); }));
 }
 
 // x: (M, K) fp32 row-major, w: (K, N) fp32 row-major, out: (M, N) fp32.

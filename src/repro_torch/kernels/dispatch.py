@@ -12,6 +12,11 @@ scan), each with a ``backend`` knob
               ``ref.afpm_bitwise_ref``, ``core.afpm.afpm_matmul_emulated``,
               ``ref.ssd_scan_chunked_ref``), on either device
 
+Each kernel's launch shape comes from the active tuning table
+(:mod:`.autotune`) where it has an entry for the operand's device kind,
+else from the static rule; ``matmul(tile=)``, ``multiply(block=)`` and
+``ssd(chunk=)`` take one explicitly (what a tuner's ``measure_fn`` times).
+
 Under autograd the kernel route of ``matmul``, ``emulated_matmul`` and
 ``ssd`` is differentiable (:mod:`.autograd`): the forward is still the
 kernel, and the backward computes what ``jax.grad`` of the JAX package's
@@ -25,8 +30,9 @@ import torch
 from repro_torch.core.afpm import AFPMConfig, afpm_matmul_emulated
 from repro_torch.core.numerics import BACKENDS
 
-from . import autograd, ref
+from . import autograd, autotune, ref
 from .afpm_bitwise import afpm_bitwise
+from .autotune import shape_bucket
 
 
 def resolve_backend(backend: str, x: torch.Tensor) -> str:
@@ -42,19 +48,9 @@ def resolve_backend(backend: str, x: torch.Tensor) -> str:
     return backend
 
 
-def shape_bucket(*dims: int) -> str:
-    """Bucket a shape by its largest extent: small / medium / large."""
-    m = max(dims) if dims else 0
-    if m <= 256:
-        return "small"
-    if m <= 1024:
-        return "medium"
-    return "large"
-
-
 # Static SSD chunk table, the JAX package's: ``hopper`` takes its ``pallas``
-# rows and ``torch`` its ``xla`` rows.  A tuned table waits for the
-# autotuner.
+# rows and ``torch`` its ``xla`` rows; a tuned table's ``ssd`` entries come
+# first.
 SCAN_CHUNKS = {
     ("hopper", "small"): 128,
     ("hopper", "medium"): 128,
@@ -65,19 +61,23 @@ SCAN_CHUNKS = {
 }
 
 
-def scan_chunk(backend: str, L: int) -> int:
-    """The SSD chunk for a resolved backend (``hopper | torch``) and
-    sequence length ``L``."""
-    return SCAN_CHUNKS[(backend, shape_bucket(L))]
+def scan_chunk(backend: str, L: int, device=None) -> int:
+    """The SSD chunk for a resolved backend (``hopper | torch``), sequence
+    length ``L`` and the operands' ``device``: the active tuning table's,
+    else :data:`SCAN_CHUNKS`."""
+    bucket = shape_bucket(L)
+    tuned = autotune.lookup("ssd", backend, bucket, device)
+    return tuned if tuned is not None else SCAN_CHUNKS[(backend, bucket)]
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, passes: int = 3, *,
-           backend: str = "auto") -> torch.Tensor:
+           backend: str = "auto", tile=None) -> torch.Tensor:
     """Segmented approximate matmul ``x (..., K) @ w (K, N)`` -> fp32.
 
     Validation and 1-D promotion happen here, before the backend branch,
     so every backend accepts the same inputs; leading batch dims of ``x``
-    are kept (the kernel flattens them into its rows)."""
+    are kept (the kernel flattens them into its rows).  ``tile`` is the
+    kernel's (:func:`.afpm_matmul.plan`); the plain version takes none."""
     backend = resolve_backend(backend, x)
     if x.dim() < 1 or w.dim() != 2:
         raise ValueError(f"need x (..., K) @ w (K, N); got "
@@ -92,7 +92,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor, passes: int = 3, *,
         out = ref.afpm_matmul_ref(x, w, passes)
     else:
         out = autograd.segmented_matmul(x.contiguous(), w.contiguous(),
-                                        passes)
+                                        passes, tile)
     return out[0] if vec else out
 
 
@@ -105,11 +105,12 @@ def _as_operand(t, device) -> torch.Tensor:
 
 
 def multiply(x, y, cfg: AFPMConfig = AFPMConfig(), *,
-             backend: str = "auto") -> torch.Tensor:
+             backend: str = "auto", block=None) -> torch.Tensor:
     """Elementwise bit-level AFPM multiply under ``cfg`` -> fp32.
 
     Operands are broadcast first (a 0-d scalar included), so every backend
-    takes the same inputs; the kernel itself needs equal shapes."""
+    takes the same inputs; the kernel itself needs equal shapes.
+    ``block`` is the kernel's CTA shape (:func:`.afpm_bitwise.launch_block`)."""
     tensors = [t for t in (x, y) if isinstance(t, torch.Tensor)]
     shaped = [t for t in tensors if t.dim() > 0] or tensors
     dev = shaped[0].device if shaped else torch.device("cpu")
@@ -117,7 +118,7 @@ def multiply(x, y, cfg: AFPMConfig = AFPMConfig(), *,
     backend = resolve_backend(backend, x)
     if backend == "torch":
         return ref.afpm_bitwise_ref(x, y, cfg)
-    return afpm_bitwise(x.contiguous(), y.contiguous(), cfg)
+    return afpm_bitwise(x.contiguous(), y.contiguous(), cfg, block)
 
 
 def emulated_matmul(x, w, cfg: AFPMConfig = AFPMConfig(), k_chunk: int = 64,
@@ -148,7 +149,8 @@ def ssd(x, dt, A, B, C, *, chunk=None, backend: str = "auto") -> torch.Tensor:
     fp32, with an optional leading batch dimension on ``x``, ``dt``, ``B``
     and ``C``.
 
-    ``chunk=None`` takes :func:`scan_chunk` for the resolved backend.  Any
+    ``chunk=None`` takes :func:`scan_chunk` for the resolved backend and
+    the operands' device.  Any
     length is accepted: with ``Q = min(chunk, L)``, a length that is not a
     multiple of ``Q`` is padded with dt = 0 steps (exact: no decay
     increment and no input weight), and the padding is sliced off after.
@@ -161,7 +163,7 @@ def ssd(x, dt, A, B, C, *, chunk=None, backend: str = "auto") -> torch.Tensor:
         x, dt, B, C = x[None], dt[None], B[None], C[None]
     L = x.shape[1]
     if chunk is None:
-        chunk = scan_chunk(backend, L)
+        chunk = scan_chunk(backend, L, x.device)
     Q = min(chunk, L) if L else chunk
     pad = (-L) % Q
     if pad:

@@ -1,12 +1,28 @@
-"""Modeled cost of serving under a per-layer numerics policy.
+"""Counted cost of a step, the roofline terms, and the modeled cost of a
+numerics policy (``repro.launch.hlo_analysis`` counterpart).
 
-The port's counterpart of two functions of ``repro.launch.hlo_analysis``
-(:func:`policy_compute_scale`, :func:`policy_ppa_summary`): pure
-arithmetic over a policy and its call sites, what
-``Session.ppa_report`` returns.  The rest of the reference module reads
-XLA's cost analysis and has no counterpart yet.
+The reference reads XLA's compiled module; the port has no compiler
+module to read, so it counts the step itself: :func:`step_cost` runs one
+step function on ``meta`` tensors (shapes and dtypes, no data, no device
+memory) under a :class:`~torch.utils._python_dispatch.TorchDispatchMode`
+that sees every ATen op the step runs, autograd's backward included.
+:func:`roofline_terms` turns a per-chip cost into the compute and memory
+times against one card's data-sheet peaks (:data:`CARD_PEAKS`); the
+collective term is ``None``: the port runs no collectives yet.
+
+:func:`policy_compute_scale` and :func:`policy_ppa_summary` are pure
+arithmetic over a policy and its call sites, what ``Session.ppa_report``
+returns.
 """
 from __future__ import annotations
+
+import time
+import weakref
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch import tree as tree_util
 
 # Passes of the exact split-float product (paper Eq. 6: the full 6-term
 # hi/lo expansion); segmented seg_passes=k keeps k of them, so a site's
@@ -48,4 +64,235 @@ def policy_ppa_summary(policy, layer_paths, counts=None) -> dict:
         out["baseline_area_um2"], 1e-30)
     out["power_reduction"] = 1.0 - out["power_w"] / max(
         out["baseline_power_w"], 1e-30)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the card's data-sheet peaks
+# ---------------------------------------------------------------------------
+
+#: (name fragments, card, HBM bytes/s, dense bf16 FLOP/s, fp32 FLOP/s
+#: outside the tensor cores) from NVIDIA's data sheets; the first row whose
+#: fragments all occur in the device name applies
+CARD_PEAKS = (
+    (("H200",), "H200 SXM", 4.8e12, 989e12, 67e12),
+    (("H100", "PCIe"), "H100 PCIe", 2.0e12, 756e12, 51e12),
+    (("H100", "NVL"), "H100 NVL", 3.9e12, 835e12, 60e12),
+    (("H100",), "H100 SXM", 3.35e12, 989e12, 67e12),
+)
+#: the card a dry-run prices when it is given none (what it is written for)
+DEFAULT_CARD = "NVIDIA H100 80GB HBM3"
+
+
+def card_peaks(name: str):
+    """``(bytes/s, dense bf16 FLOP/s, fp32 FLOP/s)`` of the card named
+    ``name`` (``torch.cuda.get_device_name``); raises for a card with no
+    row in :data:`CARD_PEAKS`."""
+    return _card_row(name)[2:]
+
+
+def _card_row(name: str):
+    for frags, *row in CARD_PEAKS:
+        if all(f in name for f in frags):
+            return (frags, *row)
+    raise RuntimeError(f"no published peaks known for {name!r}")
+
+
+# ---------------------------------------------------------------------------
+# the counter
+# ---------------------------------------------------------------------------
+
+def _tensors(tree) -> list:
+    """The distinct tensors of a tree (nested dicts, lists and tuples)."""
+    seen = {}
+    for t in tree_util.leaves(tree):
+        if isinstance(t, torch.Tensor):
+            seen.setdefault(id(t), t)
+    return list(seen.values())
+
+
+def nbytes(tree) -> int:
+    """Bytes of the distinct tensors of a tree (each counted once)."""
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
+def _dot_flops(func, args, out):
+    """2 x output elements x contracted extent for a product op (as the
+    reference counts HLO ``dot`` and ``convolution``), else 0."""
+    aten = torch.ops.aten
+    pkt = func.overloadpacket
+    if pkt in (aten.mm, aten.bmm, aten.mv):
+        return 2 * out.numel() * args[0].shape[-1]
+    if pkt in (aten.addmm, aten.baddbmm, aten.addmv):
+        return 2 * out.numel() * args[1].shape[-1]
+    if pkt in (aten.dot, aten.vdot):
+        return 2 * args[0].numel()
+    if pkt in (aten.convolution, aten._convolution):
+        w = args[1]
+        return 2 * out.numel() * (w.numel() // max(w.shape[0], 1))
+    return 0
+
+
+def step_cost(fn, *abstract_args, **kwargs) -> dict:
+    """Count one call ``fn(*abstract_args, **kwargs)`` on meta tensors.
+
+    Returns (for the whole step, unsharded):
+
+    - ``flops``: 2 x output elements x contracted extent of every product
+      (``mm``, ``bmm``, ``addmm``, ``baddbmm``, ``mv``, ``dot``,
+      ``convolution``; what ``matmul`` and ``einsum`` lower to), as the
+      reference's ``loop_aware_cost`` counts ``dot`` and ``convolution``;
+    - ``bytes_stream``: the bytes each op reads and writes (its tensor
+      inputs and outputs), views excluded: memory traffic with no fusion;
+    - ``bytes_fused``: the bytes of the step's arguments and results (its
+      weights read once, its state read and written): the traffic of a
+      step whose every op keeps its intermediates on chip;
+    - ``peak_bytes``: the most bytes that tensors allocated during the
+      step held at once (each op's fresh outputs, freed when the last
+      reference goes), and ``new_output_bytes``: the bytes of the step's
+      results that it allocated (not updated in place);
+    - ``ops``: the ATen ops counted, ``count_s``, and ``result``: what
+      the step returned (meta tensors).
+
+    A step that reads a tensor's value on the host (``.item()``,
+    ``int(t)``) fails on meta tensors: the counted steps take Python ints
+    for positions.
+    """
+    state = {"flops": 0, "bytes_stream": 0, "ops": 0, "live": 0, "peak": 0}
+    fresh = set()       # ids of live tensors allocated during the step
+    known: dict = {}    # op signature -> its outputs' (shape, stride, dtype)
+
+    def freed(key, n):
+        fresh.discard(key)
+        state["live"] -= n
+
+    def sig(x):
+        if isinstance(x, torch.Tensor):
+            return (tuple(x.shape), x.stride(), x.dtype, x.device.type)
+        if isinstance(x, (list, tuple)):
+            return tuple(sig(e) for e in x)
+        return x
+
+    def flat(x, acc):
+        if isinstance(x, torch.Tensor):
+            acc.append(x)
+        elif isinstance(x, (list, tuple)):
+            for e in x:
+                flat(e, acc)
+        elif isinstance(x, dict):
+            for e in x.values():
+                flat(e, acc)
+        return acc
+
+    class Counter(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            state["ops"] += 1
+            if func.is_view:
+                return func(*args, **kwargs)
+            # an out-of-place op on meta tensors: its outputs depend on its
+            # inputs' shapes, strides and dtypes alone, so a signature met
+            # before (every repeat of a layer) makes them without the meta
+            # kernel
+            key = None
+            if not func._schema.is_mutable:
+                try:
+                    key = (func, sig(args), sig(tuple(sorted(kwargs.items()))))
+                    hash(key)
+                except TypeError:
+                    key = None
+            metas = known.get(key) if key is not None else None
+            if metas is not None:
+                made = [torch.empty_strided(sh, st, dtype=dt, device="meta")
+                        for sh, st, dt in metas]
+                out = made[0] if len(made) == 1 and not isinstance(
+                    metas, list) else type(metas)(made)
+            else:
+                out = func(*args, **kwargs)
+                outs = out if isinstance(out, (tuple, list)) else (out,)
+                if key is not None and all(
+                        isinstance(o, torch.Tensor) and o.is_meta
+                        and o.storage_offset() == 0 for o in outs):
+                    spec = [(o.shape, o.stride(), o.dtype) for o in outs]
+                    known[key] = (spec if isinstance(out, (tuple, list))
+                                  else tuple(spec))
+            ins = flat((args, kwargs), [])
+            outs = flat(out, [])
+            if outs:
+                state["flops"] += _dot_flops(func, args, outs[0])
+            state["bytes_stream"] += sum(t.numel() * t.element_size()
+                                         for t in ins + outs)
+            in_ids = {id(t) for t in ins}
+            for o in outs:
+                if id(o) in in_ids or id(o) in fresh:
+                    continue   # written in place
+                n = o.untyped_storage().nbytes()
+                fresh.add(id(o))
+                state["live"] += n
+                weakref.finalize(o, freed, id(o), n)
+            state["peak"] = max(state["peak"], state["live"])
+            return out
+
+    t0 = time.perf_counter()
+    with Counter():
+        result = fn(*abstract_args, **kwargs)
+    count_s = time.perf_counter() - t0
+    args = (abstract_args, kwargs)
+    arg_ids = {id(t) for t in _tensors(args)}
+    new_out = nbytes([t for t in _tensors(result) if id(t) not in arg_ids])
+    return {"flops": float(state["flops"]),
+            "bytes_stream": float(state["bytes_stream"]),
+            "bytes_fused": float(nbytes(args) + nbytes(result)),
+            "peak_bytes": float(state["peak"]),
+            "new_output_bytes": float(new_out),
+            "ops": state["ops"], "count_s": count_s, "result": result}
+
+
+# ---------------------------------------------------------------------------
+# roofline terms
+# ---------------------------------------------------------------------------
+
+def roofline_terms(cost: dict, n_chips: int, model_flops=None,
+                   compute_scale: float = 1.0,
+                   card: str = DEFAULT_CARD) -> dict:
+    """The reference's roofline record for a per-chip ``cost`` (``flops``,
+    ``bytes_stream``, ``bytes_fused``), priced on ``card``'s data-sheet
+    peaks (:data:`CARD_PEAKS`: dense bf16 FLOP/s and HBM bytes/s).
+
+    The memory term reads ``bytes_fused`` (weights read once, state read
+    and written); the stream count is recorded beside it, and as the
+    reference's XLA-convention key.  ``compute_scale`` folds a numerics
+    policy into the compute term (:func:`policy_compute_scale`).  The
+    collective term is ``None`` (no collectives yet), and ``dominant``
+    is taken over compute and memory."""
+    _, card_name, hbm_bw, peak_flops, _ = _card_row(card)
+    flops = float(cost.get("flops", 0.0))
+    stream = float(cost.get("bytes_stream", 0.0))
+    fused = float(cost.get("bytes_fused", stream))
+    t_compute = flops * compute_scale / peak_flops
+    t_memory = fused / hbm_bw
+    out = {
+        "hlo_flops_per_chip": flops,
+        "numerics_compute_scale": compute_scale,
+        "hlo_bytes_per_chip": fused,
+        "hlo_bytes_stream_per_chip": stream,
+        "hlo_bytes_xla_convention_per_chip": stream,
+        "collective_bytes_per_chip": None,
+        "collective_by_kind": None,
+        "t_compute_s": t_compute,
+        "t_memory_s": t_memory,
+        "t_collective_s": None,
+        "dominant": "compute" if t_compute >= t_memory else "memory",
+        "n_chips": n_chips,
+        "card": card_name,
+        "peak_flops_bf16": peak_flops,
+        "hbm_bytes_per_s": hbm_bw,
+    }
+    if model_flops is not None:
+        out["model_flops_total"] = model_flops
+        out["model_flops_per_chip"] = model_flops / n_chips
+        out["useful_flops_ratio"] = (model_flops / n_chips) / max(flops, 1.0)
+        bound = max(t_compute, t_memory)
+        ideal = (model_flops / n_chips) / peak_flops
+        out["roofline_fraction"] = ideal / max(bound, 1e-12)
     return out

@@ -29,11 +29,16 @@ def make_optimizer(cfg, **overrides):
 def grads_of(loss_fn, params, *args):
     """``(loss, grads)``: ``loss_fn(params, *args)`` differentiated with
     respect to every leaf of ``params`` (each leaf's ``.grad`` is added to,
-    so successive calls accumulate; clear them with :func:`clear_grads`)."""
+    so successive calls accumulate; clear them with :func:`clear_grads`).
+    A leaf the loss does not reach (the token embedding of a batch of
+    ``embeds``) gets a zero gradient, as ``jax.grad`` gives it."""
     for p in tree_util.leaves(params):
         p.requires_grad_(True)
     loss = loss_fn(params, *args)
     loss.backward()
+    for p in tree_util.leaves(params):
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
     return loss.detach(), tree_util.map(lambda p: p.grad, params)
 
 

@@ -161,6 +161,58 @@ def param_shapes(cfg) -> dict:
     return out
 
 
+# logical axes of a block's leaves (without the stacked "layers" axis), the
+# names the JAX package's initializers give them (``repro.models.layers.PP``)
+_BLOCK_AXES = {
+    "ln1.scale": ("embed",), "ln2.scale": ("embed",),
+    "ln_cross.scale": ("embed",),
+    "attn.wq": ("embed", "q_dim"), "attn.wk": ("embed", "kv_dim"),
+    "attn.wv": ("embed", "kv_dim"), "attn.wo": ("q_dim", "embed"),
+    "attn.q_norm.scale": ("embed",), "attn.k_norm.scale": ("embed",),
+    "attn.wq_a": ("embed", "q_lora"), "attn.q_a_norm.scale": ("embed",),
+    "attn.wq_b": ("q_lora", "q_dim"), "attn.wkv_a": ("embed", "kv_lora"),
+    "attn.kv_a_norm.scale": ("embed",), "attn.wk_b": ("kv_lora", "q_dim"),
+    "attn.wv_b": ("kv_lora", "q_dim"),
+    "cross.wq": ("embed", "q_dim"), "cross.wk": ("embed", "q_dim"),
+    "cross.wv": ("embed", "q_dim"), "cross.wo": ("q_dim", "embed"),
+    "mlp.wi": ("embed", "mlp"), "mlp.wg": ("embed", "mlp"),
+    "mlp.wo": ("mlp", "embed"), "mlp.router": ("embed", None),
+    "mlp.shared.wi": ("embed", "mlp"), "mlp.shared.wg": ("embed", "mlp"),
+    "mlp.shared.wo": ("mlp", "embed"),
+    "ssm.in_proj": ("embed", "ssm_inner"), "ssm.conv_w": ("conv", "ssm_inner"),
+    "ssm.conv_b": ("ssm_inner",), "ssm.A_log": (None,),
+    "ssm.dt_bias": (None,), "ssm.norm": ("embed",),
+    "ssm.out_proj": ("ssm_inner", "embed"),
+}
+_TOP_AXES = {"embed": ("vocab", "embed_table"), "unembed": ("embed_table", "vocab"),
+             "final_norm.scale": ("embed",), "encoder.norm.scale": ("embed",)}
+_EXPERT_STACKS = ("mlp.wi", "mlp.wg", "mlp.wo")
+
+
+def param_specs(cfg) -> dict:
+    """Flat ``{dotted name: logical axes}`` beside :func:`param_shapes`:
+    each leaf's axis names as the JAX package's initializers give them
+    (``layers`` on a stacked leaf, ``experts`` on a MoE expert stack), what
+    :mod:`repro_torch.distributed.sharding` maps onto a mesh."""
+    out = {}
+    kinds = {f"seg{si}_p{pi}": spec for si, (_, pattern)
+             in enumerate(cfg.segments) for pi, spec in enumerate(pattern)}
+    for name in param_shapes(cfg):
+        if name in _TOP_AXES:
+            out[name] = _TOP_AXES[name]
+            continue
+        if name.startswith("encoder.blocks."):
+            out[name] = ("layers",) + _BLOCK_AXES[name[len("encoder.blocks."):]]
+            continue
+        block, leaf = name.split(".", 1)
+        spec = kinds[block]
+        axes = _BLOCK_AXES[leaf]
+        if spec.kind == "moe" and leaf in _EXPERT_STACKS:
+            axes = ("experts",) + axes
+        out[name] = axes if spec.shared else ("layers",) + axes
+    return out
+
+
 def block_numerics_sites(cfg, spec) -> tuple:
     """Relative resolution paths inside one block: every ``nmatmul`` call
     site, plus the SSD scan's backend lookup; a decoder block of an

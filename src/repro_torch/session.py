@@ -50,6 +50,13 @@ and exit codes (2 and a one-line error for a :class:`SessionError`), plus
     python -m repro_torch.session serve-loop     --weights ckpt/ --tiers premium:exact,standard:segmented3
     python -m repro_torch.session auto-configure --arch qwen3-4b --budget 1e-2 --out p.json
     python -m repro_torch.session ppa            --arch qwen3-4b --policy p.json
+    python -m repro_torch.session dryrun         --arch qwen3-4b --shape train_4k
+
+``--tune TUNE_JSON`` activates a kernel-tuning artifact
+(:mod:`repro_torch.kernels.autotune`), as ``Session(tune=...)`` does.
+``dryrun`` counts one full-size (arch x shape x mesh) cell on meta tensors
+(:mod:`repro_torch.launch.dryrun`): it draws no weights and allocates
+nothing on any device.
 
 ``--backend`` takes the port's names (``auto``, ``hopper``, ``torch``) or
 the JAX package's, mapped as policy files map them (``xla`` and
@@ -172,7 +179,7 @@ class GenerateResult:
 
 
 class Session:
-    """(arch, policy, backend, device) + params: the one public spec.
+    """(arch, policy, backend, mesh, device) + params: the one public spec.
 
     ``arch`` is an arch id from ``repro_torch.configs`` (reduced to the
     CPU-sized config unless ``reduced=False``), a ready
@@ -183,11 +190,19 @@ class Session:
     :func:`repro_torch.compat.jax_params.params_from_numpy`) must live on
     ``device``; without them an LM session draws seeded random weights
     there.
+
+    ``mesh`` is carried for the dry-run (``"multi"`` selects the 2x16x16
+    multi-pod mesh, anything else the single-pod 16x16).  ``tune`` is a
+    kernel-tuning artifact (a path or a
+    :class:`~repro_torch.kernels.autotune.TuningTable`) activated
+    process-wide, as the JAX package's ``Session(tune=)``; a bad artifact
+    raises a one-line :class:`SessionError`.
     """
 
-    def __init__(self, arch, policy=None, backend: Optional[str] = None, *,
-                 seed: int = 0, reduced: bool = True, params=None,
-                 state=None, device=None):
+    def __init__(self, arch, policy=None, backend: Optional[str] = None,
+                 mesh: Optional[str] = None, *, seed: int = 0,
+                 reduced: bool = True, params=None, state=None, device=None,
+                 tune=None):
         from repro_torch.models.resnet import ResNetConfig
 
         if isinstance(arch, str):
@@ -217,8 +232,19 @@ class Session:
             # (and are the ResNet's exact fc): TF32 would round operands
             torch.backends.cuda.matmul.allow_tf32 = False
         self.backend = backend
+        self.mesh = mesh
         self.seed = seed
         self._numerics_override = _coerce_numerics(policy)
+        # activation is process-wide: the wrappers' lookups are module-level,
+        # like the static rules they replace
+        self._tune = tune
+        if tune is not None:
+            from repro_torch.kernels import autotune
+
+            try:
+                autotune.activate(tune)
+            except autotune.TuneError as e:
+                raise SessionError(str(e)) from e
         if params is not None:
             leaf = params["embed" if self._family == "lm" else "stem"]
             if leaf.device != self.device:
@@ -249,11 +275,12 @@ class Session:
         return is_policy(self.numerics)
 
     def replace(self, **kw) -> "Session":
-        """A new Session with fields replaced (policy/backend/seed/params/
-        state/device); params and state are shared unless overridden."""
+        """A new Session with fields replaced (policy/backend/mesh/seed/
+        params/state/device/tune); params and state are shared unless
+        overridden."""
         args = dict(policy=self._numerics_override, backend=self.backend,
-                    seed=self.seed, params=self._params, state=self._state,
-                    device=self.device)
+                    mesh=self.mesh, seed=self.seed, params=self._params,
+                    state=self._state, device=self.device, tune=self._tune)
         unknown = set(kw) - set(args)
         if unknown:
             raise SessionError(
@@ -261,8 +288,9 @@ class Session:
                 f"expected a subset of {sorted(args)}")
         args.update(kw)
         return Session(self._base_cfg, args["policy"], args["backend"],
-                       seed=args["seed"], params=args["params"],
-                       state=args["state"], device=args["device"])
+                       args["mesh"], seed=args["seed"], params=args["params"],
+                       state=args["state"], device=args["device"],
+                       tune=args["tune"])
 
     # -- parameters ---------------------------------------------------------
 
@@ -294,10 +322,11 @@ class Session:
 
     @classmethod
     def from_pretrained(cls, family: str, path, policy=None,
-                        backend: Optional[str] = None, *, cfg=None,
+                        backend: Optional[str] = None,
+                        mesh: Optional[str] = None, *, cfg=None,
                         reduced: bool = True, unknown: str = "error",
                         cast: bool = True, seed: int = 0,
-                        device=None) -> "Session":
+                        device=None, tune=None) -> "Session":
         """A Session over pretrained weights (:mod:`repro_torch.compat`).
 
         ``family`` names a registered checkpoint converter (``qwen3-4b``,
@@ -309,7 +338,8 @@ class Session:
         default.  ``unknown``/``cast`` go to
         :func:`repro_torch.compat.load_pretrained`; interop failures raise
         one-line :class:`repro_torch.compat.CompatError`\\ s.  The weights
-        are copied to ``device`` (``cuda`` unless ``"cpu"``).
+        are copied to ``device`` (``cuda`` unless ``"cpu"``).  ``mesh`` and
+        ``tune`` are the constructor's.
         """
         from repro_torch import compat
 
@@ -317,11 +347,11 @@ class Session:
         loaded = compat.load_pretrained(family, path, cfg=cfg,
                                         reduced=reduced, unknown=unknown,
                                         cast=cast)
-        return cls(loaded.cfg, policy, backend, seed=seed,
+        return cls(loaded.cfg, policy, backend, mesh, seed=seed,
                    params=_to_device(loaded.params, dev),
                    state=(None if loaded.state is None
                           else _to_device(loaded.state, dev)),
-                   device=dev)
+                   device=dev, tune=tune)
 
     def export(self, path) -> None:
         """Write this session's params (+ ResNet batch-norm state) as one
@@ -577,9 +607,30 @@ class Session:
         self._numerics_override = res.policy
         return res
 
+    # -- dry-run (counted, not compiled) ------------------------------------
+
+    def dryrun(self, shape: str, multi_pod: Optional[bool] = None) -> dict:
+        """Count one (arch x shape x mesh) cell on meta tensors and return
+        the memory / roofline record (:mod:`repro_torch.launch.dryrun`).
+        The session's weights are never drawn, and nothing is allocated on
+        any device; ``multi_pod=None`` takes the session's ``mesh``."""
+        if self._family != "lm":
+            raise SessionError("dryrun() is the LM entry point; ResNet "
+                               "sessions have no launch shapes")
+        from repro_torch.launch import specs
+
+        if shape not in specs.SHAPES:
+            raise SessionError(f"unknown dryrun shape {shape!r}; expected "
+                               f"one of {sorted(specs.SHAPES)}")
+        from repro_torch.launch import dryrun as dryrun_mod
+
+        if multi_pod is None:
+            multi_pod = self.mesh == "multi"
+        return dryrun_mod.lower_session_cell(self, shape, multi_pod)
+
 
 # ---------------------------------------------------------------------------
-# the session CLI (generate / serve-loop / auto-configure / ppa)
+# the session CLI (generate / serve-loop / auto-configure / ppa / dryrun)
 # ---------------------------------------------------------------------------
 
 def _add_common(ap):
@@ -594,6 +645,12 @@ def _add_common(ap):
                          "tensors), hopper or torch; the JAX package's "
                          "pallas / interpret / xla map to hopper / torch / "
                          "torch")
+    ap.add_argument("--tune", default=None, metavar="TUNE_JSON",
+                    help="kernel-tuning artifact to activate "
+                         "(TUNE_<device>.json, written by "
+                         "repro_torch.kernels.autotune.sweep). Default: the "
+                         "REPRO_TUNE_FILE env var if set, else the static "
+                         "launch shapes")
     ap.add_argument("--weights", default=None, metavar="CKPT",
                     help="pretrained checkpoint loaded through the compat "
                          "converter registered for --arch (safetensors "
@@ -633,7 +690,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="repro_torch.session",
         description="Session CLI: generate / serve-loop / auto-configure / "
-                    "ppa over one (arch, policy, backend, device) spec")
+                    "ppa / dryrun over one (arch, policy, backend, device) "
+                    "spec")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     g = sub.add_parser("generate", help="batched prefill + greedy decode")
@@ -685,6 +743,18 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("ppa", help="Table II PPA roll-up of the policy")
     _add_common(p)
+
+    d = sub.add_parser(
+        "dryrun",
+        help="count one full-size cell's memory and FLOPs on meta tensors "
+             "(as python -m repro_torch.launch.dryrun)")
+    _add_common(d)
+    d.add_argument("--shape", required=True)
+    d.add_argument("--multi-pod", action="store_true")
+    d.add_argument("--reduced", action="store_true",
+                   help="count the reduced CPU-sized config instead of the "
+                        "full arch (dryrun defaults to full size so records "
+                        "match python -m repro_torch.launch.dryrun)")
     return ap
 
 
@@ -695,17 +765,23 @@ def _session(args) -> Session:
         device = resolve_device(args.device)
     except RuntimeError as e:   # no card: a one-line error, not a traceback
         raise SessionError(str(e)) from e
+    # dryrun counts the full-size arch by default (its records must match
+    # the launch.dryrun CLI's); every other subcommand works on the reduced
+    # config unless --full-size
+    reduced = args.reduced if args.cmd == "dryrun" else not args.full_size
     if args.weights:
         from repro_torch.compat import CompatError
 
         try:
             return Session.from_pretrained(
                 args.arch, args.weights, policy=args.policy, backend=backend,
-                seed=args.seed, reduced=not args.full_size, device=device)
+                seed=args.seed, reduced=reduced, device=device,
+                tune=args.tune)
         except CompatError as e:
             raise SessionError(str(e)) from e
     return Session(args.arch, policy=args.policy, backend=backend,
-                   seed=args.seed, reduced=not args.full_size, device=device)
+                   seed=args.seed, reduced=reduced, device=device,
+                   tune=args.tune)
 
 
 def _serve_loop(sess: Session, args) -> None:
@@ -771,6 +847,11 @@ def main(argv=None) -> int:
                 print(f"[session] policy written to {args.out}")
         elif args.cmd == "ppa":
             print_ppa_report(sess.ppa_report())
+        elif args.cmd == "dryrun":
+            rec = sess.dryrun(args.shape, multi_pod=args.multi_pod)
+            print(json.dumps(rec, indent=1))
+            return 0 if rec.get("status", "error").startswith(
+                ("ok", "skipped")) else 1
     except SessionError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -92,9 +92,9 @@ def test_segmented_matmul_forward_is_the_kernel_wrapper(monkeypatch):
     calls = []
     real = autograd.afpm_matmul
 
-    def counted(x, w, passes):
+    def counted(x, w, passes, tile=None):
         calls.append(passes)
-        return real(x, w, passes)
+        return real(x, w, passes, tile)
 
     monkeypatch.setattr(autograd, "afpm_matmul", counted)
     x = torch.randn(4, 64, requires_grad=True)

@@ -119,3 +119,27 @@ def test_trainer_refuses_the_cpu_unless_asked(monkeypatch, tmp_path):
     params, _, losses = train.train("qwen3-4b", steps=1, seq_len=4, batch=1,
                                     device="cpu")
     assert len(losses) == 1 and params["embed"].device.type == "cpu"
+
+
+def test_dryrun_entry_points_refuse_the_cpu_unless_asked(monkeypatch, capsys,
+                                                         tmp_path):
+    """The dryrun CLI, the session CLI's ``dryrun`` and ``Session.dryrun``
+    run on the card unless asked for the CPU (the count itself allocates
+    nothing on either)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.session import Session, main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["--arch", "qwen3-4b", "--shape", "long_500k"]
+    assert dryrun.main(args + ["--out-dir", str(tmp_path)]) == 2
+    assert main(["dryrun"] + args) == 2
+    err = capsys.readouterr().err
+    assert err.count("device='cpu'") == 2
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Session("qwen3-4b", reduced=False).dryrun("long_500k")
+    # asked for the CPU, each of them runs there
+    assert dryrun.main(args + ["--device", "cpu", "--out-dir",
+                               str(tmp_path)]) == 0
+    assert main(["dryrun", "--device", "cpu"] + args) == 0
+    rec = Session("qwen3-4b", reduced=False, device="cpu").dryrun("long_500k")
+    assert rec["status"].startswith("skipped")

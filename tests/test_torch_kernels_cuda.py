@@ -212,6 +212,40 @@ def _inputs(rng, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 150])
+def test_afpm_matmul_kernel_every_tuner_tile_gives_the_same_bits(M, rng):
+    """Every K1 tile the autotuner can choose computes the static plan's
+    output bit for bit (a tile never changes an element's arithmetic)."""
+    from repro_torch.kernels import autotune
+
+    _need_card()
+    for K, N in ((2560, 1024), (9728, 2560), (512, 64)):
+        x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).cuda()
+        w = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32)).cuda()
+        want = k1.afpm_matmul(x, w, 3)
+        for tile in autotune.candidates("matmul", "hopper", "large"):
+            got = k1.afpm_matmul(x, w, 3, tile=tile)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), tile
+
+
+@pytest.mark.cuda
+def test_afpm_bitwise_kernel_every_tuner_block_gives_the_same_bits(rng):
+    from repro_torch.kernels import autotune
+
+    _need_card()
+    cfg = afpm_config("AC5-5")
+    for n in (7, 1001, 512 * 512):
+        x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+        y = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+        want = k2.afpm_bitwise(x, y, cfg)
+        for block in autotune.candidates("bitwise", "hopper", "large"):
+            got = k2.afpm_bitwise(x, y, cfg, block)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), block
+    with pytest.raises(RuntimeError, match="launch failed"):
+        k2.afpm_bitwise(x, y, cfg, (512, 64))   # more threads than the kernel's
+
+
+@pytest.mark.cuda
 def test_afpm_bitwise_kernel_golden_vectors():
     _need_card()
     for case in json.loads(GOLDEN.read_text())["cases"]:

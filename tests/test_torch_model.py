@@ -135,7 +135,10 @@ def test_session_rejects_policies_of_later_slices(tmp_path):
     with pytest.raises(SessionError, match="cannot read policy file"):
         Session("qwen3-4b", str(tmp_path / "policy.json"), device="cpu")
     with pytest.raises(SessionError, match="unknown Session.replace"):
-        Session("qwen3-4b", device="cpu").replace(mesh="multi")
+        Session("qwen3-4b", device="cpu").replace(shards=2)
+    # the dry-run's mesh is a Session field
+    assert Session("qwen3-4b", device="cpu").replace(
+        mesh="multi").mesh == "multi"
     seg = Session("qwen3-4b", "segmented3", device="cpu")
     assert seg.numerics.backend == "auto" and seg.numerics.seg_passes == 3
     assert seg.replace(backend="torch").numerics.backend == "torch"

@@ -166,6 +166,27 @@ def test_emulated_convs_and_logits_match_jax(design, small_nets, rng):
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
 
 
+# the largest |logit| difference at 2-2-2-2 depth, in units of the largest
+# |logit|: about twice the drift measured between the packages (AC5-5
+# 6.7e-5, MMBS5 1.44e-3; ROADMAP.md section 3)
+DEEP_BOUND = {"AC5-5": 1.5e-4, "MMBS5": 2.0 ** -8}
+
+
+@pytest.mark.parametrize("design", ["AC5-5", "MMBS5"])
+def test_emulated_logits_at_full_depth_match_jax(design, nets, rng):
+    """ResNet-18's 2-2-2-2 blocks emulated: the argmax equal, the logits
+    within the drift bound (the two packages' fp32 chunk sums differ by an
+    ulp from the first conv on, and the bit-level designs are not
+    continuous)."""
+    images = _images(rng, n=2, size=8)
+    jnum = JaxConfig(mode="emulated", multiplier=design, seg_n=5)
+    tnum = NumericsConfig(mode="emulated", multiplier=design, seg_n=5)
+    want, got = _logits(nets, images, jnum, tnum)
+    assert np.max(np.abs(got - want)) <= \
+        DEEP_BOUND[design] * np.max(np.abs(want))
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
 @pytest.mark.parametrize("size,k,stride", [(9, 3, 2), (8, 3, 2), (7, 1, 2),
                                            (6, 3, 1), (5, 1, 1)])
 @pytest.mark.parametrize("mode", ["exact", "segmented3", "exact-tapped"])

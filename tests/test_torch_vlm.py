@@ -229,8 +229,10 @@ def test_loss_and_grads_match_jax(mode, tree, rng):
                                  {k: torch.as_tensor(v) for k, v in b.items()})
     assert float(loss) == pytest.approx(float(jloss), rel=LOSS_RTOL)
     want = dict(tree_util.named(jax.tree.map(np.asarray, jgrads)))
-    assert grads["embed"] is None and not want.pop("embed").any()
     got = dict(tree_util.named(grads))
+    # the token embedding is not reached by a batch of embeds: its
+    # gradient is zero on both sides, as jax.grad gives it
+    assert not got.pop("embed").any() and not want.pop("embed").any()
     assert sorted(got) == sorted(want)
     for name, g in got.items():
         assert g.shape == want[name].shape, name
