@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twenty-four phases, each printing a line or a few; any failed check ends the
+Twenty-five phases, each printing a line or a few; any failed check ends the
 run with a nonzero exit and no result line:
 
 1. device: the card, its power limit, torch and the kernels' build time
@@ -224,7 +224,20 @@ run with a nonzero exit and no result line:
    (``chiprun_out/dryrun/``); at a 1 x 1 mesh the dry-run of phase 18's
    step (8 x 128 tokens, AdamW) has argument bytes equal to the bytes of
    the tensors that step took, and its peak estimate is printed beside
-   phase 18's measured peak.
+   phase 18's measured peak;
+25. dist (right after phase 16, on its weights): the code over ranks on
+   a one-rank NCCL group (``make_test_mesh((1, 1))``, destroyed at the
+   end of the phase): deepseek-v3's MoE layer at full width through the
+   expert-parallel path (``all_to_all`` dispatch, K1 on each of the 256
+   local experts) in a 4-slot decode step, equal to the group-local path
+   bit for bit, within 64 ulps of the plain route, 771 K1 launches a
+   call and 2 x E x C x D x 4 all-to-all bytes counted; a 256-token
+   prefill through it against the plain route; ``pipeline_apply`` over a
+   ``("pipe",)`` mesh of 1 with 4 full-width qwen3-4b blocks as its stage
+   (4 microbatches) equal to the blocks in sequence bit for bit;
+   ``hierarchical_grad_reduce(compress=True)`` over one block's
+   gradient-shaped tree within max|g|/100, its error feedback the
+   residual; each time beside the card's name and power limit.
 
 Then one JSON line on the kernels, the card's name and power limit, and
 the result line.  Per-shape kernel timings go to
@@ -310,6 +323,12 @@ LLAMA4_STEP = (LLAMA4_ATTN + LLAMA4_EXPERT * LLAMA4_EXPERTS + LLAMA4_EXPERT
 DSV3_STEP = DSV3_MLA + DSV3_DENSE + DSV3_MLA + DSV3_EXPERT * 256 + DSV3_EXPERT
 # M of an expert's K1 call in a 4-slot decode step: 4 rows x capacity 4
 EXPERT_M = 16
+# phase [dist]: the expert-parallel decode step's slots (capacity 4 from 4
+# tokens: no drops, an expert's K1 call at 4 rows) and its prefill's
+# tokens; the pipeline's stage (qwen3-4b blocks at full width), its
+# microbatches and their (batch, tokens)
+DIST_SLOTS, DIST_PREFILL = 4, 256
+PIPE_LAYERS, PIPE_MICRO, PIPE_MB, PIPE_SEQ = 4, 4, 2, 64
 # every M the serve phases give the segmented matmul (decode 1 and 4,
 # prefill tails 8 / 13 / 22, chunks of 32, whole prompts 40 / 77 / 150) and
 # 300, which takes the kernel's whole mode at (2560, 4096)
@@ -2541,8 +2560,6 @@ def phase_deepseek(peaks):
                                                (1, max(SERVE_LENGTHS)))
     err, k_ms, p_ms = prompt_logits(sess, "deepseek", torch.as_tensor(
         prompt, device="cuda"), len(DSV3_STEP))
-    del sess
-    torch.cuda.empty_cache()
     K, N = DSV3_EXPERT[0]
     experts_gb = 3 * 256 * K * N * 4 / 1e9
     bound_ms = sum(K_ * N_ * 4 + EXPERT_M * K_ * 2 + EXPERT_M * N_ * 4
@@ -2563,6 +2580,188 @@ def phase_deepseek(peaks):
           f"{max(SERVE_LENGTHS)}-token prefill {k_ms:.1f} ms (plain route "
           f"{p_ms:.1f} ms), kernel vs plain logits {err:.3g} of the largest "
           f"(bound {LOGIT_BOUND:.3g})")
+    return out, sess
+
+
+def moe_layer_ms(layer, x, cfg, ncfg, decoding: bool, repeats: int = 5):
+    """(median host ms of a synced ``moe_apply``, its output, K1 launches
+    of one call)."""
+    import torch
+
+    from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.models import moe
+
+    with torch.inference_mode():
+        ms, out = host_ms(lambda: moe.moe_apply(layer, x, cfg, ncfg,
+                                                decoding=decoding), repeats)
+        before = k1.afpm_matmul.launches
+        moe.moe_apply(layer, x, cfg, ncfg, decoding=decoding)
+        torch.cuda.synchronize()
+    return ms, out, k1.afpm_matmul.launches - before
+
+
+def phase_dist(sess, peaks):
+    """The code over ranks on a one-rank NCCL group: deepseek-v3's
+    MoE-MLA layer (phase 16's weights, all 256 experts) through the
+    expert-parallel path (``all_to_all`` dispatch, K1 on every local
+    expert) in a 4-slot decode step (== group-local bit for bit, K1 within
+    64 ulps of plain, the all-to-all bytes counted) and a 256-token
+    prefill (against plain); ``pipeline_apply`` over a ``("pipe",)`` mesh
+    of 1 with qwen3-4b blocks as its stage (== the blocks in sequence,
+    bit for bit); ``hierarchical_grad_reduce(compress=True)`` over one
+    qwen3-4b block's gradient-shaped tree."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.distributed.sharding import rules_for, use_mesh_rules
+    from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.launch.mesh import init_ranks, make_test_mesh
+    from repro_torch.launch.multipod import hierarchical_grad_reduce
+    from repro_torch.models import moe, transformer
+    from repro_torch.numerics import (NumericsConfig, layer_scope,
+                                      numerics_scope)
+    from repro_torch import tree as tree_util
+
+    t_phase = time.perf_counter()
+    card = smi("name,power.limit")
+    cfg = sess.config
+    E, D = cfg.moe.n_experts, cfg.d_model
+    layer = transformer._take(sess.params["seg1_p0"], 0)["mlp"]
+    seg3 = NumericsConfig(mode="segmented", seg_passes=3)
+    plain = NumericsConfig(mode="segmented", seg_passes=3, backend="torch")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x_dec = torch.randn((DIST_SLOTS, 1, D), generator=gen, device="cuda")
+    x_pre = torch.randn((1, DIST_PREFILL, D), generator=gen, device="cuda")
+    per_call = 3 * E + 3           # every expert's projections, the shared
+    out = {"card": card}
+    init_ranks("cuda")
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"), device="cuda")
+        local_ms, local, n = moe_layer_ms(layer, x_dec, cfg, seg3, True)
+        if n != per_call:
+            raise AssertionError(f"dist: group-local decode ran K1 {n} times,"
+                                 f" expected {per_call}")
+        with use_mesh_rules(mesh, rules_for(cfg, "serve")):
+            with torch.inference_mode(), \
+                    collectives.count_collectives() as stats:
+                b0 = k1.afpm_matmul.launches
+                ep = moe.moe_apply(layer, x_dec, cfg, seg3, decoding=True)
+                torch.cuda.synchronize()
+                ep_launches = k1.afpm_matmul.launches - b0
+            ep_ms, ep_again, _ = moe_layer_ms(layer, x_dec, cfg, seg3, True)
+            _, ep_plain, _ = moe_layer_ms(layer, x_dec, cfg, plain, True, 1)
+            pre_ms, pre, pre_launches = moe_layer_ms(layer, x_pre, cfg, seg3,
+                                                     False, 3)
+            pre_plain_ms, pre_plain, _ = moe_layer_ms(layer, x_pre, cfg,
+                                                      plain, False, 1)
+        C = moe.capacity(cfg, DIST_SLOTS)
+        a2a = 2 * E * C * D * x_dec.element_size()
+        if ep_launches != per_call or pre_launches != per_call:
+            raise AssertionError(f"dist: EP ran K1 {ep_launches} times a "
+                                 f"decode step, {pre_launches} a prefill, "
+                                 f"expected {per_call}")
+        if stats.by_kind.get("all-to-all") != a2a:
+            raise AssertionError(f"dist: all-to-all bytes {stats.by_kind} != "
+                                 f"2 x E x C x D x 4 = {a2a}")
+        if not (torch.equal(ep, local) and torch.equal(ep_again, local)):
+            raise AssertionError(
+                f"dist: EP decode != group-local: "
+                f"{(ep - local).abs().max().item():.3g}")
+        dec_ulps = max_ulps(ep, ep_plain)
+        pre_ulps = max_ulps(pre, pre_plain)
+        if max(dec_ulps, pre_ulps) > ULP_BOUND or not torch.isfinite(
+                pre).all():
+            raise AssertionError(f"dist: K1 vs plain {dec_ulps:.2f} ulps "
+                                 f"(decode), {pre_ulps:.2f} (prefill) > "
+                                 f"{ULP_BOUND}")
+        bound_ms = sum(K_ * N_ * 4 + C * K_ * 4 + C * N_ * 4
+                       for K_, N_ in DSV3_EXPERT * E) / peaks[0] * 1e3
+        out.update(ep_decode_ms=ep_ms, local_decode_ms=local_ms,
+                   ep_launches=ep_launches, a2a_bytes=a2a,
+                   collective_by_kind=dict(stats.by_kind),
+                   decode_ulps=dec_ulps, prefill_ms=pre_ms,
+                   plain_prefill_ms=pre_plain_ms, prefill_ulps=pre_ulps,
+                   experts_bound_ms=bound_ms)
+        del local, ep, ep_again, ep_plain, pre, pre_plain
+
+        # the pipeline: qwen3-4b blocks at full width as one stage
+        qcfg = get_arch("qwen3-4b")
+        (_, pattern), = qcfg.segments
+        qcfg = dataclasses.replace(qcfg, segments=((PIPE_LAYERS, pattern),))
+        blocks = transformer.init(qcfg, seed=0, device="cuda")["seg0_p0"]
+        stacked = tree_util.map(lambda t: t[None], blocks)
+        positions = transformer._positions_for(qcfg, {}, PIPE_MB, PIPE_SEQ, 0,
+                                               "cuda")
+
+        def stage(p, h):
+            for r in range(PIPE_LAYERS):
+                with layer_scope(f"blocks.{r}"):
+                    h = transformer._train_block(transformer._take(p, r), h,
+                                                 qcfg, pattern[0], positions)
+            return h
+
+        xs = torch.randn((PIPE_MICRO, PIPE_MB, PIPE_SEQ, qcfg.d_model),
+                         generator=gen, device="cuda")
+        pipe = make_test_mesh((1,), ("pipe",), device="cuda")
+        with torch.inference_mode(), numerics_scope(seg3):
+            b0 = k1.afpm_matmul.launches
+            pipe_ms, got = host_ms(lambda: pipeline_apply(
+                pipe, stage, stacked, xs), 3)
+            pipe_launches = (k1.afpm_matmul.launches - b0) // 4
+            seq_ms, want = host_ms(lambda: torch.stack(
+                [stage(blocks, xs[m]) for m in range(PIPE_MICRO)]), 3)
+        if not torch.equal(got, want):
+            raise AssertionError(f"dist: pipeline != the blocks in sequence: "
+                                 f"{(got - want).abs().max().item():.3g}")
+        if pipe_launches != 7 * PIPE_LAYERS * PIPE_MICRO:
+            raise AssertionError(f"dist: the pipeline ran K1 {pipe_launches} "
+                                 f"times")
+        del got, want, xs, stacked
+
+        # the compressed hierarchical reduce of a block's gradients
+        pod = make_test_mesh((1, 1), ("pod", "data"), device="cuda")
+        grads = tree_util.map(lambda t: torch.randn(
+            t.shape[1:], generator=gen, device="cuda") * 0.01, blocks)
+        errs = tree_util.map(torch.zeros_like, grads)
+        red_ms, (red, new_errs) = host_ms(lambda: hierarchical_grad_reduce(
+            pod, grads, errs, compress=True), 3)
+        for g, r, e in zip(tree_util.leaves(grads), tree_util.leaves(red),
+                           tree_util.leaves(new_errs)):
+            if (r - g).abs().max() > g.abs().max() / 100 or \
+                    not torch.equal(e, g - r):
+                raise AssertionError("dist: the compressed reduce is off its "
+                                     "bound, or its error feedback is not "
+                                     "the residual")
+        n_grad = sum(g.numel() for g in tree_util.leaves(grads))
+        del blocks, grads, errs, red, new_errs
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out.update(pipeline_ms=pipe_ms, sequential_ms=seq_ms,
+               pipeline_launches=pipe_launches, reduce_ms=red_ms,
+               reduce_elements=n_grad, phase_s=time.perf_counter() - t_phase)
+    print(f"[dist] one-rank NCCL group, (1, 1) mesh, serve rules; deepseek-v3 "
+          f"MoE layer at full width ({E} experts of {D} x "
+          f"{cfg.d_ff}) expert-parallel: a {DIST_SLOTS}-slot decode step "
+          f"(segmented3, C {C}) == group-local bit for bit, K1 {ep_launches} "
+          f"launches a call, vs plain {dec_ulps:.2f} ulps; all-to-all "
+          f"{a2a} bytes = 2 x E x C x D x 4 (counted {stats.by_kind}); EP "
+          f"{ep_ms:.2f} ms beside group-local {local_ms:.2f} ms (its "
+          f"{3 * E} expert projections' byte bound {bound_ms:.2f} ms); a "
+          f"{DIST_PREFILL}-token prefill {pre_ms:.2f} ms (plain route "
+          f"{pre_plain_ms:.2f} ms), vs plain {pre_ulps:.2f} ulps (bound "
+          f"{ULP_BOUND}); pipeline_apply over ('pipe',) of 1, qwen3-4b "
+          f"{PIPE_LAYERS} blocks at full width, {PIPE_MICRO} microbatches of "
+          f"{PIPE_MB} x {PIPE_SEQ}: {pipe_ms:.2f} ms (the blocks in sequence "
+          f"{seq_ms:.2f} ms), == sequential bit for bit, K1 {pipe_launches} "
+          f"launches; hierarchical_grad_reduce(compress=True) over a block's "
+          f"{n_grad} gradient elements {red_ms:.2f} ms, within max|g|/100, "
+          f"error feedback == residual; phase {out['phase_s']:.1f} s; {card}")
     return out
 
 
@@ -3730,12 +3929,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     l4 = phase_llama4()
     torch.cuda.empty_cache()
-    ds = phase_deepseek(peaks)
+    ds, ds_sess = phase_deepseek(peaks)
+    torch.cuda.empty_cache()
+    dd = phase_dist(ds_sess, peaks)
+    del ds_sess
     torch.cuda.empty_cache()
     (ROOT / "chiprun_out" / "chip_smoke_giants.json").write_text(json.dumps(
         {"card": smi("name,power.limit"), "qwen2-vl-72b": qv,
          "llama4-maverick-400b-a17b": l4, "deepseek-v3-671b": ds,
-         "gemma3_engine": dz["gemma3-12b"]["engine"]}, indent=1))
+         "gemma3_engine": dz["gemma3-12b"]["engine"], "dist": dd}, indent=1))
     tg = phase_train_grad()
     tq = phase_train_qwen3()
     dr = phase_dryrun(tq)
@@ -3769,7 +3971,7 @@ def main() -> int:
         "dense_zoo_launches": dz["k1"],
         "gemma3_engine_launches": dz["engine_k1"],
         "qwen2_vl_launches": qv["k1"], "llama4_launches": l4["k1"],
-        "deepseek_launches": ds["k1"],
+        "deepseek_launches": ds["k1"], "ep_launches": dd["ep_launches"],
         "qwen2_vl_layer": k["qwen2-vl-72b_layer"],
         "llama4_expert": k["llama4_expert"],
         "deepseek_expert": k["deepseek_expert"],

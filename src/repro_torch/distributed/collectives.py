@@ -1,0 +1,360 @@
+"""The port's ``jax.lax`` collectives and ``shard_map``, over the process
+groups of a mesh with ranks (:func:`repro_torch.launch.mesh.make_test_mesh`).
+
+Every rank runs the same Python program on its own tensors, as every
+device runs the body of a ``shard_map``, and the collectives belong in
+such a body.  A tuple of mesh axes orders its ranks row-major over the
+tuple, as JAX orders them: chunk ``j`` of an :func:`all_to_all` goes to
+the ``j``-th rank of that order, and the chunks received are
+concatenated in it.
+
+:func:`shard_map` cuts each full input to this rank's block by its
+:class:`~repro_torch.distributed.sharding.PartitionSpec`, runs the body on
+the blocks, and reassembles each output from its ``out_spec`` by an
+all-gather over the spec's axes (a ``P()`` output is each rank's own).
+Its gradient is the single program's, as JAX transposes a ``shard_map``
+with ``check_rep=False``: an output's cotangent is divided by the size of
+the axes its spec leaves out (the ranks that hold the same block), and an
+input's cotangent is summed over the axes its spec leaves out and
+gathered over the axes it names, so every rank holds the whole gradient.
+Under that convention the collectives transpose as in JAX:
+``all_to_all`` to the inverse ``all_to_all``, ``ppermute`` to the inverse
+permutation, ``psum`` to a ``psum`` (``pmean`` to a ``pmean``), and
+``broadcast`` to the sum of the cotangents on its source.
+
+Inside :func:`count_collectives` every collective adds the bytes of its
+output on this rank (what the rank receives, its own chunk included) to
+the count of its kind, under the reference's names: ``all-to-all``,
+``all-reduce``, ``all-gather``, ``collective-permute`` (a broadcast
+counts as the permute from the source to each rank, the reference's
+form).  Backward collectives count into the counter that was active when
+their forward ran, whichever thread autograd runs them on.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import threading
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import tree as tree_util
+
+from .sharding import PartitionSpec
+
+
+@dataclasses.dataclass
+class CollectiveStats:
+    """Bytes a rank received by collective kind (``by_kind``)."""
+
+    by_kind: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def total_bytes(self) -> float:
+        return float(sum(self.by_kind.values()))
+
+
+_ctx = threading.local()
+
+
+def _stats():
+    return getattr(_ctx, "stats", None)
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Count the collectives this thread runs (and their backward) into a
+    fresh :class:`CollectiveStats`, which the context yields."""
+    stats, prev = CollectiveStats(), _stats()
+    _ctx.stats = stats
+    try:
+        yield stats
+    finally:
+        _ctx.stats = prev
+
+
+def _record(stats, kind: str, t: torch.Tensor):
+    if stats is not None:
+        stats.by_kind[kind] = (stats.by_kind.get(kind, 0)
+                               + t.numel() * t.element_size())
+
+
+def _axes(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def axis_index(mesh, axes) -> int:
+    """This rank's index on ``axes`` (a name, or a tuple of names taken
+    row-major): ``jax.lax.axis_index``."""
+    i = 0
+    for a in _axes(axes):
+        i = i * mesh.shape[a] + mesh.coords[a]
+    return i
+
+
+def _group(mesh, axes):
+    """(group, members in axis order, axis index of each group rank)."""
+    grp, members = mesh.group(_axes(axes))
+    return grp, members, [members.index(r) for r in sorted(members)]
+
+
+def _all_to_all(x, mesh, axes, split_axis, concat_axis, stats):
+    grp, members, at = _group(mesh, axes)
+    n = len(members)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dim {split_axis} of {tuple(x.shape)} "
+                         f"does not split {n} ways")
+    chunks = x.chunk(n, split_axis)
+    send = torch.stack([chunks[j] for j in at])      # by group rank
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=grp)
+    _record(stats, "all-to-all", recv)
+    by_index = [None] * n
+    for g, j in enumerate(at):
+        by_index[j] = recv[g]
+    return torch.cat(by_index, dim=concat_axis)
+
+
+def _all_reduce(x, mesh, axes, stats, mean: bool):
+    grp, members, _ = _group(mesh, axes)
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, group=grp)
+    _record(stats, "all-reduce", y)
+    return y / len(members) if mean else y
+
+
+def _all_gather(x, mesh, axes, stats) -> list:
+    """Every member's ``x``, in axis order."""
+    grp, members, at = _group(mesh, axes)
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in members]
+    dist.all_gather(parts, x, group=grp)
+    for p in parts:
+        _record(stats, "all-gather", p)
+    by_index = [None] * len(members)
+    for g, j in enumerate(at):
+        by_index[j] = parts[g]
+    return by_index
+
+
+def _ppermute(x, mesh, axis, perm, stats):
+    grp, members, _ = _group(mesh, axis)
+    me = axis_index(mesh, axis)
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    ops = []
+    for src, dst in perm:
+        if src == me and dst == me:
+            out.copy_(x)
+        elif src == me:
+            ops.append(dist.P2POp(dist.isend, x, members[dst], group=grp))
+        elif dst == me:
+            ops.append(dist.P2POp(dist.irecv, out, members[src], group=grp))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    _record(stats, "collective-permute", out)
+    return out
+
+
+def _broadcast(x, mesh, axis, src, stats):
+    grp, members, _ = _group(mesh, axis)
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.broadcast(y, src=members[src], group=grp)
+    _record(stats, "collective-permute", y)
+    return y
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, split_axis, concat_axis, stats):
+        ctx.args = (mesh, axes, split_axis, concat_axis, stats)
+        return _all_to_all(x, mesh, axes, split_axis, concat_axis, stats)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, split_axis, concat_axis, stats = ctx.args
+        return (_all_to_all(g, mesh, axes, concat_axis, split_axis, stats),
+                None, None, None, None, None)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, mean, stats):
+        ctx.args = (mesh, axes, mean, stats)
+        return _all_reduce(x, mesh, axes, stats, mean)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, mean, stats = ctx.args
+        return _all_reduce(g, mesh, axes, stats, mean), None, None, None, None
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm, stats):
+        ctx.args = (mesh, axis, perm, stats)
+        return _ppermute(x, mesh, axis, perm, stats)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, perm, stats = ctx.args
+        inverse = [(dst, src) for src, dst in perm]
+        return _ppermute(g, mesh, axis, inverse, stats), None, None, None, None
+
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, src, stats):
+        ctx.args = (mesh, axis, axis_index(mesh, axis) == src, stats)
+        return _broadcast(x, mesh, axis, src, stats)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, is_src, stats = ctx.args
+        g = _all_reduce(g, mesh, axis, stats, mean=False)
+        return (g if is_src else torch.zeros_like(g)), None, None, None, None
+
+
+def all_to_all(x, mesh, axes, split_axis: int, concat_axis: int):
+    """``jax.lax.all_to_all(..., tiled=True)`` over ``axes``: ``x`` cut in
+    ``n`` chunks along ``split_axis``, chunk ``j`` sent to the ``j``-th
+    rank, the chunks received concatenated along ``concat_axis`` in rank
+    order; ``(E, C, D)`` with split 0 and concat 1 gives
+    ``(E / n, C * n, D)``."""
+    return _AllToAll.apply(x, mesh, axes, split_axis, concat_axis, _stats())
+
+
+def psum(x, mesh, axes):
+    """The sum of ``x`` over the ranks of ``axes`` (``jax.lax.psum``)."""
+    return _AllReduce.apply(x, mesh, axes, False, _stats())
+
+
+def pmean(x, mesh, axes):
+    """The sum over ``axes`` divided by their size (``jax.lax.pmean``)."""
+    return _AllReduce.apply(x, mesh, axes, True, _stats())
+
+
+def ppermute(x, mesh, axis, perm):
+    """``jax.lax.ppermute``: rank ``src`` of ``axis`` sends ``x`` to rank
+    ``dst`` for each ``(src, dst)`` of ``perm`` (point to point); a rank
+    no one sends to gets zeros."""
+    return _PPermute.apply(x, mesh, axis, tuple(perm), _stats())
+
+
+def broadcast(x, mesh, axis, src: int = 0):
+    """``x`` of the ``src``-th rank of ``axis``, on every rank of it."""
+    return _Broadcast.apply(x, mesh, axis, src, _stats())
+
+
+# ---------------------------------------------------------------------------
+# shard_map
+# ---------------------------------------------------------------------------
+
+def _spec_axes(spec, ndim: int) -> list:
+    """Per dim, the tuple of mesh axes it is sharded over (maybe empty)."""
+    spec = tuple(spec) + (None,) * (ndim - len(spec))
+    return [() if a is None else _axes(a) for a in spec]
+
+
+def _block(mesh, dims, shape, index=None) -> tuple:
+    """The slices of a block of ``shape`` (this rank's, or the block at
+    row-major ``index`` over the spec's axes)."""
+    flat = [a for axes in dims for a in axes]
+    coords = (mesh.coords if index is None else
+              dict(zip(flat, _unravel(index, [mesh.shape[a] for a in flat]))))
+    out = []
+    for d, axes in zip(shape, dims):
+        n = math.prod(mesh.shape[a] for a in axes)
+        if d % n:
+            raise ValueError(f"dim of {d} does not split {n} ways over {axes}")
+        i = 0
+        for a in axes:
+            i = i * mesh.shape[a] + coords[a]
+        out.append(slice(i * (d // n), (i + 1) * (d // n)))
+    return tuple(out)
+
+
+def _unravel(i: int, sizes: list) -> list:
+    out = []
+    for s in reversed(sizes):
+        out.append(i % s)
+        i //= s
+    return out[::-1]
+
+
+def _assemble(x, mesh, dims, stats):
+    """The full tensor from every rank's block ``x`` (an all-gather over
+    the axes ``dims`` name)."""
+    flat = tuple(a for axes in dims for a in axes)
+    if not flat:
+        return x
+    parts = _all_gather(x, mesh, flat, stats)
+    full = x.new_empty([d * math.prod(mesh.shape[a] for a in axes)
+                        for d, axes in zip(x.shape, dims)])
+    for i, p in enumerate(parts):
+        full[_block(mesh, dims, full.shape, i)] = p
+    return full
+
+
+class _Cut(torch.autograd.Function):
+    """This rank's block of a full input; backward, the cotangent summed
+    over the axes the spec leaves out and gathered over those it names."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims, stats):
+        ctx.args = (mesh, dims, stats)
+        return x[_block(mesh, dims, x.shape)].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dims, stats = ctx.args
+        named = {a for axes in dims for a in axes}
+        rest = tuple(a for a in mesh.axis_names if a not in named)
+        if rest:
+            g = _all_reduce(g, mesh, rest, stats, mean=False)
+        return _assemble(g, mesh, dims, stats), None, None, None
+
+
+class _Assemble(torch.autograd.Function):
+    """The full output from the ranks' blocks; backward, this rank's block
+    of the cotangent, divided by the size of the axes the spec leaves out
+    (the ranks holding the same block), as JAX's ``shard_map`` transposes
+    with ``check_rep=False``: a cotangent then sums to the whole once its
+    input's cotangent is summed over those ranks."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims, stats):
+        named = {a for axes in dims for a in axes}
+        ctx.args = (mesh, dims, math.prod(
+            n for a, n in mesh.shape.items() if a not in named))
+        return _assemble(x, mesh, dims, stats) if named else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dims, reps = ctx.args
+        g = g[_block(mesh, dims, g.shape)]
+        return (g / reps if reps > 1 else g), None, None, None
+
+
+def shard_map(fn, mesh, in_specs, out_specs):
+    """``fn`` run on this rank's blocks of its inputs (``jax.experimental.
+    shard_map`` with ``check_rep=False``).  ``in_specs`` holds one
+    :class:`PartitionSpec` an argument, applied to every tensor of that
+    argument (a tensor or a tree of them); ``out_specs`` is a spec (``fn``
+    returns a tensor) or a tuple of specs (a tuple of tensors).  Each
+    output comes back whole on every rank of its spec's axes."""
+    def run(*args):
+        stats = _stats()
+        local = [tree_util.map(
+            lambda t: _Cut.apply(t, mesh, _spec_axes(spec, t.dim()), stats),
+            a) for a, spec in zip(args, in_specs, strict=True)]
+        out = fn(*local)
+        single = isinstance(out_specs, PartitionSpec)
+        outs, specs = ((out,), (out_specs,)) if single else (out, out_specs)
+        full = tuple(_Assemble.apply(o, mesh, _spec_axes(s, o.dim()), stats)
+                     for o, s in zip(outs, specs, strict=True))
+        return full[0] if single else full
+    return run

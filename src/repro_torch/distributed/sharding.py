@@ -7,11 +7,14 @@ keeps the reference's divisibility fallback: a dim that does not divide by
 its mesh axis is replicated instead, which is what lets the whole zoo (40
 heads, odd vocabularies, batch 1 long-context) shard under one rule set.
 
-A mesh here is abstract (:class:`repro_torch.launch.mesh.Mesh`) and a
-sharding is its :class:`PartitionSpec`: the dry-run counts what each chip
-holds from it (:func:`local_shape`).  Placing tensors by these specs
-(``DTensor``) and :func:`logical_constraint` inside the model need a
-process group, which the port does not use yet.
+A sharding is a :class:`PartitionSpec` over a
+:class:`repro_torch.launch.mesh.Mesh`.  Over an abstract mesh the dry-run
+counts what each chip holds from it (:func:`local_shape`).  Over a mesh
+with ranks (``make_test_mesh``) the explicit collectives run on it:
+:func:`repro_torch.distributed.collectives.shard_map` cuts a rank's block
+by its spec, and MoE's expert-parallel path reads :func:`spec_for` under
+:func:`use_mesh_rules`.  Whole-model placement by these specs
+(``DTensor``) is not done: :func:`logical_constraint` is the identity.
 """
 from __future__ import annotations
 
@@ -200,6 +203,8 @@ def current_mesh_rules():
 def logical_constraint(x, axes):
     """The reference's ``with_sharding_constraint`` by logical axes.  It
     is the identity everywhere, in a mesh context or not: the port places
-    no tensor across ranks yet (a ``DTensor`` placement per
-    :func:`spec_for` needs a process group)."""
+    no whole-model tensor across ranks (no ``DTensor`` placement per
+    :func:`spec_for`); the explicit collectives
+    (:mod:`repro_torch.distributed.collectives`) are what runs over
+    ranks."""
     return x

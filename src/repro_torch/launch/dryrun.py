@@ -21,7 +21,9 @@ is allocated on any device and no weight is drawn.  It records:
 - ``roofline``: the counted FLOPs and bytes spread over the mesh's chips,
   against the data-sheet peaks of one card
   (:func:`~repro_torch.launch.hlo_analysis.roofline_terms`); the
-  collective term is ``None`` (the port runs no collectives yet);
+  collective term is ``None``: the counted step is the unsharded one,
+  which runs no collective (the port's collectives run over a mesh with
+  ranks, :mod:`repro_torch.distributed.collectives`);
 - ``param_count``, ``active_param_count``, ``status`` (``ok``,
   ``skipped(...)`` or ``error``) and ``count_s``.
 

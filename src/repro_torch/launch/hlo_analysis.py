@@ -7,8 +7,14 @@ step function on ``meta`` tensors (shapes and dtypes, no data, no device
 memory) under a :class:`~torch.utils._python_dispatch.TorchDispatchMode`
 that sees every ATen op the step runs, autograd's backward included.
 :func:`roofline_terms` turns a per-chip cost into the compute and memory
-times against one card's data-sheet peaks (:data:`CARD_PEAKS`); the
-collective term is ``None``: the port runs no collectives yet.
+times against one card's data-sheet peaks (:data:`CARD_PEAKS`), and,
+given a :class:`CollectiveStats`, the collective time over the card's
+links.  :func:`collective_bytes` reads those stats off a run of a
+function over ranks: the bytes each collective of the port
+(:mod:`repro_torch.distributed.collectives`: expert-parallel MoE, the
+pipeline, the gradient reduce) delivers to this rank, by kind.  The
+dry-run's production cells run unsharded, so their collective term
+stays ``None``.
 
 :func:`policy_compute_scale` and :func:`policy_ppa_summary` are pure
 arithmetic over a policy and its call sites, what ``Session.ppa_report``
@@ -23,6 +29,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import tree as tree_util
+from repro_torch.distributed.collectives import (CollectiveStats,
+                                                 count_collectives)
 
 # Passes of the exact split-float product (paper Eq. 6: the full 6-term
 # hi/lo expansion); segmented seg_passes=k keeps k of them, so a site's
@@ -72,13 +80,15 @@ def policy_ppa_summary(policy, layer_paths, counts=None) -> dict:
 # ---------------------------------------------------------------------------
 
 #: (name fragments, card, HBM bytes/s, dense bf16 FLOP/s, fp32 FLOP/s
-#: outside the tensor cores) from NVIDIA's data sheets; the first row whose
-#: fragments all occur in the device name applies
+#: outside the tensor cores, NVLink bytes/s a direction) from NVIDIA's
+#: data sheets (NVLink: half the bidirectional figure; the PCIe card's
+#: through its bridge); the first row whose fragments all occur in the
+#: device name applies
 CARD_PEAKS = (
-    (("H200",), "H200 SXM", 4.8e12, 989e12, 67e12),
-    (("H100", "PCIe"), "H100 PCIe", 2.0e12, 756e12, 51e12),
-    (("H100", "NVL"), "H100 NVL", 3.9e12, 835e12, 60e12),
-    (("H100",), "H100 SXM", 3.35e12, 989e12, 67e12),
+    (("H200",), "H200 SXM", 4.8e12, 989e12, 67e12, 450e9),
+    (("H100", "PCIe"), "H100 PCIe", 2.0e12, 756e12, 51e12, 300e9),
+    (("H100", "NVL"), "H100 NVL", 3.9e12, 835e12, 60e12, 300e9),
+    (("H100",), "H100 SXM", 3.35e12, 989e12, 67e12, 450e9),
 )
 #: the card a dry-run prices when it is given none (what it is written for)
 DEFAULT_CARD = "NVIDIA H100 80GB HBM3"
@@ -88,7 +98,7 @@ def card_peaks(name: str):
     """``(bytes/s, dense bf16 FLOP/s, fp32 FLOP/s)`` of the card named
     ``name`` (``torch.cuda.get_device_name``); raises for a card with no
     row in :data:`CARD_PEAKS`."""
-    return _card_row(name)[2:]
+    return _card_row(name)[2:5]
 
 
 def _card_row(name: str):
@@ -249,50 +259,75 @@ def step_cost(fn, *abstract_args, **kwargs) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# roofline terms
+# collectives and roofline terms
 # ---------------------------------------------------------------------------
 
+def collective_bytes(fn, *args, **kwargs) -> CollectiveStats:
+    """Run ``fn(*args, **kwargs)`` once and return the bytes its
+    collectives delivered to this rank by kind (``all-to-all``,
+    ``all-reduce``, ``all-gather``, ``collective-permute``), backward ones
+    included when ``fn`` runs a backward: the port's counterpart of the
+    reference's count over a compiled module.  Both count the bytes each
+    collective's output holds on a rank, its own chunk included (what the
+    process group hands back; over the wire an all-to-all or all-gather
+    over ``n`` ranks brings ``(n - 1) / n`` of it).  XLA writes a CPU
+    module's all-to-all as a tuple of its ``n`` chunks, and the
+    reference's parser sums them to the same figure."""
+    with count_collectives() as stats:
+        fn(*args, **kwargs)
+    return stats
+
+
 def roofline_terms(cost: dict, n_chips: int, model_flops=None,
-                   compute_scale: float = 1.0,
-                   card: str = DEFAULT_CARD) -> dict:
+                   compute_scale: float = 1.0, card: str = DEFAULT_CARD,
+                   coll: CollectiveStats | None = None) -> dict:
     """The reference's roofline record for a per-chip ``cost`` (``flops``,
     ``bytes_stream``, ``bytes_fused``), priced on ``card``'s data-sheet
-    peaks (:data:`CARD_PEAKS`: dense bf16 FLOP/s and HBM bytes/s).
+    peaks (:data:`CARD_PEAKS`: dense bf16 FLOP/s, HBM bytes/s and NVLink
+    bytes/s a direction).
 
     The memory term reads ``bytes_fused`` (weights read once, state read
     and written); the stream count is recorded beside it, and as the
     reference's XLA-convention key.  ``compute_scale`` folds a numerics
-    policy into the compute term (:func:`policy_compute_scale`).  The
-    collective term is ``None`` (no collectives yet), and ``dominant``
-    is taken over compute and memory."""
-    _, card_name, hbm_bw, peak_flops, _ = _card_row(card)
+    policy into the compute term (:func:`policy_compute_scale`).  Given
+    ``coll`` (the bytes a chip receives, :func:`collective_bytes`), the
+    collective term is those bytes over the card's link rate and
+    ``dominant`` weighs it with compute and memory; without, the
+    collective fields are ``None`` and ``dominant`` is taken over compute
+    and memory."""
+    _, card_name, hbm_bw, peak_flops, _, link_bw = _card_row(card)
     flops = float(cost.get("flops", 0.0))
     stream = float(cost.get("bytes_stream", 0.0))
     fused = float(cost.get("bytes_fused", stream))
     t_compute = flops * compute_scale / peak_flops
     t_memory = fused / hbm_bw
+    t_coll = None if coll is None else coll.total_bytes / link_bw
+    terms = {"compute": t_compute, "memory": t_memory,
+             "collective": t_coll or 0.0}
     out = {
         "hlo_flops_per_chip": flops,
         "numerics_compute_scale": compute_scale,
         "hlo_bytes_per_chip": fused,
         "hlo_bytes_stream_per_chip": stream,
         "hlo_bytes_xla_convention_per_chip": stream,
-        "collective_bytes_per_chip": None,
-        "collective_by_kind": None,
+        "collective_bytes_per_chip": None if coll is None else
+        coll.total_bytes,
+        "collective_by_kind": None if coll is None else dict(coll.by_kind),
         "t_compute_s": t_compute,
         "t_memory_s": t_memory,
-        "t_collective_s": None,
-        "dominant": "compute" if t_compute >= t_memory else "memory",
+        "t_collective_s": t_coll,
+        "dominant": max(terms, key=terms.get),
         "n_chips": n_chips,
         "card": card_name,
         "peak_flops_bf16": peak_flops,
         "hbm_bytes_per_s": hbm_bw,
+        "link_bytes_per_s": link_bw,
     }
     if model_flops is not None:
         out["model_flops_total"] = model_flops
         out["model_flops_per_chip"] = model_flops / n_chips
         out["useful_flops_ratio"] = (model_flops / n_chips) / max(flops, 1.0)
-        bound = max(t_compute, t_memory)
+        bound = max(terms.values())
         ideal = (model_flops / n_chips) / peak_flops
         out["roofline_fraction"] = ideal / max(bound, 1e-12)
     return out

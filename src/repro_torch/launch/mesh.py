@@ -1,20 +1,41 @@
-"""Production meshes (``repro.launch.mesh`` counterpart), abstract.
+"""Meshes (``repro.launch.mesh`` counterpart).
 
-A :class:`Mesh` here is a shape and its axis names, nothing more: it holds
-no devices and no process group.  The dry-run and the sharding rules only
-read its ``.shape`` (axis name -> size), which is all that
-:func:`repro_torch.distributed.sharding.spec_for` needs to cut a tensor.
-The port has no mesh over real ranks yet.
+A :class:`Mesh` is a shape and its axis names: the dry-run and the
+sharding rules read only its ``.shape`` (axis name -> size), which is all
+that :func:`repro_torch.distributed.sharding.spec_for` needs to cut a
+tensor.  :func:`make_production_mesh` stays abstract (the dry-run prices
+16 x 16 and 2 x 16 x 16 without the chips).
+
+:func:`make_test_mesh` lays a mesh over the ranks of the initialised
+default process group (:func:`init_ranks`): rank ``r`` sits at the
+row-major coordinate of ``r`` in the shape, as JAX lays a mesh over its
+device list.  Such a mesh also carries a
+:class:`~torch.distributed.device_mesh.DeviceMesh`, this rank's
+coordinate on each axis, and a process group for every set of axes
+(:meth:`Mesh.group`), which the port's collectives
+(:mod:`repro_torch.distributed.collectives`) and ``shard_map`` run over.
 """
 from __future__ import annotations
 
+import itertools
 import math
+import tempfile
 from typing import Sequence
+
+import torch
+import torch.distributed as dist
+
+from repro_torch._device import resolve_device
+
+#: the process-group backend of each device type; nothing falls back
+BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
 
 class Mesh:
-    """An abstract device mesh: ``shape`` maps each axis name to its size,
-    in order; ``size`` is the number of chips it stands for."""
+    """A device mesh: ``shape`` maps each axis name to its size, in order;
+    ``size`` is the number of chips it stands for.  Built by
+    :func:`make_test_mesh` it also holds ranks (``has_ranks``); built
+    directly it is abstract."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
         shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
@@ -23,6 +44,9 @@ class Mesh:
             raise ValueError(f"bad mesh: shape {shape}, axes {axis_names}")
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, shape))
+        self.device_mesh = None
+        self.coords: dict | None = None
+        self._groups: dict = {}     # axes in mesh order -> this rank's group
 
     @property
     def size(self) -> int:
@@ -32,6 +56,35 @@ class Mesh:
     def tag(self) -> str:
         """``16x16``, ``2x16x16``: the dry-run's name for the mesh."""
         return "x".join(str(s) for s in self.shape.values())
+
+    @property
+    def has_ranks(self) -> bool:
+        return self.device_mesh is not None
+
+    def rank_at(self, coords: dict) -> int:
+        """The global rank at a coordinate (axis name -> index)."""
+        r = 0
+        for a in self.axis_names:
+            r = r * self.shape[a] + coords[a]
+        return r
+
+    def group(self, axes):
+        """``(process group, member ranks)`` of this rank's group over
+        ``axes`` (a name or a tuple of names): the ranks that differ from
+        this one on those axes only, listed row-major over ``axes`` in the
+        order given, as JAX orders a tuple of mesh axes.  (The group's own
+        rank order is ascending global rank; the collectives map
+        between the two.)"""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        if not self.has_ranks or self.coords is None:
+            raise RuntimeError("this mesh holds no ranks of this process")
+        members = []
+        for idx in itertools.product(*(range(self.shape[a]) for a in axes)):
+            at = dict(self.coords)
+            at.update(zip(axes, idx))
+            members.append(self.rank_at(at))
+        return self._groups[tuple(a for a in self.axis_names
+                                  if a in axes)], members
 
     def __repr__(self):
         return f"Mesh({self.shape})"
@@ -44,3 +97,73 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     if multi_pod:
         return Mesh((2, 16, 16), ("pod", "data", "model"))
     return Mesh((16, 16), ("data", "model"))
+
+
+def init_ranks(device=None, rank: int = 0, world_size: int = 1,
+               init_method: str | None = None) -> torch.device:
+    """Start the default process group for ``device`` (``cuda`` unless
+    ``"cpu"``): NCCL on the card, gloo on the CPU.  ``init_method``
+    defaults to a ``file://`` store in a fresh temporary directory, which
+    serves a one-rank group; several ranks pass one store they share
+    (a ``file://`` path or a ``tcp://`` address).  On the card rank ``r``
+    takes device ``r`` modulo the device count.  Returns the device."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    if init_method is None:
+        if world_size != 1:
+            raise ValueError("several ranks need an init_method they share")
+        init_method = f"file://{tempfile.mkdtemp()}/store"
+    dist.init_process_group(BACKENDS[dev.type], init_method=init_method,
+                            rank=rank, world_size=world_size)
+    return dev
+
+
+def make_test_mesh(shape=(2, 2), axes=("data", "model"),
+                   device=None) -> Mesh:
+    """A mesh over the ranks of the initialised default group (the first
+    ``prod(shape)`` of them; a rank past those holds no coordinate).
+    Raises when the world is smaller than the mesh, and when the group's
+    backend is not the one of ``device`` (``cuda`` unless ``"cpu"``).
+
+    Every rank must call this, in the same order as its other group
+    constructors: it creates a group for each set of axes, collectively."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    mesh = Mesh(shape, axes)
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call init_ranks first")
+    backend = dist.get_backend()
+    if backend != BACKENDS[dev.type]:
+        raise RuntimeError(f"a {dev.type} mesh needs a "
+                           f"{BACKENDS[dev.type]} group, not {backend}")
+    n, world = mesh.size, dist.get_world_size()
+    if world < n:
+        raise RuntimeError(f"need {n} devices, have {world}")
+    ranks = torch.arange(n).reshape(tuple(mesh.shape.values()))
+    mesh.device_mesh = DeviceMesh(dev.type, ranks,
+                                  mesh_dim_names=mesh.axis_names)
+    me = dist.get_rank()
+    if me < n:
+        mesh.coords = dict(zip(mesh.axis_names,
+                               (int(i) for i in (ranks == me).nonzero()[0])))
+    # a single axis takes the DeviceMesh's group; every larger set of axes
+    # gets one group a subgroup, created in one order on every rank
+    # (new_group is collective over the whole world)
+    for k in range(1, len(mesh.axis_names) + 1):
+        for sub in itertools.combinations(range(len(mesh.axis_names)), k):
+            key = tuple(mesh.axis_names[i] for i in sub)
+            if k == 1:
+                if mesh.coords is not None:
+                    mesh._groups[key] = mesh.device_mesh.get_group(key[0])
+                continue
+            rest = [i for i in range(ranks.dim()) if i not in sub]
+            flat = ranks.permute(*rest, *sub).reshape(-1, math.prod(
+                ranks.shape[i] for i in sub))
+            for row in flat.tolist():
+                group = dist.new_group(sorted(row))
+                if me in row:
+                    mesh._groups[key] = group
+    return mesh

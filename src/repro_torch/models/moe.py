@@ -1,29 +1,44 @@
 """Mixture of experts with sort-based capacity dispatch: top-k routing,
 capacity-factor drops, shared (always-on) experts (llama4, deepseek-v3).
 
-The reference's group-local path (``_moe_apply_gspmd``), which it takes
-whenever no device mesh shards the experts, so always on one device: each
-batch row is a routing group of its ``S * K`` assignments, sorted by
-expert and given ``C`` slots an expert; assignments past an expert's
-``C`` are dropped.  The tokens are gathered into a dense ``(B, E, C, D)``
-buffer, the experts run on it, and each token gathers its ``K`` slots
-back, weighted by its renormalised gates.  (The expert-parallel path of
-the reference, ``_moe_apply_shardmap``, needs a mesh.)
+Two implementations, chosen as the reference chooses them:
+
+- **group-local** (the reference's ``_moe_apply_gspmd``; no mesh, or a
+  mesh without ranks such as the dry-run's): each batch row is a routing
+  group of its ``S * K`` assignments, sorted by expert and given ``C``
+  slots an expert; assignments past an expert's ``C`` are dropped.  The
+  tokens are gathered into a dense ``(B, E, C, D)`` buffer, the experts
+  run on it, and each token gathers its ``K`` slots back, weighted by its
+  renormalised gates.
+- **expert parallel** (``_moe_apply_shardmap``): under
+  :func:`~repro_torch.distributed.sharding.use_mesh_rules` with a mesh
+  over ranks (:func:`~repro_torch.launch.mesh.make_test_mesh`) whose rules
+  shard the experts, each rank routes its own block of tokens as one
+  group (capacity from its ``T_loc`` tokens, not per batch row), sends
+  each expert's slots to the rank holding it (one ``all_to_all``), runs
+  its local experts, and sends the results back
+  (:mod:`repro_torch.distributed.collectives`).
 
 Every routed expert's three projections resolve under their own
 ``expert{k}.{wi,wg,wo}`` paths (``blocks.{i}.mlp.expert3.wi``), so a
 policy can put experts on different multipliers; the shared expert
 resolves under ``shared.*``.  When every expert resolves to ``exact`` and
 no calibration tap is recording, the experts run as one fused einsum over
-the stack in the activation dtype, the reference's datapath.  The router
-is control logic: fp32 whatever the numerics (fp64 in a decode step,
-rounded once to fp32, so that a row's expert choice does not depend on
-the batch it is decoded in; see :func:`~.layers.einsum_f64`).
+the stack in the activation dtype, the reference's datapath.  The
+expert-parallel path runs one config for all experts (a policy that
+gives experts different configs takes the group-local path), under a
+nested ``numerics_scope`` and no ``expert{k}`` scope, as the reference's
+does.  The router is control logic: fp32 whatever the numerics (fp64 in
+a decode step, rounded once to fp32, so that a row's expert choice does
+not depend on the batch it is decoded in; see
+:func:`~.layers.einsum_f64`).
 
 Two traps of a port are closed here: ``torch.argsort`` is not stable
 unless asked (``jnp.argsort`` is), and ``torch.topk`` promises no order
 among equal values where ``jax.lax.top_k`` takes the lower index first,
-so the top-k is a stable descending sort.
+so the top-k is a stable descending sort.  A token's ``K`` slots are
+summed in the order k = 0 .. K-1 (no float scatter-add, whose atomics
+sum in no fixed order on the card).
 """
 from __future__ import annotations
 
@@ -32,6 +47,9 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import (current_mesh_rules,
+                                              local_shape, spec_for)
 from repro_torch.numerics import (current_numerics, current_path, layer_scope,
                                   nmatmul, numerics_scope, operand_tap_active,
                                   resolve, scoped)
@@ -149,32 +167,68 @@ def moe_apply(params, x: torch.Tensor, cfg, ncfg=None,
     """x (B, S, D) -> (B, S, D) under the ambient numerics (the caller
     sets this block's ``mlp`` scope); ``ncfg`` optionally sets the scope
     for this call.  ``decoding`` (a decode step) computes the router's
-    logits in fp64, rounded once to fp32."""
+    logits in fp64, rounded once to fp32.  Expert parallel where a mesh
+    with ranks shards the experts (module docstring), else group-local."""
     ctx = (numerics_scope(ncfg) if ncfg is not None
            else contextlib.nullcontext())
     with ctx:
+        state = current_mesh_rules()
+        if state is not None and getattr(state[0], "has_ranks", False):
+            mesh, rules = state
+            if spec_for(("experts", None, None), params["wi"].shape, mesh,
+                        rules)[0] is not None:
+                return _moe_apply_shardmap(params, x, cfg, mesh, rules,
+                                           decoding)
         return _moe_apply(params, x, cfg, decoding)
+
+
+def _route(x, router, cfg, C: int, decoding: bool):
+    """Routing of the groups of ``x`` (G, S, D): ``(gate, eidx)`` (G, S,
+    K) and the plan ``(src, inv)`` of :func:`dispatch_plan`."""
+    if decoding:
+        logits = einsum_f64("bsd,de->bse", x, router).to(torch.float32)
+    else:
+        logits = torch.einsum("bsd,de->bse", x.to(torch.float32),
+                              router.to(torch.float32))
+    gate, eidx = route(torch.softmax(logits, dim=-1), cfg.moe.top_k)
+    return (gate, eidx, *dispatch_plan(eidx, cfg.moe.n_experts, C))
+
+
+def _dispatch(x, src):
+    """The ``(G, E * C, D)`` buffer: each slot's token, or zeros."""
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    return torch.where((src > 0)[..., None], x[rows, (src - 1).clamp_min(0)],
+                       0)
+
+
+def _combine(flat, inv, gate, dtype):
+    """Each token's ``K`` slots of ``flat`` (G, E * C, D), gate-weighted,
+    summed in the order k = 0 .. K-1: (G, S, D)."""
+    rows = torch.arange(flat.shape[0], device=flat.device)[:, None, None]
+    picked = torch.where((inv >= 0)[..., None], flat[rows, inv.clamp_min(0)],
+                         0)
+    picked = picked * gate[..., None].to(dtype)             # (G, S, K, D)
+    y = picked[:, :, 0]
+    for k in range(1, picked.shape[2]):
+        y = y + picked[:, :, k]
+    return y
+
+
+def _shared(params, x, y):
+    if "shared" not in params:
+        return y
+    B, S, D = x.shape
+    with layer_scope("shared"):
+        return y + mlp_apply(params["shared"], x.reshape(-1, D)).to(
+            x.dtype).reshape(B, S, D)
 
 
 def _moe_apply(params, x, cfg, decoding):
     B, S, D = x.shape
-    e = cfg.moe
-    E, K = e.n_experts, e.top_k
+    E = cfg.moe.n_experts
     C = capacity(cfg, S)
-
-    # routing: fp32 whatever the numerics
-    if decoding:
-        logits = einsum_f64("bsd,de->bse", x, params["router"]).to(
-            torch.float32)
-    else:
-        logits = torch.einsum("bsd,de->bse", x.to(torch.float32),
-                              params["router"].to(torch.float32))
-    gate, eidx = route(torch.softmax(logits, dim=-1), K)      # (B, S, K)
-    src, inv = dispatch_plan(eidx, E, C)
-
-    rows = torch.arange(B, device=x.device)[:, None]
-    buf = torch.where((src > 0)[..., None], x[rows, (src - 1).clamp_min(0)],
-                      0).reshape(B, E, C, D)
+    gate, _, src, inv = _route(x, params["router"], cfg, C, decoding)
+    buf = _dispatch(x, src).reshape(B, E, C, D)
 
     cfgs = routed_expert_configs(_ambient_view(), E)
     if _all_exact(cfgs) and not operand_tap_active():
@@ -188,22 +242,61 @@ def _moe_apply(params, x, cfg, decoding):
         g = _experts_matmul(buf, params["wg"], "wg", x.dtype)
         h = h * F.silu(g)
         out = _experts_matmul(h, params["wo"], "wo", x.dtype)
+    y = _combine(out.reshape(B, E * C, D), inv, gate, x.dtype)
+    return _shared(params, x, y)
 
-    # combine: each token gathers its K slots, gate-weighted, summed in
-    # the order k = 0 .. K-1
-    flat = out.reshape(B, E * C, D)
-    picked = torch.where((inv >= 0)[..., None],
-                         flat[rows[..., None], inv.clamp_min(0)], 0)
-    picked = picked * gate[..., None].to(x.dtype)           # (B, S, K, D)
-    y = picked[:, :, 0]
-    for k in range(1, K):
-        y = y + picked[:, :, k]
 
-    if "shared" in params:
-        with layer_scope("shared"):
-            y = y + mlp_apply(params["shared"], x.reshape(-1, D)).to(
-                x.dtype).reshape(B, S, D)
-    return y
+def _moe_apply_shardmap(params, x, cfg, mesh, rules, decoding):
+    """Expert parallelism (the reference's ``_moe_apply_shardmap``):
+    route the rank's ``T_loc`` tokens as one group, one ``all_to_all``
+    out to the experts' ranks and one back, the local experts between."""
+    E = cfg.moe.n_experts
+    B, S, D = x.shape
+    cfgs = routed_expert_configs(_ambient_view(), E)
+    if any(len(set(tup)) > 1 for tup in cfgs.values()):
+        return _moe_apply(params, x, cfg, decoding)
+    ucfg = {name: tup[0] for name, tup in cfgs.items()}
+    exact_experts = _all_exact(cfgs)
+
+    x_spec = spec_for(("batch", "seq", None), x.shape, mesh, rules)
+    w_spec = spec_for(("experts", None, None), params["wi"].shape, mesh,
+                      rules)
+    r_spec = spec_for((None, None), params["router"].shape, mesh, rules)
+    ex_axes = w_spec[0]
+    b_loc, s_loc, _ = local_shape(x.shape, x_spec, mesh)
+    T_loc = b_loc * s_loc
+    C = capacity(cfg, T_loc)
+
+    def local(b, w, c):
+        with numerics_scope(c):
+            return torch.stack([nmatmul(b[i], w[i])
+                                for i in range(b.shape[0])]).to(x.dtype)
+
+    def body(xl, router, wi, wg, wo):
+        xt = xl.reshape(1, T_loc, D)                  # one routing group
+        gate, _, src, inv = _route(xt, router, cfg, C, decoding)
+        buf = _dispatch(xt, src).reshape(E, C, D)
+        # (E, C, D) -> (E / nm, C * nm, D): each expert's slots from every
+        # rank of the expert axes, on the rank that holds the expert
+        buf = collectives.all_to_all(buf, mesh, ex_axes, 0, 1)
+        if exact_experts:
+            h = torch.einsum("ecd,edf->ecf", buf, wi.to(x.dtype))
+            g = torch.einsum("ecd,edf->ecf", buf, wg.to(x.dtype))
+            h = h * F.silu(g)
+            out = torch.einsum("ecf,efd->ecd", h, wo.to(x.dtype))
+        else:
+            h = local(buf, wi, ucfg["wi"])
+            g = local(buf, wg, ucfg["wg"])
+            h = h * F.silu(g)
+            out = local(h, wo, ucfg["wo"])
+        out = collectives.all_to_all(out, mesh, ex_axes, 1, 0)   # (E, C, D)
+        y = _combine(out.reshape(1, E * C, D), inv, gate, x.dtype)
+        return y.reshape(xl.shape)
+
+    y = collectives.shard_map(
+        body, mesh, (x_spec, r_spec, w_spec, w_spec, w_spec), x_spec)(
+        x, params["router"], params["wi"], params["wg"], params["wo"])
+    return _shared(params, x, y)
 
 
 def aux_load_balance_loss(logits, eidx, n_experts: int) -> torch.Tensor:

@@ -720,3 +720,52 @@ def test_afpm_bitwise_kernel_vector_and_scalar_paths(name, rng):
         xs, ys = x[off:off + n], y[off:off + n]
         _assert_same_bits(k2.afpm_bitwise(xs, ys, cfg),
                           k2.afpm_bitwise_plain(xs, ys, cfg), (name, off, n))
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_expert_parallel_decode_equals_group_local(tmp_path, rng):
+    """MoE's expert-parallel path on a one-rank NCCL group ((1, 1) mesh):
+    a 4-slot decode step under segmented3 runs K1 on every local expert
+    (4 rows an expert, 16 group-local), and its output equals the
+    group-local path's bit for bit (K1's rows do not depend on M)."""
+    _need_card()
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import rules_for, use_mesh_rules
+    from repro_torch.launch.mesh import init_ranks, make_test_mesh
+    from repro_torch.models import moe
+    from repro_torch.numerics import NumericsConfig
+
+    base = get_arch("deepseek-v3-671b").reduced()
+    E, D, F = 16, 256, 512
+    cfg = dataclasses.replace(base, d_model=D, d_ff=F, moe=dataclasses.replace(
+        base.moe, n_experts=E, top_k=4, n_shared=1))
+    shapes = {"router": (D, E), "wi": (E, D, F), "wg": (E, D, F),
+              "wo": (E, F, D)}
+    params = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32)
+                                  * s[-2] ** -0.5).cuda()
+              for k, s in shapes.items()}
+    params["shared"] = {k: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32) * s[0] ** -0.5).cuda() for k, s in (
+        ("wi", (D, F)), ("wg", (D, F)), ("wo", (F, D)))}
+    x = torch.from_numpy(rng.standard_normal((4, 1, D)).astype(
+        np.float32)).cuda()
+    seg3 = NumericsConfig(mode="segmented", seg_passes=3)
+    want = moe.moe_apply(params, x, cfg, seg3, decoding=True)
+    init_ranks("cuda", init_method=f"file://{tmp_path}/store")
+    try:
+        mesh = make_test_mesh((1, 1), device="cuda")
+        before = k1.afpm_matmul.launches
+        with use_mesh_rules(mesh, rules_for(cfg, "serve")), \
+                collectives.count_collectives() as stats:
+            got = moe.moe_apply(params, x, cfg, seg3, decoding=True)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert k1.afpm_matmul.launches - before == 3 * E + 3
+    assert stats.by_kind["all-to-all"] == 2 * E * 4 * D * 4
+    assert torch.equal(got, want)
