@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twenty-five phases, each printing a line or a few; any failed check ends the
+Twenty-six phases, each printing a line or a few; any failed check ends the
 run with a nonzero exit and no result line:
 
 1. device: the card, its power limit, torch and the kernels' build time
@@ -219,9 +219,14 @@ run with a nonzero exit and no result line:
    segmented3: every request completes, 7 x 36 K1 launches a forward, and
    one request's tokens equal a manual greedy loop's;
 24. dryrun (after phase 18): ``python -m repro_torch.launch.dryrun --arch
-   qwen3-4b --shape <s> --both-meshes`` for the four shapes, one
-   subprocess each, every record ok or skipped
-   (``chiprun_out/dryrun/``); at a 1 x 1 mesh the dry-run of phase 18's
+   qwen3-4b --shape <s> --both-meshes`` for the four shapes, and for
+   llama4-maverick-400b-a17b train_4k and deepseek-v3-671b prefill_32k on
+   16 x 16 (expert parallelism on the fake group), one subprocess each,
+   every record ok or skipped (``chiprun_out/dryrun/``), each counted on
+   the placed step over a fake process group of 256 or 512 CUDA ranks:
+   one chip's peak and collective bytes by kind, printed per cell and
+   mesh; at a 1 x 1 mesh the dry-run
+   of phase 18's
    step (8 x 128 tokens, AdamW) has argument bytes equal to the bytes of
    the tensors that step took, and its peak estimate is printed beside
    phase 18's measured peak;
@@ -231,13 +236,29 @@ run with a nonzero exit and no result line:
    expert-parallel path (``all_to_all`` dispatch, K1 on each of the 256
    local experts) in a 4-slot decode step, equal to the group-local path
    bit for bit, within 64 ulps of the plain route, 771 K1 launches a
-   call and 2 x E x C x D x 4 all-to-all bytes counted; a 256-token
+   call and 2 x E x C x D x 4 all-to-all bytes counted; the group-local
+   decode timed again after it, and once with every K1 call through its
+   custom op (bit for bit); a 256-token
    prefill through it against the plain route; ``pipeline_apply`` over a
    ``("pipe",)`` mesh of 1 with 4 full-width qwen3-4b blocks as its stage
    (4 microbatches) equal to the blocks in sequence bit for bit;
    ``hierarchical_grad_reduce(compress=True)`` over one block's
    gradient-shaped tree within max|g|/100, its error feedback the
-   residual; each time beside the card's name and power limit.
+   residual; each time beside the card's name and power limit;
+26. placed (right after phase 25): whole-model placement on a one-rank
+   NCCL group (``make_test_mesh((1, 1))``): a freshly seeded full-width
+   qwen3-4b placed by the serve rules (``sharding.place``: DTensor params
+   and batch), a 40-token prefill of 2 prompts and 8 greedy decode steps
+   through ``launch.steps`` under premium, standard and bulk, equal to the
+   same weights unplaced bit for bit (every step's logits and the
+   tokens), with equal K1 launches, and every K1 call of a placed
+   standard prefill dispatched by DTensor through
+   ``repro_torch::afpm_matmul``; a full-width mamba2-130m prefill (4 x 150
+   tokens) placed, through K3 (``repro_torch::ssd_scan``), bit for bit;
+   the host ms of each placed step beside the unplaced one, DTensor's
+   host microseconds an ATen op of a decode step, and K1's host
+   microseconds a call on plain tensors through its wrapper (the route of
+   an unplaced step) and through its op.
 
 Then one JSON line on the kernels, the card's name and power limit, and
 the result line.  Per-shape kernel timings go to
@@ -246,6 +267,7 @@ the result line.  Per-shape kernel timings go to
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import pathlib
@@ -328,6 +350,10 @@ EXPERT_M = 16
 # tokens; the pipeline's stage (qwen3-4b blocks at full width), its
 # microbatches and their (batch, tokens)
 DIST_SLOTS, DIST_PREFILL = 4, 256
+# phase [placed]: qwen3-4b's prompts (batch, tokens) and greedy steps, and
+# mamba2-130m's prefill (batch, tokens)
+PLACED_BATCH, PLACED_PROMPT, PLACED_STEPS = 2, 40, 8
+PLACED_MAMBA2 = (4, 150)
 PIPE_LAYERS, PIPE_MICRO, PIPE_MB, PIPE_SEQ = 4, 4, 2, 64
 # every M the serve phases give the segmented matmul (decode 1 and 4,
 # prefill tails 8 / 13 / 22, chunks of 32, whole prompts 40 / 77 / 150) and
@@ -2620,6 +2646,7 @@ def phase_dist(sess, peaks):
     from repro_torch.distributed.pipeline import pipeline_apply
     from repro_torch.distributed.sharding import rules_for, use_mesh_rules
     from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.kernels import custom_ops
     from repro_torch.launch.mesh import init_ranks, make_test_mesh
     from repro_torch.launch.multipod import hierarchical_grad_reduce
     from repro_torch.models import moe, transformer
@@ -2659,6 +2686,21 @@ def phase_dist(sess, peaks):
                                                      False, 3)
             pre_plain_ms, pre_plain, _ = moe_layer_ms(layer, x_pre, cfg,
                                                       plain, False, 1)
+        # group-local once more, after EP (the first sample is the phase's
+        # first call), and with every K1 call through its op, which an
+        # unplaced call skips (the op's dispatch on the host, a layer's
+        # 768 calls)
+        local_again_ms, _, _ = moe_layer_ms(layer, x_dec, cfg, seg3, True)
+        through = custom_ops._through_op
+        custom_ops._through_op = lambda *ts: True
+        try:
+            local_op_ms, local_op, _ = moe_layer_ms(layer, x_dec, cfg, seg3,
+                                                    True)
+        finally:
+            custom_ops._through_op = through
+        if not torch.equal(local_op, local):
+            raise AssertionError("dist: group-local through the op != "
+                                 "through the wrapper")
         C = moe.capacity(cfg, DIST_SLOTS)
         a2a = 2 * E * C * D * x_dec.element_size()
         if ep_launches != per_call or pre_launches != per_call:
@@ -2682,12 +2724,14 @@ def phase_dist(sess, peaks):
         bound_ms = sum(K_ * N_ * 4 + C * K_ * 4 + C * N_ * 4
                        for K_, N_ in DSV3_EXPERT * E) / peaks[0] * 1e3
         out.update(ep_decode_ms=ep_ms, local_decode_ms=local_ms,
+                   local_again_decode_ms=local_again_ms,
+                   local_op_decode_ms=local_op_ms,
                    ep_launches=ep_launches, a2a_bytes=a2a,
                    collective_by_kind=dict(stats.by_kind),
                    decode_ulps=dec_ulps, prefill_ms=pre_ms,
                    plain_prefill_ms=pre_plain_ms, prefill_ulps=pre_ulps,
                    experts_bound_ms=bound_ms)
-        del local, ep, ep_again, ep_plain, pre, pre_plain
+        del local, local_op, ep, ep_again, ep_plain, pre, pre_plain
 
         # the pipeline: qwen3-4b blocks at full width as one stage
         qcfg = get_arch("qwen3-4b")
@@ -2751,7 +2795,9 @@ def phase_dist(sess, peaks):
           f"(segmented3, C {C}) == group-local bit for bit, K1 {ep_launches} "
           f"launches a call, vs plain {dec_ulps:.2f} ulps; all-to-all "
           f"{a2a} bytes = 2 x E x C x D x 4 (counted {stats.by_kind}); EP "
-          f"{ep_ms:.2f} ms beside group-local {local_ms:.2f} ms (its "
+          f"{ep_ms:.2f} ms beside group-local {local_ms:.2f} ms ("
+          f"{local_again_ms:.2f} ms after EP, {local_op_ms:.2f} ms with "
+          f"every K1 call through repro_torch::afpm_matmul; its "
           f"{3 * E} expert projections' byte bound {bound_ms:.2f} ms); a "
           f"{DIST_PREFILL}-token prefill {pre_ms:.2f} ms (plain route "
           f"{pre_plain_ms:.2f} ms), vs plain {pre_ulps:.2f} ulps (bound "
@@ -2762,6 +2808,265 @@ def phase_dist(sess, peaks):
           f"launches; hierarchical_grad_reduce(compress=True) over a block's "
           f"{n_grad} gradient elements {red_ms:.2f} ms, within max|g|/100, "
           f"error feedback == residual; phase {out['phase_s']:.1f} s; {card}")
+    return out
+
+
+class OpCalls:
+    """A dispatch mode counting the port's custom ops (``repro_torch::``):
+    ``placed`` the calls DTensor dispatched (DTensor arguments), ``local``
+    the calls that ran on a rank's blocks; DTensor-level ops pass on."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        self.placed = collections.Counter()
+        self.local = collections.Counter()
+        outer = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                from torch.distributed.tensor import DTensor
+
+                placed = any(issubclass(t, DTensor) for t in types)
+                if func.namespace == "repro_torch":
+                    (outer.placed if placed else outer.local)[
+                        func._opname] += 1
+                if placed:
+                    return NotImplemented
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Mode()
+
+
+def placed_steps(params, cfg, tokens, steps_n, mesh=None, counter=None):
+    """A prefill of ``tokens`` and ``steps_n`` greedy lockstep decode steps
+    through ``launch.steps``: unplaced, or (``mesh``) placed by the serve
+    rules.  Returns every step's logits (whole, on the card), the tokens
+    and the host ms of the prefill and of each decode step."""
+    import torch
+
+    from repro_torch.distributed.sharding import (place, rules_for,
+                                                  use_mesh_rules)
+    from repro_torch.launch import specs, steps
+    from repro_torch.models import transformer
+
+    B, S = tokens.shape
+    pre = steps.make_prefill_step(cfg, max_len=S + steps_n)
+    dec = steps.make_decode_step(cfg)
+    rules = rules_for(cfg, "serve")
+    whole = (lambda t: t.full_tensor()) if mesh is not None else (
+        lambda t: t)
+    logits, toks, ms = [], [], []
+    ctx = (use_mesh_rules(mesh, rules) if mesh is not None
+           else contextlib.nullcontext())
+    with ctx, torch.inference_mode():
+        batch = {"tokens": tokens}
+        if mesh is not None:
+            params = place(params, transformer.unflatten(
+                transformer.param_specs(cfg)), mesh, rules)
+            batch = place(batch, specs.batch_axes_tree(batch), mesh, rules)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (counter.mode if counter else contextlib.nullcontext()):
+            lg, state = pre(params, batch)
+        full = whole(lg)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        for i in range(steps_n):
+            logits.append(full)
+            tok = full[:, -1].argmax(-1).to(torch.int32)[:, None]
+            toks.append(tok)
+            if mesh is not None:
+                tok = place(tok, specs.BATCH_AXES["token"], mesh, rules)
+            t0 = time.perf_counter()
+            lg, state = dec(params, state, tok, S + i)
+            full = whole(lg)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        logits.append(full)
+    return logits, torch.cat(toks, dim=1) if toks else None, ms
+
+
+def aten_ops(fn) -> int:
+    """The ATen ops ``fn()`` runs (a dispatch mode's count)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    n = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            n[0] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return n[0]
+
+
+def phase_placed():
+    """Whole-model placement on a one-rank NCCL group: full-width qwen3-4b
+    placed by the serve rules on a (1, 1) mesh (``sharding.place``, DTensor
+    params and batch), a 40-token prefill and 8 greedy decode steps under
+    each tier, equal to the same weights unplaced bit for bit (logits and
+    tokens) with equal K1 launches, every K1 call dispatched by DTensor
+    through ``repro_torch::afpm_matmul``; a full-width mamba2-130m prefill
+    placed, through K3 (``repro_torch::ssd_scan``), bit for bit; the host
+    ms of each beside the unplaced step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.kernels import ssd_scan as k3
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import init_ranks, make_test_mesh
+    from repro_torch.serving import DEFAULT_TIERS
+    from repro_torch.session import Session
+
+    t_phase = time.perf_counter()
+    card = smi("name,power.limit")
+    base = get_arch("qwen3-4b")
+    assert (base.n_layers, base.d_model, base.vocab) == (36, 2560, 151936)
+    sess = Session(base, seed=0)
+    params = sess.params
+    rng = np.random.default_rng(11)
+    tokens = torch.as_tensor(rng.integers(0, base.vocab, (PLACED_BATCH,
+                                                          PLACED_PROMPT)),
+                             dtype=torch.int32, device="cuda")
+    out = {"card": card, "tiers": {}}
+    init_ranks("cuda")
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"), device="cuda")
+        for tier in DEFAULT_TIERS:
+            cfg = sess.replace(policy=tier.policy).config
+            runs = {}
+            for name, m in (("unplaced", None), ("placed", mesh),
+                            ("unplaced", None), ("placed", mesh)):
+                b0 = k1.afpm_matmul.launches
+                got = placed_steps(params, cfg, tokens, PLACED_STEPS, m)
+                runs.setdefault(name, []).append(
+                    (got, k1.afpm_matmul.launches - b0))
+            (ul, ut, _), un = runs["unplaced"][0]
+            for (pl, pt, _), pn in runs["placed"]:
+                if pn != un:
+                    raise AssertionError(f"[placed] {tier.name}: K1 {pn} "
+                                         f"launches placed, {un} unplaced")
+                if not torch.equal(pt, ut):
+                    raise AssertionError(f"[placed] {tier.name}: tokens "
+                                         f"{pt.tolist()} != {ut.tolist()}")
+                for i, (a, b) in enumerate(zip(pl, ul)):
+                    if not torch.equal(a, b):
+                        raise AssertionError(
+                            f"[placed] {tier.name}: step {i} logits differ "
+                            f"by {(a - b).abs().max().item()}")
+            if tier.policy != "exact" and un != 7 * base.n_layers * (
+                    PLACED_STEPS + 1):
+                raise AssertionError(f"[placed] {tier.name}: K1 {un} "
+                                     f"launches, expected 7 x 36 x 9")
+            # the second run of each is the timed one (DTensor's sharding
+            # cache and the allocator warm)
+            ums, pms = runs["unplaced"][1][0][2], runs["placed"][1][0][2]
+            out["tiers"][tier.name] = {
+                "policy": tier.policy, "k1": un,
+                "prefill_ms": [ums[0], pms[0]],
+                "decode_ms": [float(np.median(ums[1:])),
+                              float(np.median(pms[1:]))]}
+        # every K1 call of a placed standard prefill went through its op
+        counter = OpCalls()
+        cfg = sess.replace(policy="segmented3").config
+        b0 = k1.afpm_matmul.launches
+        placed_steps(params, cfg, tokens, 0, mesh, counter)
+        n = k1.afpm_matmul.launches - b0
+        if not (counter.placed["afpm_matmul"] == counter.local["afpm_matmul"]
+                == n == 7 * base.n_layers):
+            raise AssertionError(f"[placed] K1 {n} launches, op calls "
+                                 f"{dict(counter.placed)} placed, "
+                                 f"{dict(counter.local)} local")
+        out["k1_op_calls"] = n
+        # the op's dispatch on the host: K1 on plain tensors at a decode
+        # projection's shape, through its wrapper (what an unplaced step
+        # calls) and through repro_torch::afpm_matmul (what DTensor calls
+        # on each block)
+        from repro_torch.kernels import custom_ops
+
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        xa = torch.randn((PLACED_BATCH, 1, base.d_model), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        wa = 0.02 * torch.randn((base.d_model, base.d_model), generator=gen,
+                                device="cuda")
+        with torch.inference_mode():
+            if not torch.equal(custom_ops.segmented_matmul(xa, wa, 3),
+                               custom_ops.afpm_matmul_op(xa, wa, 3, None)):
+                raise AssertionError("[placed] K1 through its op != K1 "
+                                     "through its wrapper")
+            out["k1_host_us"] = {
+                "wrapper": host_us_per_call(
+                    lambda: custom_ops.segmented_matmul(xa, wa, 3)),
+                "op": host_us_per_call(
+                    lambda: custom_ops.afpm_matmul_op(xa, wa, 3, None))}
+        del xa, wa
+        # DTensor's host cost an op: the ATen ops of a decode step
+        with torch.inference_mode():
+            pre = steps.make_prefill_step(cfg, max_len=PLACED_PROMPT + 1)
+            _, st = pre(params, {"tokens": tokens})
+            ops = aten_ops(lambda: steps.make_decode_step(cfg)(
+                params, st, tokens[:, :1], PLACED_PROMPT))
+        del st
+        std = out["tiers"]["standard"]["decode_ms"]
+        out["decode_ops"] = ops
+        out["host_us_an_op"] = 1e3 * (std[1] - std[0]) / ops
+        del params, sess
+        torch.cuda.empty_cache()
+        # mamba2-130m: a placed prefill through K3
+        mcfg = Session("mamba2-130m", reduced=False,
+                       policy="segmented3").config
+        mparams = Session(mcfg, seed=0).params
+        mtok = torch.as_tensor(rng.integers(0, mcfg.vocab, PLACED_MAMBA2),
+                               dtype=torch.int32, device="cuda")
+        got = {}
+        for name, m in (("unplaced", None), ("placed", mesh),
+                        ("unplaced", None), ("placed", mesh)):
+            b0 = k3.ssd_scan.launches
+            c = OpCalls() if m is not None else None
+            lg, _, ms = placed_steps(mparams, mcfg, mtok, 0, m, c)
+            got[name] = (lg[0], k3.ssd_scan.launches - b0, ms[0], c)
+        (ul, un, ums, _), (pl, pn, pms, c) = got["unplaced"], got["placed"]
+        if not (pn == un == mcfg.n_layers and c.placed["ssd_scan"]
+                == c.local["ssd_scan"] == pn) or not torch.equal(pl, ul):
+            raise AssertionError(f"[placed] mamba2: K3 {pn} / {un} launches, "
+                                 f"op calls {dict(c.placed)}, logits equal "
+                                 f"{torch.equal(pl, ul)}")
+        out["mamba2"] = {"k3": pn, "prefill_ms": [ums, pms]}
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    tiers = "; ".join(
+        f"{n}({t['policy']}) prefill {t['prefill_ms'][0]:.2f} / "
+        f"{t['prefill_ms'][1]:.2f} ms, a decode step {t['decode_ms'][0]:.2f}"
+        f" / {t['decode_ms'][1]:.2f} ms, K1 {t['k1']}"
+        for n, t in out["tiers"].items())
+    print(f"[placed] one-rank NCCL group, (1, 1) mesh, serve rules; qwen3-4b "
+          f"full width, {PLACED_BATCH} x {PLACED_PROMPT} tokens + "
+          f"{PLACED_STEPS} greedy steps, unplaced / placed: {tiers}; placed "
+          f"== unplaced bit for bit (logits and tokens) under every tier, "
+          f"equal K1 launches, a standard prefill's {out['k1_op_calls']} K1 "
+          f"calls all dispatched by DTensor through repro_torch::afpm_matmul;"
+          f" a decode step's {out['decode_ops']} ATen ops, DTensor "
+          f"{out['host_us_an_op']:.1f} us an op; K1's host cost a call at "
+          f"({PLACED_BATCH}, 1, {base.d_model}) @ ({base.d_model}, "
+          f"{base.d_model}), plain tensors: "
+          f"{out['k1_host_us']['wrapper']:.1f} us through its wrapper (an "
+          f"unplaced step), {out['k1_host_us']['op']:.1f} us through "
+          f"repro_torch::afpm_matmul; mamba2-130m full width "
+          f"prefill of {PLACED_MAMBA2[0]} x {PLACED_MAMBA2[1]}: "
+          f"{out['mamba2']['prefill_ms'][0]:.2f} / "
+          f"{out['mamba2']['prefill_ms'][1]:.2f} ms, K3 "
+          f"{out['mamba2']['k3']} launches through repro_torch::ssd_scan, "
+          f"bit for bit; phase {out['phase_s']:.1f} s; {card}")
     return out
 
 
@@ -3819,26 +4124,38 @@ def phase_launch(sess):
     return dict(ticks=ticks, run_s=run_s, k1=launches)
 
 
+#: the sharded counts of [dryrun] beside qwen3-4b's: expert parallelism on
+#: the fake group (its all-to-alls) on the 16 x 16 mesh
+DRYRUN_GIANTS = (("llama4-maverick-400b-a17b", "train_4k"),
+                 ("deepseek-v3-671b", "prefill_32k"))
+
+
 def phase_dryrun(train):
     """The dry-run CLI for qwen3-4b at every shape on both production
-    meshes (one subprocess a shape, all at once); then at a 1 x 1 mesh the
-    dry-run of [train-qwen3]'s step (8 x 128 tokens, AdamW): its
-    argument bytes == the bytes of the tensors that phase's step took,
-    and its peak estimate beside that phase's measured peak."""
+    meshes, and for llama4's train_4k and deepseek-v3's prefill_32k on
+    16 x 16 (one subprocess a cell, all at once; each counts the placed
+    step over a fake group of 256 or 512 CUDA ranks: one chip's peak and
+    collective bytes); then at a 1 x 1 mesh the dry-run of
+    [train-qwen3]'s step (8 x 128 tokens, AdamW): its argument bytes ==
+    the bytes of the tensors that phase's step took, and its peak
+    estimate beside that phase's measured peak."""
     from repro_torch.launch import dryrun, specs
     from repro_torch.launch.mesh import Mesh
     from repro_torch.session import Session
 
     out_dir = ROOT / "chiprun_out" / "dryrun"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cells = {("qwen3-4b", s): ("16x16", "2x16x16") for s in specs.SHAPES}
+    cells.update({c: ("16x16",) for c in DRYRUN_GIANTS})
     t0 = time.perf_counter()
-    procs = {s: subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "qwen3-4b", "--shape", s, "--both-meshes", "--out-dir",
-         str(out_dir)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for s in specs.SHAPES}
+    procs = {(a, s): subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+         "--shape", s, *(["--both-meshes"] if len(tags) > 1 else []),
+         "--out-dir", str(out_dir)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for (a, s), tags in cells.items()}
     try:
-        logs = {s: p.communicate(timeout=600)[0] for s, p in procs.items()}
+        logs = {c: p.communicate(timeout=600)[0] for c, p in procs.items()}
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -3846,18 +4163,19 @@ def phase_dryrun(train):
                 p.wait()
     wall_s = time.perf_counter() - t0
     recs = {}
-    for s, p in procs.items():
-        for tag in ("16x16", "2x16x16"):
-            path = out_dir / f"qwen3-4b__{s}__{tag}.json"
+    for (a, s), p in procs.items():
+        for tag in cells[(a, s)]:
+            path = out_dir / f"{a}__{s}__{tag}.json"
             rec = json.loads(path.read_text()) if path.exists() else {}
-            recs[(s, tag)] = rec
+            recs[(a, s, tag)] = rec
             st = rec.get("status", "missing")
             if st != "ok" and not st.startswith("skipped"):
-                raise AssertionError(f"[dryrun] qwen3-4b {s} {tag}: {st}: "
-                                     f"{rec.get('error')}\n{logs[s][-2000:]}")
+                raise AssertionError(f"[dryrun] {a} {s} {tag}: {st}: "
+                                     f"{rec.get('error')}\n"
+                                     f"{logs[(a, s)][-2000:]}")
         if p.returncode != 0:
-            raise AssertionError(f"[dryrun] {s} exited {p.returncode}: "
-                                 f"{logs[s][-2000:]}")
+            raise AssertionError(f"[dryrun] {a} {s} exited {p.returncode}: "
+                                 f"{logs[(a, s)][-2000:]}")
     one = dryrun.lower_session_cell(
         Session("qwen3-4b", reduced=False),
         dict(kind="train", seq=TRAIN_SEQ, batch=TRAIN_BATCH),
@@ -3867,18 +4185,32 @@ def phase_dryrun(train):
         raise AssertionError(f"[dryrun] 1 x 1 argument_bytes "
                              f"{mem['argument_bytes']} != [train-qwen3]'s "
                              f"step tensors {train['step_bytes']}")
-    for (s, tag), rec in recs.items():
+    for (a, s, tag), rec in recs.items():
         if rec["status"] == "ok":
-            r = rec["roofline"]
-            print(f"[dryrun]   {s} {tag}: args/chip "
-                  f"{rec['memory']['argument_bytes'] / 1e9:.3f} GB, "
-                  f"{r['hlo_flops_per_chip']:.4g} FLOP/chip, t_compute "
-                  f"{r['t_compute_s'] * 1e3:.4g} ms, t_memory "
-                  f"{r['t_memory_s'] * 1e3:.4g} ms ({r['dominant']}), "
+            r, m = rec["roofline"], rec["memory"]
+            # a sharded mesh counts the placed step over CUDA ranks: one
+            # chip's peak and its collectives
+            if not rec.get("sharded") or rec.get("ranks") != "cuda" \
+                    or r["collective_by_kind"] is None \
+                    or r["t_collective_s"] is None:
+                raise AssertionError(f"[dryrun] {a} {s} {tag}: no sharded "
+                                     f"peak or collective term: {m} {r}")
+            coll = ", ".join(f"{k} {v / 1e9:.4g}" for k, v in sorted(
+                r["collective_by_kind"].items()))
+            print(f"[dryrun]   {a} {s} {tag}: args/chip "
+                  f"{m['argument_bytes'] / 1e9:.3f} GB, peak/chip "
+                  f"{m['peak_estimate_bytes'] / 1e9:.3f} GB (temp "
+                  f"{m['temp_bytes'] / 1e9:.3f}), "
+                  f"{r['hlo_flops_per_chip']:.4g} FLOP/chip, collectives/chip "
+                  f"{r['collective_bytes_per_chip'] / 1e9:.4g} GB ({coll}), "
+                  f"t_compute {r['t_compute_s'] * 1e3:.4g} ms, t_memory "
+                  f"{r['t_memory_s'] * 1e3:.4g} ms, t_collective "
+                  f"{r['t_collective_s'] * 1e3:.4g} ms ({r['dominant']}), "
                   f"counted in {rec['count_s']} s ({rec['counted_ops']} ops)")
         else:
-            print(f"[dryrun]   {s} {tag}: {rec['status']}")
-    print(f"[dryrun] qwen3-4b x {len(specs.SHAPES)} shapes x 2 meshes in "
+            print(f"[dryrun]   {a} {s} {tag}: {rec['status']}")
+    print(f"[dryrun] qwen3-4b x {len(specs.SHAPES)} shapes x 2 meshes and "
+          f"{', '.join(f'{a} {s}' for a, s in DRYRUN_GIANTS)} on 16x16 in "
           f"{wall_s:.1f} s (every record ok or skipped, records -> "
           f"{out_dir.relative_to(ROOT)}); 1 x 1 mesh, [train-qwen3]'s step "
           f"({TRAIN_BATCH} x {TRAIN_SEQ}, AdamW): argument_bytes "
@@ -3888,7 +4220,7 @@ def phase_dryrun(train):
           f"{train['peak_gb']:.2f} GB (max_memory_allocated); counted in "
           f"{one['count_s']} s")
     return dict(wall_s=wall_s, one_by_one=mem, records={
-        f"{s} {tag}": rec for (s, tag), rec in recs.items()})
+        f"{a} {s} {tag}": rec for (a, s, tag), rec in recs.items()})
 
 
 def main() -> int:
@@ -3934,10 +4266,12 @@ def main() -> int:
     dd = phase_dist(ds_sess, peaks)
     del ds_sess
     torch.cuda.empty_cache()
+    pl = phase_placed()
     (ROOT / "chiprun_out" / "chip_smoke_giants.json").write_text(json.dumps(
         {"card": smi("name,power.limit"), "qwen2-vl-72b": qv,
          "llama4-maverick-400b-a17b": l4, "deepseek-v3-671b": ds,
-         "gemma3_engine": dz["gemma3-12b"]["engine"], "dist": dd}, indent=1))
+         "gemma3_engine": dz["gemma3-12b"]["engine"], "dist": dd,
+         "placed": pl}, indent=1))
     tg = phase_train_grad()
     tq = phase_train_qwen3()
     dr = phase_dryrun(tq)
@@ -3972,6 +4306,7 @@ def main() -> int:
         "gemma3_engine_launches": dz["engine_k1"],
         "qwen2_vl_launches": qv["k1"], "llama4_launches": l4["k1"],
         "deepseek_launches": ds["k1"], "ep_launches": dd["ep_launches"],
+        "placed_launches": {t: v["k1"] for t, v in pl["tiers"].items()},
         "qwen2_vl_layer": k["qwen2-vl-72b_layer"],
         "llama4_expert": k["llama4_expert"],
         "deepseek_expert": k["deepseek_expert"],
@@ -4020,6 +4355,7 @@ def main() -> int:
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
         "train_grad_launches": tg["k3"], "train_mamba2_launches": tm["k3"],
         "zamba2_launches": z["k3"], "zamba2": c["zamba2"],
+        "placed_launches": pl["mamba2"]["k3"],
         "backward": "plain (repro_torch/kernels/autograd.py)"}]}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {

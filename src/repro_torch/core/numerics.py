@@ -45,6 +45,9 @@ import dataclasses
 
 import torch
 
+from repro_torch.distributed.sharding import (inner_sharded, reduced,
+                                              reshape, rows)
+
 from . import scope as _scope
 from .afpm import AFPMConfig, chunked_emulated_matmul
 from .registry import afpm_config, get_elementwise, get_multiplier
@@ -117,7 +120,11 @@ def nmatmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     any scope).  A non-config ambient value is duck-typed as a policy and
     resolved per call site with ``amb.lookup(path)`` against the full path
     of the active ``layer_scope`` stack.  An installed operand tap sees
-    ``(full path, x, w)`` first.
+    ``(full path, x, w)`` first.  A placed product's partial sums (a
+    contraction over a sharded dim) are reduced here, in the product's
+    dtype (:func:`~repro_torch.distributed.sharding.reduced`), scattered
+    over the sequence of a (B, S, N) product, whose rows run as one
+    product (:func:`~repro_torch.distributed.sharding.rows`).
     """
     if _OPERAND_TAP is not None:
         # a scoped-policy ambient carries a prefix: the tap sees the
@@ -126,6 +133,19 @@ def nmatmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         _OPERAND_TAP(amb.full_path(rel) if hasattr(amb, "full_path") else rel,
                      x, w)
     cfg = _scope.resolve_here()
+    if inner_sharded(x):
+        # placed (B, S, K) with the sequence sharded: one product over the
+        # rows, the sequence gathered first
+        out = _nmatmul(rows(x), w, cfg)
+        out = reshape(out, *x.shape[:-1], out.shape[-1])
+    else:
+        out = _nmatmul(x, w, cfg)
+    # a row-parallel product's partial sums scatter over the sequence of
+    # a (B, S, N) output, where the residual stream is sharded next
+    return reduced(out, 1 if out.dim() >= 3 else None)
+
+
+def _nmatmul(x, w, cfg):
     if cfg.mode == "exact":
         cdt = torch_dtype(cfg.compute_dtype)
         adt = torch_dtype(cfg.accum_dtype)

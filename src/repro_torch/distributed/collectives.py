@@ -12,6 +12,10 @@ concatenated in it.
 :class:`~repro_torch.distributed.sharding.PartitionSpec`, runs the body on
 the blocks, and reassembles each output from its ``out_spec`` by an
 all-gather over the spec's axes (a ``P()`` output is each rank's own).
+Inside a placed step (DTensor inputs, :func:`~repro_torch.distributed.
+sharding.place`) it takes each DTensor input's local block, laid out by
+its spec first, and returns each output as a DTensor laid out by its
+``out_spec``, as JAX's ``shard_map`` runs inside ``jit``.
 Its gradient is the single program's, as JAX transposes a ``shard_map``
 with ``check_rep=False``: an output's cotangent is divided by the size of
 the axes its spec leaves out (the ranks that hold the same block), and an
@@ -25,10 +29,13 @@ permutation, ``psum`` to a ``psum`` (``pmean`` to a ``pmean``), and
 Inside :func:`count_collectives` every collective adds the bytes of its
 output on this rank (what the rank receives, its own chunk included) to
 the count of its kind, under the reference's names: ``all-to-all``,
-``all-reduce``, ``all-gather``, ``collective-permute`` (a broadcast
-counts as the permute from the source to each rank, the reference's
-form).  Backward collectives count into the counter that was active when
-their forward ran, whichever thread autograd runs them on.
+``all-reduce``, ``all-gather``, ``reduce-scatter``, ``collective-permute``
+(a broadcast counts as the permute from the source to each rank, the
+reference's form).  That holds for this module's collectives and for the
+ones DTensor runs to redistribute a placed tensor (its
+``_c10d_functional`` ops, :func:`functional_kind`).  Backward collectives
+count into the counter that was active when their forward ran, whichever
+thread autograd runs them on.
 """
 from __future__ import annotations
 
@@ -39,10 +46,12 @@ import threading
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import tree as tree_util
 
-from .sharding import PartitionSpec
+from .sharding import PartitionSpec, is_dtensor, placements_for
 
 
 @dataclasses.dataclass
@@ -63,14 +72,55 @@ def _stats():
     return getattr(_ctx, "stats", None)
 
 
+#: DTensor's collectives (``_c10d_functional`` ops) by the reference's kind
+_FUNCTIONAL = {"all_reduce": "all-reduce",
+               "all_gather_into_tensor": "all-gather",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "all_to_all_single": "all-to-all",
+               "broadcast": "collective-permute"}
+
+
+def functional_kind(func):
+    """The reference's kind of a collective op that DTensor runs to
+    redistribute (a ``_c10d_functional`` op, or ``_dtensor``'s
+    ``shard_dim_alltoall``, its all-to-all between two shardings on ranks
+    that have one), else None."""
+    if func.namespace == "_dtensor" and func._opname == "shard_dim_alltoall":
+        return "all-to-all"
+    if func.namespace not in ("_c10d_functional",
+                              "_c10d_functional_autograd"):
+        return None
+    return _FUNCTIONAL.get(func._opname)
+
+
+class _FunctionalCounter(TorchDispatchMode):
+    """Adds each ``_c10d_functional`` collective's output bytes to
+    ``stats``; DTensor-level ops pass on, so it sees the local ones."""
+
+    def __init__(self, stats):
+        super().__init__()
+        self.stats = stats
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        kind = functional_kind(func)
+        if kind is not None:
+            _record(self.stats, kind, out)
+        return out
+
+
 @contextlib.contextmanager
 def count_collectives():
     """Count the collectives this thread runs (and their backward) into a
-    fresh :class:`CollectiveStats`, which the context yields."""
+    fresh :class:`CollectiveStats`, which the context yields: this
+    module's and DTensor's."""
     stats, prev = CollectiveStats(), _stats()
     _ctx.stats = stats
     try:
-        yield stats
+        with _FunctionalCounter(stats):
+            yield stats
     finally:
         _ctx.stats = prev
 
@@ -339,22 +389,77 @@ class _Assemble(torch.autograd.Function):
         return (g / reps if reps > 1 else g), None, None, None
 
 
+class _ScaleGrad(torch.autograd.Function):
+    """The identity; its backward scales the cotangent by ``1 / reps``."""
+
+    @staticmethod
+    def forward(ctx, x, reps):
+        ctx.reps = reps
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.reps, None
+
+
+def _local_block(t, mesh, spec):
+    """This rank's block of the DTensor ``t``, laid out by ``spec`` first;
+    its cotangent comes back sharded on the axes ``spec`` names and summed
+    over the rest (``Partial``)."""
+    want = placements_for(tuple(spec) + (None,) * (t.dim() - len(spec)),
+                          mesh)
+    if tuple(t.placements) != want:
+        t = t.redistribute(mesh.device_mesh, want)
+    return t.to_local(grad_placements=[
+        p if isinstance(p, Shard) else Partial() for p in want])
+
+
+def _placed(o, mesh, spec):
+    """The DTensor of this rank's output block ``o`` laid out by
+    ``spec``; its cotangent is divided by the ranks that hold the same
+    block (the ``_Assemble`` convention)."""
+    dims = _spec_axes(spec, o.dim())
+    named = {a for axes in dims for a in axes}
+    reps = math.prod(n for a, n in mesh.shape.items() if a not in named)
+    if reps > 1:
+        o = _ScaleGrad.apply(o, reps)
+    shape = tuple(d * math.prod(mesh.shape[a] for a in axes)
+                  for d, axes in zip(o.shape, dims))
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(o, mesh.device_mesh,
+                              placements_for(tuple(spec) + (None,) * (
+                                  o.dim() - len(spec)), mesh),
+                              run_check=False, shape=shape, stride=stride)
+
+
 def shard_map(fn, mesh, in_specs, out_specs):
     """``fn`` run on this rank's blocks of its inputs (``jax.experimental.
     shard_map`` with ``check_rep=False``).  ``in_specs`` holds one
     :class:`PartitionSpec` an argument, applied to every tensor of that
     argument (a tensor or a tree of them); ``out_specs`` is a spec (``fn``
     returns a tensor) or a tuple of specs (a tuple of tensors).  Each
-    output comes back whole on every rank of its spec's axes."""
+    output comes back whole on every rank of its spec's axes, or, when an
+    input is a DTensor, as a DTensor laid out by its spec."""
     def run(*args):
         stats = _stats()
-        local = [tree_util.map(
-            lambda t: _Cut.apply(t, mesh, _spec_axes(spec, t.dim()), stats),
-            a) for a, spec in zip(args, in_specs, strict=True)]
+        placed = any(is_dtensor(t) for t in tree_util.leaves(args))
+
+        def cut(t, spec):
+            if is_dtensor(t):
+                return _local_block(t, mesh, spec)
+            return _Cut.apply(t, mesh, _spec_axes(spec, t.dim()), stats)
+
+        local = [tree_util.map(lambda t, s=spec: cut(t, s), a)
+                 for a, spec in zip(args, in_specs, strict=True)]
         out = fn(*local)
         single = isinstance(out_specs, PartitionSpec)
         outs, specs = ((out,), (out_specs,)) if single else (out, out_specs)
-        full = tuple(_Assemble.apply(o, mesh, _spec_axes(s, o.dim()), stats)
-                     for o, s in zip(outs, specs, strict=True))
+        if placed:
+            full = tuple(_placed(o, mesh, s)
+                         for o, s in zip(outs, specs, strict=True))
+        else:
+            full = tuple(_Assemble.apply(o, mesh, _spec_axes(s, o.dim()),
+                                         stats)
+                         for o, s in zip(outs, specs, strict=True))
         return full[0] if single else full
     return run

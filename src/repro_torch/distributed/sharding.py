@@ -10,11 +10,18 @@ heads, odd vocabularies, batch 1 long-context) shard under one rule set.
 A sharding is a :class:`PartitionSpec` over a
 :class:`repro_torch.launch.mesh.Mesh`.  Over an abstract mesh the dry-run
 counts what each chip holds from it (:func:`local_shape`).  Over a mesh
-with ranks (``make_test_mesh``) the explicit collectives run on it:
-:func:`repro_torch.distributed.collectives.shard_map` cuts a rank's block
-by its spec, and MoE's expert-parallel path reads :func:`spec_for` under
-:func:`use_mesh_rules`.  Whole-model placement by these specs
-(``DTensor``) is not done: :func:`logical_constraint` is the identity.
+with ranks (``make_test_mesh``, or the dry-run's fake group) a spec is a
+DTensor placement (:func:`placements_for`): :func:`place` lays a whole
+tree (params, optimizer state, serving state, batch) over the mesh as
+DTensors, each rank holding its block, and the step functions run on
+them unchanged, as the reference's ``jit`` runs them under
+``in_shardings``.  Inside a step :func:`logical_constraint` redistributes
+an activation to its rule's spec (the reference's
+``with_sharding_constraint``), the kernels shard by their ops' rules
+(``kernels/custom_ops.py``), and the explicit collectives run on the
+mesh's groups: :func:`repro_torch.distributed.collectives.shard_map`
+takes a DTensor's local block, and MoE's expert-parallel path reads
+:func:`spec_for` under :func:`use_mesh_rules`.
 """
 from __future__ import annotations
 
@@ -22,6 +29,10 @@ import contextlib
 import math
 import threading
 from typing import Optional, Sequence
+
+import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
 
 # -- default rule tables ------------------------------------------------------
 
@@ -187,11 +198,18 @@ _ctx = threading.local()
 
 @contextlib.contextmanager
 def use_mesh_rules(mesh, rules: dict):
-    """Record (mesh, rules) for :func:`logical_constraint` in this thread."""
+    """Record (mesh, rules) for :func:`logical_constraint` in this thread.
+    On a mesh with ranks a plain tensor that meets a DTensor in an op (a
+    mask, ``arange`` positions, a constant) counts as replicated, as a
+    constant does inside the reference's ``jit``."""
     prev = getattr(_ctx, "state", None)
     _ctx.state = (mesh, rules)
     try:
-        yield
+        if getattr(mesh, "has_ranks", False):
+            with implicit_replication():
+                yield
+        else:
+            yield
     finally:
         _ctx.state = prev
 
@@ -200,11 +218,306 @@ def current_mesh_rules():
     return getattr(_ctx, "state", None)
 
 
+def placement_context():
+    """``(mesh, rules)`` of the ambient :func:`use_mesh_rules` on a mesh
+    with ranks; raises elsewhere (a placed step runs inside one)."""
+    state = current_mesh_rules()
+    if state is None or not getattr(state[0], "has_ranks", False):
+        raise RuntimeError("a placed step runs under use_mesh_rules(mesh, "
+                           "rules) on a mesh with ranks")
+    return state
+
+
 def logical_constraint(x, axes):
-    """The reference's ``with_sharding_constraint`` by logical axes.  It
-    is the identity everywhere, in a mesh context or not: the port places
-    no whole-model tensor across ranks (no ``DTensor`` placement per
-    :func:`spec_for`); the explicit collectives
-    (:mod:`repro_torch.distributed.collectives`) are what runs over
-    ranks."""
-    return x
+    """The reference's ``with_sharding_constraint`` by logical axes: under
+    :func:`use_mesh_rules` on a mesh with ranks, a DTensor ``x`` is
+    redistributed to ``spec_for(axes, x.shape, ...)`` (nothing moves when
+    it is laid out so already).  Anywhere else, and for a plain tensor,
+    it is the identity."""
+    state = current_mesh_rules()
+    if state is None or not is_dtensor(x):
+        return x
+    mesh, rules = state
+    if not getattr(mesh, "has_ranks", False):
+        return x
+    want = placements_for(spec_for(axes, x.shape, mesh, rules), mesh)
+    if tuple(x.placements) == tuple(want):
+        return x
+    return x.redistribute(mesh.device_mesh, want)
+
+
+# -- placement over a mesh with ranks -----------------------------------------
+
+def is_dtensor(x) -> bool:
+    return isinstance(x, DTensor)
+
+
+def reduced(x, dim=None):
+    """``x`` with every pending ``Partial`` sum of a DTensor reduced in
+    ``x``'s dtype: scattered over ``dim`` (a reduce-scatter) where that
+    dim is not sharded yet and splits evenly, else whole (an all-reduce);
+    anything else as it is.  A contraction over a sharded dim leaves a
+    partial sum, which DTensor would carry through a cast and sum in the
+    narrower dtype; XLA reduces a dot's partial sums in the dot's own
+    accumulation dtype (scattering them where the result is sharded next),
+    and so does the port, at the product."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+
+    mesh = x.device_mesh
+    parts = [m for m, p in enumerate(x.placements) if p.is_partial()]
+    n = math.prod(mesh.size(m) for m in parts)
+    scatter = (dim is not None and x.dim() > dim and x.shape[dim] % n == 0
+               and not any(p.is_shard(dim) for p in x.placements))
+    return x.redistribute(mesh, [
+        (Shard(dim) if scatter else Replicate()) if p.is_partial() else p
+        for p in x.placements])
+
+
+def placements_for(spec, mesh) -> tuple:
+    """``spec`` as DTensor placements over ``mesh.device_mesh``, one a
+    DeviceMesh dim: ``Shard(d)`` on every dim whose axes dim ``d`` names,
+    ``Replicate()`` on the rest (and on a dim of one chip).  A tuple of
+    axes shards its dim over
+    them in the tuple's row-major order, as JAX does; DTensor nests the
+    shards of one dim in the mesh's order, so a tuple in another order,
+    or one that names part of a merged DeviceMesh dim
+    (``mesh.device_axes``), raises."""
+
+    groups = list(mesh.device_axes)
+    out = [Replicate()] * len(groups)
+    for d, axis in enumerate(spec):
+        if axis is None:
+            continue
+        flat = (axis,) if isinstance(axis, str) else tuple(axis)
+        i, last = 0, -1
+        while i < len(flat):
+            g = next((j for j, grp in enumerate(groups)
+                      if flat[i:i + len(grp)] == grp), None)
+            if g is None or g <= last:
+                raise ValueError(
+                    f"spec {spec!r}: dim {d} shards over {flat}, which the "
+                    f"mesh's dims {tuple(groups)} cannot nest (DTensor "
+                    f"shards one dim over whole mesh dims, in mesh order)")
+            if math.prod(mesh.shape[a] for a in groups[g]) > 1:
+                out[g] = Shard(d)   # an axis of one chip shards nothing
+            last = g
+            i += len(groups[g])
+    return tuple(out)
+
+
+def block_of(shape, spec, mesh) -> tuple:
+    """The slices of this rank's block of a tensor of ``shape`` under
+    ``spec`` (a dim over a tuple of axes: row-major over the tuple)."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    out = []
+    for d, axis in zip(shape, spec):
+        flat = () if axis is None else (
+            (axis,) if isinstance(axis, str) else tuple(axis))
+        n, i = 1, 0
+        for a in flat:
+            n *= mesh.shape[a]
+            i = i * mesh.shape[a] + mesh.coords[a]
+        if d % n:
+            raise ValueError(f"dim of {d} does not split {n} ways over "
+                             f"{flat}")
+        out.append(slice(i * (d // n), (i + 1) * (d // n)))
+    return tuple(out)
+
+
+def place_tensor(t, spec, mesh):
+    """``t`` (the whole tensor, on every rank) as a DTensor over ``mesh``
+    laid out by ``spec``: this rank keeps its block of ``t`` (a view
+    where the block is contiguous; nothing is sent).  A meta ``t`` gives
+    a meta block, as the dry-run needs."""
+
+    if mesh.coords is None:
+        raise RuntimeError("this rank holds no coordinate of the mesh")
+    local = t.detach()[block_of(t.shape, spec, mesh)].contiguous()
+    return DTensor.from_local(local, mesh.device_mesh,
+                              placements_for(spec, mesh), run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def zeros_by_rules(axes_of, device):
+    """``zeros(key, shape, dtype)`` for a placed step's fresh state: the
+    leaf's logical axes ``axes_of(key, rank)`` under the ambient rules,
+    each rank allocating only its block (zeros), as a DTensor."""
+
+    mesh, rules = placement_context()
+
+    def zeros(key, shape, dtype):
+        spec = spec_for(axes_of(key, len(shape)), shape, mesh, rules)
+        local = torch.zeros(local_shape(shape, spec, mesh), dtype=dtype,
+                            device=device)
+        stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+        return DTensor.from_local(local, mesh.device_mesh,
+                                  placements_for(spec, mesh), run_check=False,
+                                  shape=tuple(shape), stride=stride)
+
+    return zeros
+
+
+def place(tree, specs_tree, mesh, rules: dict):
+    """A tree of whole tensors (params, optimizer state, serving state, a
+    batch) as DTensors over ``mesh.device_mesh``, each leaf laid out by
+    :func:`spec_for` of its logical axes (``specs_tree``, as
+    :func:`map_specs` walks it).  A leaf that is not a tensor, or a 0-d
+    one (an optimizer's step count, which lives on the host), stays as it
+    is."""
+    def one(axes, t):
+        if not isinstance(t, torch.Tensor) or t.dim() == 0:
+            return t
+        return place_tensor(t, spec_for(axes, t.shape, mesh, rules), mesh)
+
+    return map_specs(one, specs_tree, tree)
+
+
+def _block_start(t, dim: int) -> int:
+    """Where this rank's block of the DTensor ``t`` starts on ``dim``."""
+
+    mesh, i = t.device_mesh, 0
+    for m, p in enumerate(t.placements):
+        if p == Shard(dim):
+            i = i * mesh.size(m) + mesh.get_local_rank(m)
+    return i * t.to_local().shape[dim]
+
+
+def _with(t, like, dim=None):
+    """``t`` (a DTensor, or a plain tensor whole on every rank) laid out
+    as the DTensor ``like``, but whole on ``dim``."""
+
+    want = [Replicate() if dim is not None and p == Shard(dim) else p
+            for p in like.placements]
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, like.device_mesh,
+                               [Replicate()] * len(want), run_check=False)
+    return t.redistribute(like.device_mesh, want)
+
+
+def update_rows_(buf, new, start: int, dim: int = 1):
+    """``buf.narrow(dim, start, new.shape[dim]).copy_(new)``, in place.  A
+    DTensor ``buf`` is written on each rank's block (a rank writes the
+    rows of its block that the range covers), as XLA partitions a
+    ``dynamic_update_slice``; ``new`` is first laid out as ``buf``, whole
+    on ``dim``.  Returns ``buf``."""
+    if not is_dtensor(buf):
+        buf.narrow(dim, start, new.shape[dim]).copy_(new)
+        return buf
+    if (start == 0 and tuple(new.shape) == tuple(buf.shape) and is_dtensor(new)
+            and tuple(new.placements) == tuple(buf.placements)):
+        buf.to_local().copy_(new.to_local())   # block onto block
+        return buf
+    new = _with(new, buf, dim).to_local()
+    local = buf.to_local()
+    lo, n = _block_start(buf, dim), local.shape[dim]
+    a, b = max(start, lo), min(start + new.shape[dim], lo + n)
+    if a < b:
+        local.narrow(dim, a - lo, b - a).copy_(new.narrow(dim, a - start,
+                                                          b - a))
+    return buf
+
+
+def copy_into_(buf, new):
+    """``buf.copy_(new)``.  A DTensor ``buf`` is written in place on each
+    rank's block, ``new`` first laid out as ``buf``.  Returns ``buf``."""
+    if not is_dtensor(buf):
+        return buf.copy_(new)
+    buf.to_local().copy_(_with(new, buf).to_local())
+    return buf
+
+
+def local(t):
+    """A DTensor's block on this rank; a plain tensor itself."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def laid_out_as(t, like):
+    """``t`` in ``like``'s placements where both are DTensors (a gradient
+    as its parameter); anything else as it is."""
+    if is_dtensor(t) and tuple(t.placements) != tuple(like.placements):
+        return t.redistribute(like.device_mesh, like.placements)
+    return t
+
+
+def reduction_pieces(t, n: int):
+    """``t`` in pieces for a sum over all its elements: a plain tensor as
+    flat views of ``n`` elements (bounding the fp32 copy a reduction
+    makes), a DTensor whole (DTensor sums each block and reduces the sums
+    over the mesh)."""
+    if is_dtensor(t):
+        return [t]
+    flat = t.view(-1)
+    return [flat[i:i + n] for i in range(0, flat.numel(), n)]
+
+
+def inner_sharded(x) -> bool:
+    """A DTensor ``x (B, ..., K)`` sharded on a leading dim past the first
+    (the sequence of a residual-stream activation)."""
+    return is_dtensor(x) and any(p.is_shard() and 0 < p.dim < x.dim() - 1
+                                 for p in x.placements)
+
+
+def rows(x):
+    """``x (..., K)`` as ``(rows, K)``.  A DTensor's inner leading dims
+    (the sequence of a ``(B, S, K)`` activation) are gathered first, as
+    GSPMD gathers a sequence-sharded activation for a column-parallel
+    product: DTensor flattens dims only while the first of them alone is
+    sharded."""
+    if inner_sharded(x):
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if p.is_shard() and 0 < p.dim < x.dim() - 1 else p
+            for p in x.placements])
+    return reshape(x, -1, x.shape[-1])
+
+
+def reshape(x, *shape):
+    """``x.reshape(*shape)``.  A DTensor whose split or merged dims
+    DTensor cannot carry sharded (a dim of 1024 split into 8 heads of 128
+    over 16 ranks) is first gathered on those dims, as GSPMD reshards
+    such a reshape in the reference; the next constraint lays the result
+    out again.  Its gradient is reshaped back the same way."""
+    if not is_dtensor(x):
+        return x.reshape(*shape)
+    return _Reshape.apply(x, _resolved(tuple(x.shape), shape))
+
+
+def _reshaped(x, shape: tuple):
+    try:
+        return x.reshape(shape)
+    except RuntimeError:
+
+        old = tuple(x.shape)
+        lead = 0
+        while lead < min(len(old), len(shape)) and old[lead] == shape[lead]:
+            lead += 1
+        tail = 0
+        while (tail < min(len(old), len(shape)) - lead
+               and old[-1 - tail] == shape[-1 - tail]):
+            tail += 1
+        changed = set(range(lead, len(old) - tail))
+        want = [Replicate() if isinstance(p, Shard) and p.dim in changed
+                else p for p in x.placements]
+        return x.redistribute(x.device_mesh, want).reshape(shape)
+
+
+class _Reshape(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.shape = tuple(x.shape)
+        return _reshaped(x, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reshaped(g, ctx.shape), None
+
+
+def _resolved(old, shape) -> tuple:
+    """``shape`` (which may hold one -1) for a tensor of shape ``old``."""
+    shape = tuple(shape[0]) if len(shape) == 1 and isinstance(
+        shape[0], (tuple, list)) else tuple(shape)
+    if -1 in shape:
+        known = math.prod(d for d in shape if d != -1)
+        shape = tuple(math.prod(old) // known if d == -1 else d
+                      for d in shape)
+    return shape

@@ -12,7 +12,10 @@ it.  Two entries, one datapath:
 Each launches its CUDA kernel for CUDA tensors and takes its plain version
 (:func:`afpm_bitwise_plain`, ``core/afpm.py::afpm_matmul_emulated``) only
 for CPU tensors; neither falls back from the kernel.  Every launch adds one to
-the entry's ``launches``.
+the entry's ``launches``.  ``dispatch`` reaches them, for a placed or
+differentiated call, through the custom ops ``repro_torch::afpm_bitwise``
+and ``repro_torch::afpm_emulated_matmul`` (:mod:`.custom_ops`), which
+DTensor shards by the ops' rules.
 
 :func:`plan` cuts an emulated matmul into CTAs; it never changes the
 arithmetic.  K is cut into chunks of ``k_chunk`` from 0 whatever M and N

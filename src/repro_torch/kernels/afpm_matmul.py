@@ -4,7 +4,9 @@ Replaces the TPU kernel ``src/repro/kernels/afpm_matmul.py::
 afpm_matmul_pallas``.  :func:`afpm_matmul` launches the CUDA kernel for
 CUDA tensors and takes the plain version (:func:`afpm_matmul_plain`) only
 for CPU tensors; it never falls back from the kernel.  Every launch adds
-one to ``afpm_matmul.launches``.
+one to ``afpm_matmul.launches``.  A placed or differentiated call reaches
+it through the custom op ``repro_torch::afpm_matmul`` (:mod:`.custom_ops`),
+which DTensor shards by the op's rules.
 
 :func:`plan` chooses the kernel's tiles from ``(M, K, N)``; it never
 changes the arithmetic.  K is cut into chunks of :data:`KCHUNK` whatever

@@ -1,24 +1,22 @@
 """Gradients of the segmented matmul (K1), the emulated AFPM matmul (K2's
-matmul entry) and the SSD scan (K3).
+matmul entry) and the SSD scan (K3): the backwards of their custom ops
+(:mod:`.custom_ops`).
 
 The JAX package has no backward kernel: ``jax.grad`` differentiates its
 plain references (``repro.kernels.ref.afpm_matmul_ref``,
 ``repro.core.afpm.afpm_matmul_emulated`` with its straight-through
-``custom_jvp``, ``ssd_scan_chunked_ref``) with XLA ops.  Each function
-here runs the hand-written kernel forward, unchanged (its wrapper takes
-the plain version only for CPU tensors), and computes in its backward
-what that ``jax.grad`` computes.  The backwards are plain PyTorch by design: they
-are the counterpart of XLA's autodiff of the references, not ports of a
-TPU kernel.
+``custom_jvp``, ``ssd_scan_chunked_ref``) with XLA ops.  Each op runs the
+hand-written kernel forward, unchanged (its wrapper takes the plain
+version only for CPU tensors), and each function here computes what that
+``jax.grad`` computes from the op's saved inputs and the cotangent.  The
+backwards are plain PyTorch by design: they are the counterpart of XLA's
+autodiff of the references, not ports of a TPU kernel.
 """
 from __future__ import annotations
 
 import torch
 
 from . import ref
-from .afpm_bitwise import emulated_matmul as _emulated_matmul
-from .afpm_matmul import afpm_matmul
-from .ssd_scan import ssd_scan
 
 
 def _bf16_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -45,9 +43,9 @@ def _seg_grad(p: torch.Tensor, q: torch.Tensor, r, passes: int,
     return qf + _bf16_add(hi, (-qf).to(torch.bfloat16)).to(torch.float32)
 
 
-class SegmentedMatmul(torch.autograd.Function):
-    """``x (..., K) @ w (K, N)`` -> fp32 through K1; backward as ``jax.grad``
-    of ``afpm_matmul_ref``.
+def segmented_matmul_grads(x, w, passes: int, g, needs=(True, True)):
+    """``(dx, dw)`` of ``x (..., K) @ w (K, N)`` through K1 (None where
+    ``needs`` says no): ``jax.grad`` of ``afpm_matmul_ref``.
 
     With ``A = bf16(hi(x)^T g)``, ``B = bf16(lo(x)^T g)``, ``Z = bf16(g
     hi(w)^T)`` and ``U = bf16(g lo(w)^T)`` (fp32 products of the bf16
@@ -60,115 +58,54 @@ class SegmentedMatmul(torch.autograd.Function):
 
     every sum in fp32 unless marked.  ``dx`` is returned in ``x``'s dtype
     (a bf16 ``x`` rounds it, as the reference's input cast does)."""
-
-    @staticmethod
-    def forward(ctx, x, w, passes, tile=None):
-        ctx.passes = passes
-        ctx.save_for_backward(x, w)
-        return afpm_matmul(x, w, passes, tile)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        passes = ctx.passes
-        f, bf = torch.float32, torch.bfloat16
-        g = g.to(f)
-        K, N = w.shape
-        xh, xl = ref.split_hi_lo_ref(x)
-        wh, wl = ref.split_hi_lo_ref(w)
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            Z = torch.matmul(g, wh.to(f).T).to(bf)
-            U = (torch.matmul(g, wl.to(f).T).to(bf) if passes >= 3 else None)
-            # x's own lo segment gets Z at passes >= 2
-            dx = _seg_grad(Z, Z if passes >= 2 else None, U, passes, 3)
-            dx = dx.to(x.dtype)
-        if ctx.needs_input_grad[1]:
-            g2 = g.reshape(-1, N)
-            A = torch.matmul(xh.reshape(-1, K).to(f).T, g2).to(bf)
-            B = (torch.matmul(xl.reshape(-1, K).to(f).T, g2).to(bf)
-                 if passes >= 2 else None)
-            # w's lo segment gets A at passes 3
-            dw = _seg_grad(A, A if passes >= 3 else None, B, passes, 2)
-        return dx, dw, None, None
+    f, bf = torch.float32, torch.bfloat16
+    g = g.to(f)
+    K, N = w.shape
+    xh, xl = ref.split_hi_lo_ref(x)
+    wh, wl = ref.split_hi_lo_ref(w)
+    dx = dw = None
+    if needs[0]:
+        Z = torch.matmul(g, wh.to(f).T).to(bf)
+        U = (torch.matmul(g, wl.to(f).T).to(bf) if passes >= 3 else None)
+        # x's own lo segment gets Z at passes >= 2
+        dx = _seg_grad(Z, Z if passes >= 2 else None, U, passes, 3)
+        dx = dx.to(x.dtype)
+    if needs[1]:
+        g2 = g.reshape(-1, N)
+        A = torch.matmul(xh.reshape(-1, K).to(f).T, g2).to(bf)
+        B = (torch.matmul(xl.reshape(-1, K).to(f).T, g2).to(bf)
+             if passes >= 2 else None)
+        # w's lo segment gets A at passes 3
+        dw = _seg_grad(A, A if passes >= 3 else None, B, passes, 2)
+    return dx, dw
 
 
-class EmulatedMatmul(torch.autograd.Function):
-    """``x (..., K) @ w (K, N)`` -> fp32 through K2's emulated-matmul entry;
-    backward the straight-through product rule of the reference's
-    ``afpm_mult_ste`` (every AFPM product differentiated as an exact one):
+def emulated_matmul_grads(x, w, g, needs=(True, True)):
+    """``(dx, dw)`` of ``x (..., K) @ w (K, N)`` through K2's emulated
+    matmul: the straight-through product rule of the reference's
+    ``afpm_mult_ste`` (every AFPM product differentiated as an exact one),
     ``dx = g @ w^T`` and ``dw = x^T @ g``, fp32 matmuls (TF32 off, as the
     port's entry points set it)."""
-
-    @staticmethod
-    def forward(ctx, x, w, cfg, k_chunk):
-        ctx.save_for_backward(x, w)
-        return _emulated_matmul(x, w, cfg, k_chunk)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        g = g.to(torch.float32)
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = torch.matmul(g, w.T)
-        if ctx.needs_input_grad[1]:
-            K, N = w.shape
-            dw = torch.matmul(x.reshape(-1, K).T, g.reshape(-1, N))
-        return dx, dw, None, None
+    g = g.to(torch.float32)
+    dx = dw = None
+    if needs[0]:
+        dx = torch.matmul(g, w.T)
+    if needs[1]:
+        K, N = w.shape
+        dw = torch.matmul(x.reshape(-1, K).T, g.reshape(-1, N))
+    return dx, dw
 
 
-class SSDScan(torch.autograd.Function):
-    """The SSD chunked scan ``(b, L, H, P), (b, L, H), (H,), (b, L, N),
-    (b, L, N) -> (b, L, H, P)`` through K3; backward as ``jax.grad`` of
-    ``ssd_scan_chunked_ref``.
-
-    The backward recomputes the plain chunked version from the saved
-    inputs under autograd and differentiates it: the exact counterpart of
-    XLA's autodiff of the reference, plain PyTorch by design."""
-
-    @staticmethod
-    def forward(ctx, x, dt, A, B, C, chunk):
-        ctx.chunk = chunk
-        ctx.save_for_backward(x, dt, A, B, C)
-        return ssd_scan(x, dt, A, B, C, chunk)
-
-    @staticmethod
-    def backward(ctx, g):
-        saved = ctx.saved_tensors
-        ins = [t.detach().requires_grad_(need)
-               for t, need in zip(saved, ctx.needs_input_grad)]
-        want = [t for t in ins if t.requires_grad]
-        with torch.enable_grad():
-            y = ref.ssd_scan_chunked_ref(*ins, ctx.chunk)
-            grads = iter(torch.autograd.grad(y, want, g))
-        return (*(next(grads) if t.requires_grad else None for t in ins),
-                None)
-
-
-def _differentiable(*ts) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
-
-
-def segmented_matmul(x, w, passes: int = 3, tile=None) -> torch.Tensor:
-    """K1 with its gradient where autograd records one; the kernel's
-    forward either way (``tile``: :func:`.afpm_matmul.plan`'s)."""
-    if _differentiable(x, w):
-        return SegmentedMatmul.apply(x, w, passes, tile)
-    return afpm_matmul(x, w, passes, tile)
-
-
-def emulated_matmul(x, w, cfg, k_chunk: int = 64) -> torch.Tensor:
-    """K2's emulated matmul with its gradient where autograd records one;
-    the kernel's forward either way."""
-    if _differentiable(x, w):
-        return EmulatedMatmul.apply(x, w, cfg, k_chunk)
-    return _emulated_matmul(x, w, cfg, k_chunk)
-
-
-def ssd(x, dt, A, B, C, chunk: int) -> torch.Tensor:
-    """K3 with its gradient where autograd records one; the kernels'
-    forward either way."""
-    if _differentiable(x, dt, A, B, C):
-        return SSDScan.apply(x, dt, A, B, C, chunk)
-    return ssd_scan(x, dt, A, B, C, chunk)
+def ssd_grads(saved, chunk: int, g, needs):
+    """The cotangents of the SSD scan's five inputs ``saved`` = ``(x, dt,
+    A, B, C)`` (None where ``needs`` says no): ``jax.grad`` of
+    ``ssd_scan_chunked_ref``.  The plain chunked version is recomputed
+    from the saved inputs under autograd and differentiated: the exact
+    counterpart of XLA's autodiff of the reference, plain PyTorch by
+    design."""
+    ins = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+    want = [t for t in ins if t.requires_grad]
+    with torch.enable_grad():
+        y = ref.ssd_scan_chunked_ref(*ins, chunk)
+        grads = iter(torch.autograd.grad(y, want, g))
+    return tuple(next(grads) if t.requires_grad else None for t in ins)

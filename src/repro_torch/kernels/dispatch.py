@@ -17,9 +17,13 @@ Each kernel's launch shape comes from the active tuning table
 else from the static rule; ``matmul(tile=)``, ``multiply(block=)`` and
 ``ssd(chunk=)`` take one explicitly (what a tuner's ``measure_fn`` times).
 
-Under autograd the kernel route of ``matmul``, ``emulated_matmul`` and
-``ssd`` is differentiable (:mod:`.autograd`): the forward is still the
-kernel, and the backward computes what ``jax.grad`` of the JAX package's
+The kernel route calls each kernel through its custom op
+(:mod:`.custom_ops`) where an operand is a DTensor (which the op's rules
+shard) or autograd records the call, and through its wrapper directly
+otherwise.  Under
+autograd the kernel route of ``matmul``, ``emulated_matmul`` and ``ssd``
+is differentiable (:mod:`.autograd`): the forward is still the kernel,
+and the backward computes what ``jax.grad`` of the JAX package's
 reference computes.  The plain route is differentiated by PyTorch's
 autograd.
 """
@@ -30,8 +34,7 @@ import torch
 from repro_torch.core.afpm import AFPMConfig, afpm_matmul_emulated
 from repro_torch.core.numerics import BACKENDS
 
-from . import autograd, autotune, ref
-from .afpm_bitwise import afpm_bitwise
+from . import autotune, custom_ops, ref
 from .autotune import shape_bucket
 
 
@@ -91,7 +94,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor, passes: int = 3, *,
     if backend == "torch":
         out = ref.afpm_matmul_ref(x, w, passes)
     else:
-        out = autograd.segmented_matmul(x.contiguous(), w.contiguous(),
+        out = custom_ops.segmented_matmul(x.contiguous(), w.contiguous(),
                                         passes, tile)
     return out[0] if vec else out
 
@@ -118,7 +121,7 @@ def multiply(x, y, cfg: AFPMConfig = AFPMConfig(), *,
     backend = resolve_backend(backend, x)
     if backend == "torch":
         return ref.afpm_bitwise_ref(x, y, cfg)
-    return afpm_bitwise(x.contiguous(), y.contiguous(), cfg, block)
+    return custom_ops.bitwise(x.contiguous(), y.contiguous(), cfg, block)
 
 
 def emulated_matmul(x, w, cfg: AFPMConfig = AFPMConfig(), k_chunk: int = 64,
@@ -139,9 +142,9 @@ def emulated_matmul(x, w, cfg: AFPMConfig = AFPMConfig(), k_chunk: int = 64,
                          f"{tuple(w.shape)}")
     if backend == "torch":
         return afpm_matmul_emulated(x, w, cfg, k_chunk)
-    return autograd.emulated_matmul(x.to(torch.float32).contiguous(),
-                                    w.to(torch.float32).contiguous(), cfg,
-                                    k_chunk)
+    return custom_ops.emulated_matmul(x.to(torch.float32).contiguous(),
+                                      w.to(torch.float32).contiguous(), cfg,
+                                      k_chunk)
 
 
 def ssd(x, dt, A, B, C, *, chunk=None, backend: str = "auto") -> torch.Tensor:
@@ -173,7 +176,7 @@ def ssd(x, dt, A, B, C, *, chunk=None, backend: str = "auto") -> torch.Tensor:
     if backend == "torch":
         out = ref.ssd_scan_chunked_ref(x, dt, A, B, C, Q)
     else:
-        out = autograd.ssd(x, dt, A, B, C, Q)
+        out = custom_ops.ssd(x, dt, A, B, C, Q)
     if pad:
         out = out[:, :L]
     return out[0] if vec else out

@@ -4,6 +4,9 @@ Replaces the TPU kernel ``src/repro/kernels/ssd_scan.py::ssd_scan_pallas``.
 :func:`ssd_scan` launches the CUDA kernels for CUDA tensors and takes the
 plain version (:func:`ssd_scan_plain`) only for CPU tensors; it never falls
 back from the kernels.  Every call adds one to ``ssd_scan.launches``.
+A placed or differentiated call reaches it through the custom op
+``repro_torch::ssd_scan`` (:mod:`.custom_ops`), which DTensor shards by
+batch or by head.
 
 A call runs the plain ``chunk_decay`` (a cumsum and a product, as the
 reference hoists it) and then launches two kernels: ``chunk_kernel`` forms

@@ -6,7 +6,18 @@ For each cell this builds the production mesh (abstract:
 state and batch on ``meta`` tensors (:mod:`repro_torch.launch.specs`), and
 runs the real step function (:mod:`repro_torch.launch.steps`) once under
 the counter (:func:`repro_torch.launch.hlo_analysis.step_cost`).  Nothing
-is allocated on any device and no weight is drawn.  It records:
+is allocated on any device and no weight is drawn.  On a mesh of more
+than one chip the step runs placed, as the reference's ``jit`` runs it
+under ``in_shardings``: the arguments become DTensors over a fake process
+group of the mesh's size (:func:`~repro_torch.launch.mesh.fake_mesh`,
+this process rank 0; the ranks of the session's device type, whose
+collectives DTensor picks), each holding its meta block by the sharding
+rules (:func:`~repro_torch.distributed.sharding.place`), and the counter
+sees one chip's local ops and collectives, the reference's per-device
+module.
+A process that already has a process group of its own cannot count a
+sharded cell (a one-line error; run it in a process of its own).  It
+records:
 
 - ``memory``: ``argument_bytes``, the bytes one chip holds of the step's
   arguments (params, with the optimizer state for a train step, the
@@ -14,21 +25,19 @@ is allocated on any device and no weight is drawn.  It records:
   0-d int32) under the sharding rules (``distributed.sharding.spec_for``);
   ``output_bytes`` and ``alias_bytes`` (what the step writes, and what of
   it updates an argument in place, as the reference donates it);
-  ``temp_bytes``, the counter's peak of live intermediates, on a one-chip
-  mesh only (the counter runs the unsharded step; a chip's share of the
-  peak needs the sharded step), else ``None`` with the reason; and
-  ``peak_estimate_bytes`` = arguments + temp + outputs - aliases;
-- ``roofline``: the counted FLOPs and bytes spread over the mesh's chips,
-  against the data-sheet peaks of one card
-  (:func:`~repro_torch.launch.hlo_analysis.roofline_terms`); the
-  collective term is ``None``: the counted step is the unsharded one,
-  which runs no collective (the port's collectives run over a mesh with
-  ranks, :mod:`repro_torch.distributed.collectives`);
-- ``param_count``, ``active_param_count``, ``status`` (``ok``,
-  ``skipped(...)`` or ``error``) and ``count_s``.
+  ``temp_bytes``, the counter's peak of one chip's live intermediates;
+  and ``peak_estimate_bytes`` = arguments + temp + outputs - aliases;
+- ``roofline``: one chip's counted FLOPs and bytes (on one chip, the
+  step's), against the data-sheet peaks of one card
+  (:func:`~repro_torch.launch.hlo_analysis.roofline_terms`), with the
+  collective term of the bytes one chip's collectives receive, by kind
+  (none on one chip);
+- ``sharded`` (counted placed) and ``ranks`` (the fake ranks' device
+  type, or None), ``param_count``, ``active_param_count``, ``status``
+  (``ok``, ``skipped(...)`` or ``error``) and ``count_s``.
 
 Artifacts go to ``build/repro_torch/dryrun/``.  A step is counted once a
-process for both meshes (the unsharded count does not depend on the mesh).
+process for each mesh.
 
 Usage (``--device`` defaults to ``cuda``, as every entry point of the
 port; ``--device cpu`` on a host without a card):
@@ -49,15 +58,15 @@ import traceback
 import torch
 
 from repro_torch.configs import list_archs
-from repro_torch.distributed.sharding import (local_bytes, rules_for,
+from repro_torch.distributed.sharding import (local_bytes, place, rules_for,
                                               use_mesh_rules)
 from repro_torch.launch import hlo_analysis, specs, steps
-from repro_torch.launch.mesh import Mesh, make_production_mesh
+from repro_torch.launch.mesh import Mesh, fake_mesh, make_production_mesh
 
 ARTIFACT_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
                 / "repro_torch" / "dryrun")
 
-_COUNTS: dict = {}   # (config, shape) -> the step's cost, for both meshes
+_COUNTS: dict = {}   # (config, shape, mesh or None) -> the step's cost
 
 
 def _cell(cfg, shape):
@@ -165,14 +174,35 @@ def _compute_scale(cfg) -> float:
     return 1.0
 
 
+def _count(fn, args, arg_specs, mesh, rules, placed: bool,
+           device_type: str) -> dict:
+    """One chip's cost of ``fn(*args)``: unplaced, or placed over a fake
+    process group of ``mesh``'s shape whose ranks are of ``device_type``."""
+    if not placed:
+        return hlo_analysis.step_cost(fn, *args)
+    # the rules name 'pod' only beside 'data': one DeviceMesh dim for both
+    with fake_mesh(tuple(mesh.shape.values()), mesh.axis_names,
+                   merge=(("pod", "data"),), device_type=device_type) \
+            as fake, use_mesh_rules(fake, rules):
+        return hlo_analysis.step_cost(fn, *place(args, arg_specs, fake,
+                                                 rules))
+
+
 def lower_session_cell(session, shape, multi_pod: bool = False, *,
-                       mesh: Mesh | None = None) -> dict:
+                       mesh: Mesh | None = None,
+                       place_one_chip: bool = False) -> dict:
     """Count one (session x shape x mesh) cell: the engine behind
     ``Session.dryrun`` and the dryrun CLI.  ``shape`` is a name of
     :data:`specs.SHAPES` or a ``{kind, seq, batch}`` dict; ``mesh``
     overrides the production mesh (e.g. ``Mesh((1, 1), ("data",
     "model"))`` for one card).  The step runs the plain versions of the
-    kernels (meta tensors reach no kernel): the same products."""
+    kernels (meta tensors reach no kernel): the same products.  On a mesh
+    of more than one chip it runs placed, over fake ranks of the
+    session's device type: a card's session counts what NCCL ranks run,
+    a CPU session what gloo ranks run (DTensor gathers and chunks there
+    where NCCL ranks exchange by an all-to-all).  ``place_one_chip``
+    places a one-chip mesh too, which counts what the unplaced step
+    counts."""
     from repro_torch.session import _with_backend
 
     arch = session.arch_id
@@ -184,49 +214,45 @@ def lower_session_cell(session, shape, multi_pod: bool = False, *,
         if not ok:
             return {"arch": arch, "shape": shape_name, "mesh": mesh.tag,
                     "status": reason}
+    placed = mesh.size > 1 or place_one_chip
+    device_type = torch.device(session.device).type
     count_cfg = dataclasses.replace(
         cfg, numerics=_with_backend(cfg.numerics, "torch"))
     kind, fn, args, arg_specs, out_specs = _cell(count_cfg, shape)
     rules = rules_for(cfg, "train" if kind == "train" else "serve")
     arg_specs = _with_token_spec(kind, args, arg_specs, mesh)
+    key = (repr(count_cfg), repr(specs.shape_of(shape)),
+           (mesh.tag, device_type) if placed else None)
+    if key not in _COUNTS:
+        cost = _count(fn, args, arg_specs, mesh, rules, placed, device_type)
+        result = cost.pop("result")
+        outs, ospecs, (aliased, aspecs) = out_specs(result)
+        cost["outputs"] = (outs, ospecs, aliased, aspecs)
+        _COUNTS[key] = cost
+    cost = _COUNTS[key]
+    outs, ospecs, aliased, aspecs = cost["outputs"]
     with use_mesh_rules(mesh, rules):
         arg_bytes = local_bytes(arg_specs, args, mesh, rules)
-        key = (repr(count_cfg), repr(specs.shape_of(shape)))
-        if key not in _COUNTS:
-            cost = hlo_analysis.step_cost(fn, *args)
-            result = cost.pop("result")
-            outs, ospecs, (aliased, aspecs) = out_specs(result)
-            cost["outputs"] = (outs, ospecs, aliased, aspecs)
-            _COUNTS[key] = cost
-        cost = _COUNTS[key]
-        outs, ospecs, aliased, aspecs = cost["outputs"]
         out_bytes = local_bytes(ospecs, outs, mesh, rules)
         alias_bytes = local_bytes(aspecs, aliased, mesh, rules)
-    n = mesh.size
+    temp = max(0, int(cost["peak_bytes"] - cost["new_output_bytes"]))
     memory = {"argument_bytes": arg_bytes, "output_bytes": out_bytes,
-              "alias_bytes": alias_bytes}
-    if n == 1:
-        memory["temp_bytes"] = max(0, int(cost["peak_bytes"]
-                                          - cost["new_output_bytes"]))
-        memory["peak_estimate_bytes"] = (arg_bytes + memory["temp_bytes"]
-                                         + out_bytes - alias_bytes)
-    else:
-        memory["temp_bytes"] = None
-        memory["temp_bytes_reason"] = (
-            "the counter runs the unsharded step; a chip's share of its "
-            "live intermediates needs the sharded step")
-        memory["peak_estimate_bytes"] = None
-    per_chip = {"flops": cost["flops"] / n,
-                "bytes_stream": cost["bytes_stream"] / n,
+              "alias_bytes": alias_bytes, "temp_bytes": temp,
+              "peak_estimate_bytes": arg_bytes + temp + out_bytes
+              - alias_bytes}
+    per_chip = {"flops": cost["flops"], "bytes_stream": cost["bytes_stream"],
                 "bytes_fused": float(arg_bytes + out_bytes)}
     terms = hlo_analysis.roofline_terms(
-        per_chip, n, model_flops=specs.model_flops(cfg, shape),
-        compute_scale=_compute_scale(cfg))
+        per_chip, mesh.size, model_flops=specs.model_flops(cfg, shape),
+        compute_scale=_compute_scale(cfg),
+        coll=cost["collectives"] if placed else None)
     return {
         "arch": arch,
         "shape": shape_name,
         "mesh": mesh.tag,
         "status": "ok",
+        "sharded": placed,
+        "ranks": device_type if placed else None,
         "count_s": round(cost["count_s"], 1),
         "counted_ops": cost["ops"],
         "memory": memory,

@@ -12,9 +12,11 @@ given a :class:`CollectiveStats`, the collective time over the card's
 links.  :func:`collective_bytes` reads those stats off a run of a
 function over ranks: the bytes each collective of the port
 (:mod:`repro_torch.distributed.collectives`: expert-parallel MoE, the
-pipeline, the gradient reduce) delivers to this rank, by kind.  The
-dry-run's production cells run unsharded, so their collective term
-stays ``None``.
+pipeline, the gradient reduce, and DTensor's redistributions of a placed
+step) delivers to this rank, by kind.  A placed step counted on meta
+tensors over a fake process group (the dry-run's sharded cells) is one
+rank's local ops and collectives: the per-chip module the reference
+reads.
 
 :func:`policy_compute_scale` and :func:`policy_ppa_summary` are pure
 arithmetic over a policy and its call sites, what ``Session.ppa_report``
@@ -26,11 +28,14 @@ import time
 import weakref
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _get_current_dispatch_mode_stack)
 
 from repro_torch import tree as tree_util
 from repro_torch.distributed.collectives import (CollectiveStats,
-                                                 count_collectives)
+                                                 count_collectives,
+                                                 functional_kind)
 
 # Passes of the exact split-float product (paper Eq. 6: the full 6-term
 # hi/lo expansion); segmented seg_passes=k keeps k of them, so a site's
@@ -113,9 +118,12 @@ def _card_row(name: str):
 # ---------------------------------------------------------------------------
 
 def _tensors(tree) -> list:
-    """The distinct tensors of a tree (nested dicts, lists and tuples)."""
+    """The distinct tensors of a tree (nested dicts, lists and tuples), a
+    DTensor as its block on this rank."""
     seen = {}
     for t in tree_util.leaves(tree):
+        if isinstance(t, DTensor):
+            t = t._local_tensor
         if isinstance(t, torch.Tensor):
             seen.setdefault(id(t), t)
     return list(seen.values())
@@ -146,7 +154,7 @@ def _dot_flops(func, args, out):
 def step_cost(fn, *abstract_args, **kwargs) -> dict:
     """Count one call ``fn(*abstract_args, **kwargs)`` on meta tensors.
 
-    Returns (for the whole step, unsharded):
+    Returns (for the whole step, or one chip's share of a placed one):
 
     - ``flops``: 2 x output elements x contracted extent of every product
       (``mm``, ``bmm``, ``addmm``, ``baddbmm``, ``mv``, ``dot``,
@@ -164,10 +172,21 @@ def step_cost(fn, *abstract_args, **kwargs) -> dict:
     - ``ops``: the ATen ops counted, ``count_s``, and ``result``: what
       the step returned (meta tensors).
 
+    - ``collectives``: the :class:`CollectiveStats` of the step's
+      collectives, by kind: this module's (``count_collectives``) and
+      DTensor's ``_c10d_functional`` ones, backward included.
+
+    On DTensor arguments (a placed step over a fake process group) the
+    counter sees one rank's local ops and counts them alone: DTensor's
+    own shape inference (the op at global shapes on fake tensors) is left
+    out, and every figure is per chip.
+
     A step that reads a tensor's value on the host (``.item()``,
     ``int(t)``) fails on meta tensors: the counted steps take Python ints
     for positions.
     """
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
     state = {"flops": 0, "bytes_stream": 0, "ops": 0, "live": 0, "peak": 0}
     fresh = set()       # ids of live tensors allocated during the step
     known: dict = {}    # op signature -> its outputs' (shape, stride, dtype)
@@ -197,6 +216,11 @@ def step_cost(fn, *abstract_args, **kwargs) -> dict:
     class Counter(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented       # DTensor runs the local ops
+            if any(isinstance(m, FakeTensorMode)
+                   for m in _get_current_dispatch_mode_stack()):
+                return func(*args, **kwargs)   # DTensor's shape inference
             state["ops"] += 1
             if func.is_view:
                 return func(*args, **kwargs)
@@ -205,7 +229,10 @@ def step_cost(fn, *abstract_args, **kwargs) -> dict:
             # before (every repeat of a layer) makes them without the meta
             # kernel
             key = None
-            if not func._schema.is_mutable:
+            # a collective always runs (count_collectives below sees it)
+            if not (func._schema.is_mutable
+                    or func.namespace.startswith(("c10d", "_c10d"))
+                    or functional_kind(func)):
                 try:
                     key = (func, sig(args), sig(tuple(sorted(kwargs.items()))))
                     hash(key)
@@ -244,7 +271,7 @@ def step_cost(fn, *abstract_args, **kwargs) -> dict:
             return out
 
     t0 = time.perf_counter()
-    with Counter():
+    with count_collectives() as stats, Counter():
         result = fn(*abstract_args, **kwargs)
     count_s = time.perf_counter() - t0
     args = (abstract_args, kwargs)
@@ -255,7 +282,8 @@ def step_cost(fn, *abstract_args, **kwargs) -> dict:
             "bytes_fused": float(nbytes(args) + nbytes(result)),
             "peak_bytes": float(state["peak"]),
             "new_output_bytes": float(new_out),
-            "ops": state["ops"], "count_s": count_s, "result": result}
+            "ops": state["ops"], "count_s": count_s, "collectives": stats,
+            "result": result}
 
 
 # ---------------------------------------------------------------------------
@@ -290,11 +318,12 @@ def roofline_terms(cost: dict, n_chips: int, model_flops=None,
     and written); the stream count is recorded beside it, and as the
     reference's XLA-convention key.  ``compute_scale`` folds a numerics
     policy into the compute term (:func:`policy_compute_scale`).  Given
-    ``coll`` (the bytes a chip receives, :func:`collective_bytes`), the
-    collective term is those bytes over the card's link rate and
-    ``dominant`` weighs it with compute and memory; without, the
-    collective fields are ``None`` and ``dominant`` is taken over compute
-    and memory."""
+    ``coll`` (the bytes a chip receives: a placed step's count,
+    :func:`step_cost`'s ``collectives``, or :func:`collective_bytes` of a
+    run over ranks), the collective term is those bytes over the card's
+    link rate and ``dominant`` weighs it with compute and memory; without
+    (a one-chip cell), the collective fields are ``None`` and ``dominant``
+    is taken over compute and memory."""
     _, card_name, hbm_bw, peak_flops, _, link_bw = _card_row(card)
     flops = float(cost.get("flops", 0.0))
     stream = float(cost.get("bytes_stream", 0.0))

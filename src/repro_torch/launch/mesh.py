@@ -13,10 +13,18 @@ device list.  Such a mesh also carries a
 :class:`~torch.distributed.device_mesh.DeviceMesh`, this rank's
 coordinate on each axis, and a process group for every set of axes
 (:meth:`Mesh.group`), which the port's collectives
-(:mod:`repro_torch.distributed.collectives`) and ``shard_map`` run over.
+(:mod:`repro_torch.distributed.collectives`) and ``shard_map`` run over,
+and on which :func:`repro_torch.distributed.sharding.place` lays DTensors.
+
+:func:`fake_mesh` lays a production-size mesh over a fake process
+group (``torch.testing``'s ``FakeStore``, backend ``fake``): this process
+is rank 0 of ``n`` ranks whose collectives move nothing, which is what
+the dry-run needs to run one chip's share of a sharded step on meta
+tensors.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 import tempfile
@@ -45,6 +53,9 @@ class Mesh:
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, shape))
         self.device_mesh = None
+        #: the axes of each dim of ``device_mesh`` (adjacent mesh axes
+        #: that every rule names together may share one)
+        self.device_axes = tuple((a,) for a in axis_names)
         self.coords: dict | None = None
         self._groups: dict = {}     # axes in mesh order -> this rank's group
 
@@ -129,8 +140,6 @@ def make_test_mesh(shape=(2, 2), axes=("data", "model"),
 
     Every rank must call this, in the same order as its other group
     constructors: it creates a group for each set of axes, collectively."""
-    from torch.distributed.device_mesh import DeviceMesh
-
     mesh = Mesh(shape, axes)
     dev = resolve_device(device)
     if not dist.is_initialized():
@@ -142,20 +151,41 @@ def make_test_mesh(shape=(2, 2), axes=("data", "model"),
     n, world = mesh.size, dist.get_world_size()
     if world < n:
         raise RuntimeError(f"need {n} devices, have {world}")
+    return _lay_ranks(mesh, dev.type)
+
+
+def _lay_ranks(mesh: Mesh, device_type: str, merge=()) -> Mesh:
+    """Give ``mesh`` the first ``mesh.size`` ranks of the default group,
+    row-major, with this rank's coordinate and its groups.  Each tuple of
+    ``merge`` (adjacent axes, in mesh order) becomes one dim of the
+    DeviceMesh, which DTensor then shards over in one collective."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    n = mesh.size
+    names = list(mesh.axis_names)
+    dims, i = [], 0
+    while i < len(names):
+        group = next((tuple(g) for g in merge if names[i:i + len(g)]
+                      == list(g)), (names[i],))
+        dims.append(group)
+        i += len(group)
     ranks = torch.arange(n).reshape(tuple(mesh.shape.values()))
-    mesh.device_mesh = DeviceMesh(dev.type, ranks,
-                                  mesh_dim_names=mesh.axis_names)
+    mesh.device_axes = tuple(dims)
+    mesh.device_mesh = DeviceMesh(
+        device_type, torch.arange(n).reshape(tuple(
+            math.prod(mesh.shape[a] for a in g) for g in dims)),
+        mesh_dim_names=tuple("_".join(g) for g in dims))
     me = dist.get_rank()
     if me < n:
         mesh.coords = dict(zip(mesh.axis_names,
                                (int(i) for i in (ranks == me).nonzero()[0])))
-    # a single axis takes the DeviceMesh's group; every larger set of axes
-    # gets one group a subgroup, created in one order on every rank
+    # a DeviceMesh dim of one axis lends its group; every other set of
+    # axes gets one group a subgroup, created in one order on every rank
     # (new_group is collective over the whole world)
     for k in range(1, len(mesh.axis_names) + 1):
         for sub in itertools.combinations(range(len(mesh.axis_names)), k):
             key = tuple(mesh.axis_names[i] for i in sub)
-            if k == 1:
+            if k == 1 and key in dims:
                 if mesh.coords is not None:
                     mesh._groups[key] = mesh.device_mesh.get_group(key[0])
                 continue
@@ -167,3 +197,30 @@ def make_test_mesh(shape=(2, 2), axes=("data", "model"),
                 if me in row:
                     mesh._groups[key] = group
     return mesh
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: Sequence[int], axes: Sequence[str], merge=(),
+              device_type: str = "cuda"):
+    """A mesh of ``shape`` over a fake process group of ``prod(shape)``
+    ranks, this process rank 0 (its collectives return at once and move
+    no data), for the duration of the context; ``merge`` as
+    :func:`_lay_ranks` takes it.  ``device_type`` is the DeviceMesh's:
+    DTensor redistributes as it would on those ranks (on ``cpu`` ranks it
+    turns an all-to-all into an all-gather, as gloo has none), whatever
+    device the local tensors live on.  The fake group is the default group
+    meanwhile, so a process that already has one raises (the caller's
+    group is never torn down: count in a process of its own)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    mesh = Mesh(shape, axes)
+    if dist.is_initialized():
+        raise RuntimeError(
+            "a sharded count needs a process of its own: this one already "
+            f"has a {dist.get_backend()} process group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        yield _lay_ranks(mesh, device_type, merge)
+    finally:
+        dist.destroy_process_group()

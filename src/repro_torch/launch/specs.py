@@ -95,29 +95,12 @@ BATCH_AXES = {
     "token": ("batch", None),
 }
 
-# serving-state leaves -> logical axes, keyed by (dict key, rank)
-STATE_AXES = {
-    ("k", 5): ("layers", "batch", "kv_seq", None, None),
-    ("v", 5): ("layers", "batch", "kv_seq", None, None),
-    ("ckv", 4): ("layers", "batch", "kv_seq", None),
-    ("kpe", 4): ("layers", "batch", "kv_seq", None),
-    ("conv", 4): ("layers", "batch", None, "ssm_inner"),
-    ("state", 5): ("layers", "batch", "ssm_heads", None, None),
-    ("enc_out", 3): ("batch", "seq", None),
-}
+# serving-state leaves -> logical axes (the model's own table)
+STATE_AXES = transformer.STATE_AXES
+state_axes_tree = transformer.state_axes
 
 #: the logits a prefill or decode step returns, (B, S, vocab)
 LOGITS_AXES = ("batch", None, "vocab")
-
-
-def state_axes_tree(state, key=None):
-    """The serving state's logical axes, leaf by leaf (keyed on the dict
-    key that holds the leaf and its rank)."""
-    if isinstance(state, dict):
-        return {k: state_axes_tree(v, k) for k, v in state.items()}
-    if isinstance(state, (list, tuple)):
-        return type(state)(state_axes_tree(v, key) for v in state)
-    return STATE_AXES.get((key, state.dim()), (None,) * state.dim())
 
 
 def batch_axes_tree(batch_abs):

@@ -19,8 +19,12 @@ saves the copy a functional update would make of every layer's cache.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repro_torch.distributed import collectives, sharding
+from repro_torch.distributed.sharding import logical_constraint, reshape
 from repro_torch.numerics import layer_scope, nmatmul
 
 import torch.nn.functional as F
@@ -29,13 +33,20 @@ from .layers import apply_rope, bf16_round, einsum_f64, rmsnorm, softcap
 
 NEG_INF = -1e30
 
+#: logical axes of q / k / v and the attention output (B, S, H, D): heads
+#: sharded, the sequence whole; of a fresh K/V cache (B, S, KH, D); of
+#: MLA's latent cache (B, S, r)
+HEADS_AXES = ("batch", None, "heads", None)
+CACHE_AXES = ("batch", "kv_seq", None, None)
+LATENT_AXES = ("batch", "kv_seq", None)
+
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     if n_rep == 1:
         return k
     B, S, KH, D = k.shape
-    return k[:, :, :, None, :].expand(B, S, KH, n_rep, D).reshape(
-        B, S, KH * n_rep, D)
+    return reshape(k[:, :, :, None, :].expand(B, S, KH, n_rep, D),
+                   B, S, KH * n_rep, D)
 
 
 def _row_pos(pos, rank: int):
@@ -52,14 +63,29 @@ def _cache_update(buf: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
     """Write ``new`` (B, S_new, ...) into the (B, S, ...) cache ``buf`` in
     place at position ``pos``: a scalar writes rows ``[pos, pos + S_new)``
     of every batch row; a ``(B,)`` vector writes one row per batch row at
-    its own position (S_new == 1)."""
+    its own position (S_new == 1).  A DTensor cache (a placed step, laid
+    out by the state's rules) is written block by block on each rank, at
+    a scalar position."""
     if isinstance(pos, torch.Tensor) and pos.dim():
+        if sharding.is_dtensor(buf):
+            raise NotImplementedError("a placed cache takes a scalar "
+                                      "position (a lockstep batch)")
         rows = torch.arange(buf.shape[0], device=buf.device)
         buf[rows, pos] = new[:, 0].to(buf.dtype)
-    else:
-        pos = int(pos)
-        buf[:, pos:pos + new.shape[1]] = new.to(buf.dtype)
-    return buf
+        return buf
+    return sharding.update_rows_(buf, new.to(buf.dtype), int(pos))
+
+
+def _softmax_keys(s: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last dim (a decode step's keys).  Placed with the
+    keys sharded (a kv_seq-sharded cache), as partial reductions: the max
+    and the sum of exps over each rank's keys, reduced over the ranks,
+    where DTensor's softmax would gather every score."""
+    if not (sharding.is_dtensor(s) and any(
+            p.is_shard(s.dim() - 1) for p in s.placements)):
+        return torch.softmax(s, dim=-1)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
 
 
 def _mask_for(qp, kp, kvalid, causal, window):
@@ -71,9 +97,7 @@ def _mask_for(qp, kp, kvalid, causal, window):
     return mask
 
 
-def blockwise_attention(q, k, v, *, causal=True, window=None,
-                        attn_cap=None, q_chunk=1024, kv_chunk=1024,
-                        q_offset=0):
+def blockwise_attention(q, k, v, **kwargs):
     """Flash-style online-softmax attention over (q_chunk x kv_chunk)
     blocks, causal unless ``causal=False`` (the encoder and the
     cross-attention), where only the key-validity mask applies: the keys
@@ -84,11 +108,30 @@ def blockwise_attention(q, k, v, *, causal=True, window=None,
     operands, fp32 online softmax, the JAX package's chunking.  Returns
     (B, Sq, H, D) fp32.
 
+    Placed (DTensor operands) each rank attends its own rows and heads,
+    laid out by :data:`HEADS_AXES` (heads are independent, so this is the
+    same arithmetic), its blocks' ops on its local tensors."""
+    if not sharding.is_dtensor(q):
+        return _blockwise(q, k, v, **kwargs)
+    mesh, rules = sharding.placement_context()
+    spec = sharding.spec_for(HEADS_AXES, q.shape, mesh, rules)
+    return collectives.shard_map(
+        functools.partial(_blockwise, **kwargs), mesh, (spec, spec, spec),
+        spec)(q, k, v)
+
+
+def _blockwise(q, k, v, *, causal=True, window=None, attn_cap=None,
+               q_chunk=1024, kv_chunk=1024, q_offset=0, v_pad=0):
+    """:func:`blockwise_attention` on plain tensors; ``v_pad`` zero
+    columns pad v's head dim up to q's (MLA's shared kernel).
+
     Training differentiates this with autograd (the reference's custom VJP
     re-streams the score blocks to keep memory flat, which the training
     lengths here do not need).  The running max only steadies the
     exponentials and cancels from the result, so it carries no gradient.
     """
+    if v_pad:
+        v = F.pad(v, (0, v_pad))
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     scale = D ** -0.5
@@ -138,17 +181,22 @@ def gqa_apply(params, x, cfg, spec, positions, cache=None, q_offset=0,
     B, S, d = x.shape
     H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     with layer_scope("wq"):
-        q = nmatmul(x, params["wq"]).reshape(B, S, H, hd)
+        q = reshape(nmatmul(x, params["wq"]), B, S, H, hd)
     with layer_scope("wk"):
-        k = nmatmul(x, params["wk"]).reshape(B, S, KH, hd)
+        k = reshape(nmatmul(x, params["wk"]), B, S, KH, hd)
     with layer_scope("wv"):
-        v = nmatmul(x, params["wv"]).reshape(B, S, KH, hd)
+        v = reshape(nmatmul(x, params["wv"]), B, S, KH, hd)
     decoding = cache is not None and S == 1
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps, f64=decoding)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps, f64=decoding)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    # heads sharded, the sequence whole (the reference's TP region); the
+    # residual stream re-shards at the block boundary
+    q = logical_constraint(q, HEADS_AXES)
+    k = logical_constraint(k, HEADS_AXES)
+    v = logical_constraint(v, HEADS_AXES)
     window = spec.window if spec.attn == "local" else None
 
     if cache is None:
@@ -156,7 +204,9 @@ def gqa_apply(params, x, cfg, spec, positions, cache=None, q_offset=0,
             q, _repeat_kv(k, H // KH), _repeat_kv(v, H // KH),
             causal=causal, window=window, attn_cap=cfg.attn_softcap,
             q_offset=q_offset)
-        new_cache = {"k": k, "v": v}
+        out = logical_constraint(out, HEADS_AXES)
+        new_cache = {"k": logical_constraint(k, CACHE_AXES),
+                     "v": logical_constraint(v, CACHE_AXES)}
     else:
         # decode (S == 1) or chunked prefill (S > 1, scalar q_offset):
         # update the cache at q_offset, attend the full cache
@@ -169,12 +219,13 @@ def gqa_apply(params, x, cfg, spec, positions, cache=None, q_offset=0,
             out = blockwise_attention(
                 q, _repeat_kv(k_cache, H // KH), _repeat_kv(v_cache, H // KH),
                 window=window, attn_cap=cfg.attn_softcap, q_offset=q_offset)
+            out = logical_constraint(out, HEADS_AXES)
         else:
             out = decode_attention(q, k_cache, v_cache, q_offset,
                                    window=window, attn_cap=cfg.attn_softcap)
         new_cache = {"k": k_cache, "v": v_cache}
 
-    out = out.to(x.dtype).reshape(B, S, H * hd)
+    out = reshape(out.to(x.dtype), B, S, H * hd)
     with layer_scope("wo"):
         return nmatmul(out, params["wo"]).to(x.dtype), new_cache
 
@@ -190,7 +241,7 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=None, attn_cap=None):
     B, S1, H, D = q.shape  # S1 == 1
     KH = k_cache.shape[2]
     G = H // KH
-    qr = q.reshape(B, KH, G, D)
+    qr = reshape(q, B, KH, G, D)
     bf = torch.bfloat16
     s = einsum_f64("bkgd,bskd->bkgs", qr.to(bf), k_cache.to(bf)) * (D ** -0.5)
     if attn_cap is not None:
@@ -201,9 +252,9 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=None, attn_cap=None):
     if window is not None:
         mask = mask & (pr - k_pos[None, None, None, :] < window)
     s = s.masked_fill(~mask, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    p = _softmax_keys(s)
     o = einsum_f64("bkgs,bskd->bkgd", p.to(bf), v_cache.to(bf))
-    return o.reshape(B, 1, H, D)
+    return reshape(o, B, 1, H, D)
 
 
 def cross_attn_apply(params, x, enc_out, cfg):
@@ -216,13 +267,13 @@ def cross_attn_apply(params, x, enc_out, cfg):
     Se = enc_out.shape[1]
     H, hd = cfg.n_heads, cfg.resolved_head_dim
     with layer_scope("wq"):
-        q = nmatmul(x, params["wq"]).reshape(B, S, H, hd)
+        q = reshape(nmatmul(x, params["wq"]), B, S, H, hd)
     with layer_scope("wk"):
-        k = nmatmul(enc_out, params["wk"]).reshape(B, Se, H, hd)
+        k = reshape(nmatmul(enc_out, params["wk"]), B, Se, H, hd)
     with layer_scope("wv"):
-        v = nmatmul(enc_out, params["wv"]).reshape(B, Se, H, hd)
+        v = reshape(nmatmul(enc_out, params["wv"]), B, Se, H, hd)
     out = blockwise_attention(q, k, v, causal=False)
-    out = out.to(x.dtype).reshape(B, S, H * hd)
+    out = reshape(out.to(x.dtype), B, S, H * hd)
     with layer_scope("wo"):
         return nmatmul(out, params["wo"]).to(x.dtype)
 
@@ -263,11 +314,14 @@ def _mla_expanded(q_nope, q_pe, ckv, kpe, wk_b, wv_b, dt, q_offset):
     B, L = ckv.shape[:2]
     _, H, dn = wk_b.shape
     dv, dr = wv_b.shape[-1], kpe.shape[-1]
+    q_nope = logical_constraint(q_nope, HEADS_AXES)
     k_nope = einsum_f64("bsr,rhd->bshd", ckv, wk_b.to(dt)).to(dt)
     v = einsum_f64("bsr,rhd->bshd", ckv, wv_b.to(dt)).to(dt)
+    k_nope = logical_constraint(k_nope, HEADS_AXES)
+    v = logical_constraint(v, HEADS_AXES)
     k = torch.cat([k_nope, kpe[:, :, None, :].expand(B, L, H, dr)], dim=-1)
     qf = torch.cat([q_nope, q_pe], dim=-1)
-    out = blockwise_attention(qf, k, F.pad(v, (0, dn + dr - dv)),
+    out = blockwise_attention(qf, k, v, v_pad=dn + dr - dv,
                               causal=True, q_offset=q_offset)
     return out[..., :dv]
 
@@ -294,22 +348,23 @@ def mla_apply(params, x, cfg, spec, positions, cache=None, q_offset=0):
         q = nmatmul(x, params["wq_a"])
     q = rmsnorm(params["q_a_norm"], q.to(x.dtype), cfg.norm_eps, f64=decoding)
     with layer_scope("wq_b"):
-        q = nmatmul(q, params["wq_b"]).reshape(B, S, H, dn + dr)
+        q = reshape(nmatmul(q, params["wq_b"]), B, S, H, dn + dr)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
     with layer_scope("wkv_a"):
         kv = nmatmul(x, params["wkv_a"])
     ckv = rmsnorm(params["kv_a_norm"], kv[..., :r].to(x.dtype), cfg.norm_eps,
                   f64=decoding)
-    k_pe = apply_rope(kv[..., r:].reshape(B, S, 1, dr), positions,
-                      cfg.rope_theta).reshape(B, S, dr)
-    wk_b = params["wk_b"].reshape(r, H, dn)
-    wv_b = params["wv_b"].reshape(r, H, dv)
+    k_pe = reshape(apply_rope(reshape(kv[..., r:], B, S, 1, dr), positions,
+                              cfg.rope_theta), B, S, dr)
+    wk_b = reshape(params["wk_b"], r, H, dn)
+    wv_b = reshape(params["wv_b"], r, H, dv)
 
     if cache is None:
         out = _mla_expanded(q_nope, q_pe, ckv, k_pe, wk_b, wv_b, x.dtype,
                             q_offset)
-        new_cache = {"ckv": ckv, "kpe": k_pe}
+        new_cache = {"ckv": logical_constraint(ckv, LATENT_AXES),
+                     "kpe": logical_constraint(k_pe, LATENT_AXES)}
     else:
         ckv_c = _cache_update(cache["ckv"], ckv, q_offset)
         kpe_c = _cache_update(cache["kpe"], k_pe, q_offset)
@@ -334,11 +389,12 @@ def mla_apply(params, x, cfg, spec, positions, cache=None, q_offset=0):
             k_pos = torch.arange(ckv_c.shape[1], device=x.device)
             s = s.masked_fill(~(k_pos[None, None, :] <= _row_pos(q_offset, 3)),
                               NEG_INF)
-            p = torch.softmax(s, dim=-1)
+            p = _softmax_keys(s)
             o_lat = einsum_f64("bhk,bkr->bhr", p.to(bf), ckv_c.to(bf))
             out = einsum_f64("bhr,rhd->bhd", o_lat.to(x.dtype),
-                             wv_b.to(x.dtype)).reshape(B, 1, H, dv)
+                             wv_b.to(x.dtype))
+            out = reshape(out, B, 1, H, dv)
 
-    out = out.to(x.dtype).reshape(B, S, H * dv)
+    out = reshape(out.to(x.dtype), B, S, H * dv)
     with layer_scope("wo"):
         return nmatmul(out, params["wo"]).to(x.dtype), new_cache

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import logical_constraint, reduced
 from repro_torch.numerics import layer_scope, nmatmul
 
 
@@ -30,8 +31,9 @@ def einsum_f64(eq: str, *operands: torch.Tensor) -> torch.Tensor:
     few fp64 ulps of a rounding boundary.  For bf16-rounded operands the
     products are exact: this is the reference's bf16 dot, summed more
     precisely.  Pass bf16 operands as they are: widened straight to fp64
-    they make no fp32 copy."""
-    return torch.einsum(eq, *(t.to(torch.float64) for t in operands))
+    they make no fp32 copy.  A placed contraction over a sharded dim is
+    reduced in fp64, before any caller rounds it."""
+    return reduced(torch.einsum(eq, *(t.to(torch.float64) for t in operands)))
 
 
 def normal(gen: torch.Generator, shape, scale: float,
@@ -112,10 +114,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
     """Gated MLP ``wo(wi(x) * silu(wg(x)))`` under the ambient numerics
     scope (relative call-site paths ``wi``/``wg``/``wo``)."""
+    hidden_axes = ("batch",) + (None,) * (x.dim() - 2) + ("mlp",)
     with layer_scope("wi"):
         h = nmatmul(x, params["wi"])
     with layer_scope("wg"):
         g = nmatmul(x, params["wg"])
+    h = logical_constraint(h, hidden_axes)
+    g = logical_constraint(g, hidden_axes)
     h = h * F.silu(g)
     with layer_scope("wo"):
         return nmatmul(h.to(x.dtype), params["wo"])

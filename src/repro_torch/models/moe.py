@@ -47,14 +47,21 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed import collectives
+from repro_torch.distributed import collectives, sharding
 from repro_torch.distributed.sharding import (current_mesh_rules,
-                                              local_shape, spec_for)
+                                              local_shape, logical_constraint,
+                                              reshape, spec_for)
 from repro_torch.numerics import (current_numerics, current_path, layer_scope,
                                   nmatmul, numerics_scope, operand_tap_active,
                                   resolve, scoped)
 
 from .layers import einsum_f64, mlp_apply
+
+
+#: logical axes of the group-local dispatch buffer (B, E, C, D): the
+#: groups on the batch axes, the experts on theirs (the reference's
+#: constraint; a placed step runs this path on each rank's rows)
+BUF_AXES = ("batch", "experts", None, None)
 
 
 def moe_param_shapes(cfg) -> dict:
@@ -219,16 +226,26 @@ def _shared(params, x, y):
         return y
     B, S, D = x.shape
     with layer_scope("shared"):
-        return y + mlp_apply(params["shared"], x.reshape(-1, D)).to(
-            x.dtype).reshape(B, S, D)
+        return y + reshape(mlp_apply(params["shared"], reshape(x, -1, D)).to(
+            x.dtype), B, S, D)
 
 
 def _moe_apply(params, x, cfg, decoding):
+    if sharding.is_dtensor(x):
+        # placed: each rank routes its own rows (a row is a routing group),
+        # every expert on every rank, as GSPMD partitions the reference's
+        # vmapped groups over the batch
+        mesh, rules = sharding.placement_context()
+        xs = spec_for(("batch", None, None), x.shape, mesh, rules)
+        return collectives.shard_map(
+            lambda xl, p: _moe_apply(p, xl, cfg, decoding), mesh,
+            (xs, sharding.P()), xs)(x, params)
     B, S, D = x.shape
     E = cfg.moe.n_experts
     C = capacity(cfg, S)
     gate, _, src, inv = _route(x, params["router"], cfg, C, decoding)
     buf = _dispatch(x, src).reshape(B, E, C, D)
+    buf = logical_constraint(buf, BUF_AXES)
 
     cfgs = routed_expert_configs(_ambient_view(), E)
     if _all_exact(cfgs) and not operand_tap_active():
@@ -242,6 +259,7 @@ def _moe_apply(params, x, cfg, decoding):
         g = _experts_matmul(buf, params["wg"], "wg", x.dtype)
         h = h * F.silu(g)
         out = _experts_matmul(h, params["wo"], "wo", x.dtype)
+    out = logical_constraint(out, BUF_AXES)
     y = _combine(out.reshape(B, E * C, D), inv, gate, x.dtype)
     return _shared(params, x, y)
 

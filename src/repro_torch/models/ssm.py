@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import logical_constraint, reshape
 from repro_torch.kernels import ops
 from repro_torch.numerics import layer_scope, nmatmul, resolve_here
 
@@ -100,6 +102,7 @@ def ssm_apply(params, x, cfg, cache=None, want_state=False):
 
     with layer_scope("in_proj"):
         proj = nmatmul(x, params["in_proj"]).to(x.dtype)
+    proj = logical_constraint(proj, ("batch", None, "ssm_inner"))
     z, xs, Bm, Cm, dt = _split_proj(proj, cfg)
     dt = dt.to(f) + params["dt_bias"]
     dt = torch.logaddexp(dt, torch.zeros_like(dt))            # softplus
@@ -107,7 +110,7 @@ def ssm_apply(params, x, cfg, cache=None, want_state=False):
 
     if cache is None:
         xs, conv_tail = _causal_conv(xs, params["conv_w"], params["conv_b"])
-        xh = xs.reshape(B_, S, H, P)
+        xh = reshape(xs, B_, S, H, P)
         Bf, Cf = Bm.to(f), Cm.to(f)
         y = ops.ssd_scan(xh, dt, A, Bf, Cf, chunk=s.chunk,
                          backend=resolve_here("scan").backend)
@@ -122,7 +125,7 @@ def ssm_apply(params, x, cfg, cache=None, want_state=False):
         # decode: one token, O(1) state update, in place
         xs, conv_tail = _causal_conv(xs, params["conv_w"], params["conv_b"],
                                      state=cache["conv"])
-        xh = xs.reshape(B_, H, P).to(f)
+        xh = reshape(xs, B_, H, P).to(f)
         dt1 = dt[:, 0]                                        # (B, H)
         decay = torch.exp(A * dt1)                            # (B, H)
         Bv = Bm[:, 0].to(f)                                   # (B, N)
@@ -132,11 +135,11 @@ def ssm_apply(params, x, cfg, cache=None, want_state=False):
         # in fp64, rounded once below: the same row at any batch
         # (layers.einsum_f64)
         y = einsum_f64("bn,bhnp->bhp", Cv, S_new)[:, None]    # (B, 1, H, P)
-        cache["conv"].copy_(conv_tail)
-        cache["state"].copy_(S_new)
+        sharding.copy_into_(cache["conv"], conv_tail)
+        sharding.copy_into_(cache["state"], S_new)
         new_cache = cache
 
-    y = y.reshape(B_, S, d_inner).to(x.dtype)
+    y = reshape(y, B_, S, d_inner).to(x.dtype)
     y = y * F.silu(z)
     y = rmsnorm({"scale": params["norm"]}, y, cfg.norm_eps,
                 f64=cache is not None)

@@ -51,6 +51,8 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.core import scope
 from repro_torch.core.numerics import NumericsConfig, torch_dtype
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.numerics import (expert_paths, layer_scope, nmatmul,
                                   numerics_scope)
 
@@ -315,26 +317,56 @@ def init(cfg, seed: int = 0, device=None) -> dict:
 # serving state
 # ---------------------------------------------------------------------------
 
+#: the residual stream's logical axes (the reference's constraint at each
+#: block boundary)
+RESIDUAL_AXES = ("batch", "seq", None)
+
+#: serving-state leaves -> logical axes, keyed by (dict key, rank)
+STATE_AXES = {
+    ("k", 5): ("layers", "batch", "kv_seq", None, None),
+    ("v", 5): ("layers", "batch", "kv_seq", None, None),
+    ("ckv", 4): ("layers", "batch", "kv_seq", None),
+    ("kpe", 4): ("layers", "batch", "kv_seq", None),
+    ("conv", 4): ("layers", "batch", None, "ssm_inner"),
+    ("state", 5): ("layers", "batch", "ssm_heads", None, None),
+    ("enc_out", 3): ("batch", "seq", None),
+}
+
+
+def state_axes(state, key=None):
+    """The serving state's logical axes, leaf by leaf (keyed on the dict
+    key that holds the leaf and its rank)."""
+    if isinstance(state, dict):
+        return {k: state_axes(v, k) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(state_axes(v, key) for v in state)
+    return STATE_AXES.get((key, state.dim()), (None,) * state.dim())
+
+
 def block_cache(cfg, spec, repeats: int, batch: int, max_len: int, dtype,
-                device) -> dict:
-    """Zero cache of one block pattern entry, stacked over ``repeats``."""
+                device, zeros=None) -> dict:
+    """Zero cache of one block pattern entry, stacked over ``repeats``;
+    ``zeros(key, shape, dtype)`` makes each leaf (default: ``torch.zeros``
+    on ``device``)."""
+    if zeros is None:
+        def zeros(key, shape, dt):
+            return torch.zeros(shape, dtype=dt, device=device)
     if spec.kind == "ssm":
         one = ssm_mod.ssm_cache_init(cfg, batch, dtype, device="meta")
-        return {k: torch.zeros((repeats, *v.shape), dtype=v.dtype,
-                               device=device) for k, v in one.items()}
+        return {k: zeros(k, (repeats, *v.shape), v.dtype)
+                for k, v in one.items()}
     if spec.attn == "mla":   # the latent cache: no head axis
         m = cfg.mla
-        return {"ckv": torch.zeros((repeats, batch, max_len, m.kv_lora_rank),
-                                   dtype=dtype, device=device),
-                "kpe": torch.zeros((repeats, batch, max_len, m.rope_head_dim),
-                                   dtype=dtype, device=device)}
+        return {"ckv": zeros("ckv", (repeats, batch, max_len, m.kv_lora_rank),
+                             dtype),
+                "kpe": zeros("kpe", (repeats, batch, max_len, m.rope_head_dim),
+                             dtype)}
     shape = (repeats, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"k": zeros("k", shape, dtype), "v": zeros("v", shape, dtype)}
 
 
 def init_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
-               device=None) -> dict:
+               device=None, zeros=None) -> dict:
     """Serving state: per-block caches stacked over repeats,
     ``{"layers": [{pi: cache}]}``; an attention block's cache is
     ``{"k", "v": (repeats, batch, max_len, KH, hd)}`` in ``dtype`` (an
@@ -344,15 +376,18 @@ def init_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     H, N, P)}`` in fp32.  An
     encoder-decoder's state also holds the encoder's output, ``enc_out``
     ``(batch, cfg.enc_len, d)`` in ``dtype`` (prefill puts the output of
-    its own length there)."""
+    its own length there).  ``zeros(key, shape, dtype)`` makes each leaf
+    (default: ``torch.zeros`` on ``device``)."""
     check_supported(cfg)
     state = {"layers": [
-        {pi: block_cache(cfg, spec, repeats, batch, max_len, dtype, device)
+        {pi: block_cache(cfg, spec, repeats, batch, max_len, dtype, device,
+                         zeros)
          for pi, spec in enumerate(pattern)}
         for repeats, pattern in cfg.segments]}
     if cfg.encoder_layers:
-        state["enc_out"] = torch.zeros((batch, cfg.enc_len, cfg.d_model),
-                                       dtype=dtype, device=device)
+        shape = (batch, cfg.enc_len, cfg.d_model)
+        state["enc_out"] = (zeros("enc_out", shape, dtype) if zeros else
+                            torch.zeros(shape, dtype=dtype, device=device))
     return state
 
 
@@ -369,7 +404,7 @@ def _block_apply(params, x, cfg, spec, positions, cache=None, q_offset=0,
             h, new_cache = ssm_mod.ssm_apply(
                 params["ssm"], h, cfg, cache=cache,
                 want_state=cache is None and not train)
-        return x + h, new_cache
+        return logical_constraint(x + h, RESIDUAL_AXES), new_cache
     with layer_scope("attn"):
         if spec.attn == "mla":
             h, new_cache = attn.mla_apply(params["attn"], h, cfg, spec,
@@ -379,7 +414,7 @@ def _block_apply(params, x, cfg, spec, positions, cache=None, q_offset=0,
             h, new_cache = attn.gqa_apply(params["attn"], h, cfg, spec,
                                           positions, cache=cache,
                                           q_offset=q_offset, causal=causal)
-    x = x + h
+    x = logical_constraint(x + h, RESIDUAL_AXES)
     if "cross" in params and enc is not None:
         h = rmsnorm(params["ln_cross"], x, cfg.norm_eps, f64=decoding)
         with layer_scope("cross"):
@@ -390,7 +425,7 @@ def _block_apply(params, x, cfg, spec, positions, cache=None, q_offset=0,
             h = moe_mod.moe_apply(params["mlp"], h, cfg, decoding=decoding)
         else:
             h = mlp_apply(params["mlp"], h).to(x.dtype)
-    return x + h, new_cache
+    return logical_constraint(x + h, RESIDUAL_AXES), new_cache
 
 
 def _take(tree, r):
@@ -464,9 +499,10 @@ def _embed_inputs(params, cfg, batch) -> torch.Tensor:
     taken as it is), else the token embedding scaled by sqrt(d)."""
     dt = torch_dtype(cfg.dtype)
     if "embeds" in batch:
-        return batch["embeds"].to(dt)
+        return logical_constraint(batch["embeds"].to(dt), RESIDUAL_AXES)
     x = embed_lookup(params["embed"], batch["tokens"]).to(dt)
-    return x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+    return logical_constraint(x, RESIDUAL_AXES)
 
 
 def encoder_apply(params, cfg, batch, train=False):
@@ -478,7 +514,8 @@ def encoder_apply(params, cfg, batch, train=False):
     a policy cannot tell the layers apart and the calibration tap sees
     each site ``cfg.encoder_layers`` times.  ``train=True`` runs each
     layer under ``cfg.remat``."""
-    x = batch["enc_embeds"].to(torch_dtype(cfg.dtype))
+    x = logical_constraint(batch["enc_embeds"].to(torch_dtype(cfg.dtype)),
+                           RESIDUAL_AXES)
     B, S = x.shape[:2]
     positions = _positions_for(cfg, {}, B, S, 0, x.device)
     block = functools.partial(_encoder_block, cfg=cfg, spec=_enc_spec(cfg),
@@ -564,8 +601,21 @@ def logits_fn(params, cfg, hidden):
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     if isinstance(cfg.numerics, NumericsConfig):
         # a plain config keeps the head a bf16 dot (fp32 accumulation)
-        # outside nmatmul, as the reference does
-        logits = torch.matmul(bf16_round(hidden), bf16_round(w))
+        # outside nmatmul, as the reference does.  The rounded hidden is
+        # made contiguous, as a gapped slice's copy is anyway: a placed
+        # one's strides then tell DTensor to fold the batch into one
+        # product, as the plain route does, not to batch it (other bits)
+        h = hidden.to(torch.bfloat16).to(torch.float32,
+                                         memory_format=torch.contiguous_format)
+        if sharding.inner_sharded(h):
+            # placed with the sequence sharded: one product over the rows
+            # (sharding.rows), as the plain route folds them
+            lead = h.shape[:-1]
+            logits = sharding.reshape(torch.matmul(sharding.rows(h),
+                                                   bf16_round(w)),
+                                      *lead, w.shape[-1])
+        else:
+            logits = torch.matmul(h, bf16_round(w))
     else:
         # a policy resolves the head as ``lm_head`` like any projection
         with numerics_scope(cfg.numerics), layer_scope("lm_head"):
@@ -574,6 +624,7 @@ def logits_fn(params, cfg, hidden):
         # the tied table has unit-variance rows: d**-0.5 puts the logits
         # at the untied head's scale
         logits = logits * (cfg.d_model ** -0.5)
+    logits = logical_constraint(logits, ("batch", "seq", "vocab"))
     return softcap(logits, cfg.logit_softcap)
 
 
@@ -594,10 +645,21 @@ def loss_fn(params, cfg, batch, batch_chunks=None) -> torch.Tensor:
 
     def chunk_loss(h, t):
         lg = logits_fn(params, cfg, h)
-        lse = torch.logsumexp(lg, dim=-1)
-        gold = torch.gather(lg, -1, t.clamp(min=0).long()[..., None])[..., 0]
+        idx = t.clamp(min=0).long()[..., None]
+        if sharding.is_dtensor(lg) and any(p.is_shard(lg.dim() - 1)
+                                           for p in lg.placements):
+            # over vocab-sharded logits: the max and the sum of exps as
+            # partial reductions (DTensor's logsumexp would gather the
+            # whole vocabulary); a gather over them is a masked partial
+            # sum, which DTensor reduces only at the gather's own rank
+            m = lg.amax(dim=-1, keepdim=True).detach()
+            lse = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
+            nll = (lse[..., None] - torch.gather(lg, -1, idx))[..., 0]
+        else:
+            lse = torch.logsumexp(lg, dim=-1)
+            nll = lse - torch.gather(lg, -1, idx)[..., 0]
         valid = (t >= 0).to(torch.float32)
-        return ((lse - gold) * valid).sum(), valid.sum()
+        return (nll * valid).sum(), valid.sum()
 
     tot = cnt = 0.0
     for i in range(nb):
@@ -619,17 +681,24 @@ def prefill(params, cfg, batch, max_len=None):
         with numerics_scope(cfg.numerics):
             enc = encoder_apply(params["encoder"], cfg, batch)
     hidden, run = backbone(params, cfg, batch, enc=enc)
+    placed = sharding.is_dtensor(hidden)
+    # a placed step's state is laid out by the state's rules, each rank
+    # making and writing its own block
     state = init_state(cfg, B, max_len, dtype=torch_dtype(cfg.dtype),
-                       device=hidden.device)
+                       device=hidden.device, zeros=sharding.zeros_by_rules(
+                           lambda key, rank: STATE_AXES.get(
+                               (key, rank), (None,) * rank),
+                           hidden.device) if placed else None)
     if enc is not None:
         state["enc_out"] = enc   # in cfg.dtype, at its own length
     for seg, run_seg, (_, pattern) in zip(state["layers"], run, cfg.segments):
         for pi, cache in seg.items():
             for k, leaf in cache.items():
+                new = run_seg[pi][k].to(leaf.dtype)
                 if pattern[pi].kind == "ssm":   # no sequence axis
-                    leaf.copy_(run_seg[pi][k])
+                    sharding.copy_into_(leaf, new)
                 else:
-                    leaf[:, :, :S] = run_seg[pi][k].to(leaf.dtype)
+                    sharding.update_rows_(leaf, new, 0, dim=2)
     return logits_fn(params, cfg, hidden[:, -1:]), state
 
 

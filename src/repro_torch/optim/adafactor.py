@@ -72,7 +72,7 @@ def _moments(state: AdafactorState) -> list:
 def apply_updates(params, grads, state: AdafactorState, cfg: AdafactorConfig):
     """One Adafactor step, params and moments in place; returns ``(params,
     new state, {"grad_norm", "lr"})``."""
-    grads = _contiguous(grads)
+    grads = _contiguous(grads, params)
     gnorm = clip_by_global_norm_(grads, cfg.grad_clip)
     step = state.step + 1
     lr = float(schedule_lr(cfg, step))

@@ -10,6 +10,11 @@ moments.  The update is elementwise, so the pieces change no bit of it
 (the global norm is summed piece by piece, in another order than the
 reference's).
 The step counter and the learning rate live on the host.
+
+Placed leaves (DTensors, ``distributed/sharding.place``) update the same
+way on each rank's block: a gradient is laid out as its parameter first,
+the global norm sums each leaf as a DTensor (every block, reduced over
+the mesh), and the elementwise update runs on the local blocks.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.core.numerics import torch_dtype
+from repro_torch.distributed import sharding
 
 #: elements of one piece of a leaf in the in-place updates (128 MB fp32)
 PIECE = 1 << 25
@@ -76,8 +82,9 @@ def schedule_lr(cfg, step) -> torch.Tensor:
 
 
 def pieces(*ts):
-    """Matching flat pieces of equally shaped contiguous tensors."""
-    flat = [t.view(-1) for t in ts]
+    """Matching flat pieces of equally shaped contiguous tensors (of each
+    rank's blocks, for DTensors laid out alike)."""
+    flat = [sharding.local(t).view(-1) for t in ts]
     n = flat[0].numel()
     for i in range(0, n, PIECE):
         yield tuple(f[i:i + PIECE] for f in flat)
@@ -88,7 +95,7 @@ def global_norm(grads) -> torch.Tensor:
     device (no host sync)."""
     total = None
     for g in tree_util.leaves(grads):
-        for (gp,) in pieces(g):
+        for gp in sharding.reduction_pieces(g, PIECE):
             gf = gp.to(torch.float32)
             s = torch.sum(gf * gf)
             total = s if total is None else total + s
@@ -106,8 +113,11 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
     return norm
 
 
-def _contiguous(grads):
-    return tree_util.map(lambda g: g.contiguous(), grads)
+def _contiguous(grads, params):
+    """Contiguous gradients, each DTensor laid out as its parameter."""
+    return tree_util.unflatten(grads, [
+        sharding.laid_out_as(g, p).contiguous() for g, p in zip(
+            tree_util.leaves(grads), tree_util.leaves(params))])
 
 
 @torch.no_grad()
@@ -115,7 +125,7 @@ def apply_updates(params, grads, state: OptState, cfg: AdamWConfig):
     """One AdamW step: ``params`` and ``state``'s moments are updated in
     place (``grads`` are clipped in place); returns ``(params, new state,
     {"grad_norm", "lr"})`` with the same param tensors."""
-    grads = _contiguous(grads)
+    grads = _contiguous(grads, params)
     gnorm = clip_by_global_norm_(grads, cfg.grad_clip)
     step = state.step + 1
     lr = float(schedule_lr(cfg, step))

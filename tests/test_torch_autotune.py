@@ -294,7 +294,7 @@ def test_matmul_tile_override_reaches_the_kernel_route(monkeypatch):
         return torch.zeros(x.shape[:-1] + (w.shape[1],))
 
     monkeypatch.setattr(dispatch, "resolve_backend", lambda b, x: "hopper")
-    monkeypatch.setattr(dispatch.autograd, "afpm_matmul", fake)
+    monkeypatch.setattr(dispatch.custom_ops, "afpm_matmul", fake)
     x, w = torch.ones(4, 8), torch.ones(8, 16)
     dispatch.matmul(x, w, 3, tile=(32, 64, 1))
     dispatch.matmul(x, w, 3)

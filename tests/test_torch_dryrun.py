@@ -261,6 +261,27 @@ def test_step_cost_counts_products_and_live_bytes():
         hlo_analysis.step_cost(lambda t: int(t.sum()), x.to("meta"))
 
 
+@pytest.mark.parametrize("device_type,kind,factor", [
+    ("cuda", "all-to-all", 1), ("cpu", "all-gather", 2)])
+def test_step_cost_counts_a_shard_to_shard_move(device_type, kind, factor):
+    """A placed step over a fake group: DTensor moves a (Replicate,
+    Shard(1)) tensor to (Replicate, Shard(2)) by an all-to-all over CUDA
+    ranks (``_dtensor.shard_dim_alltoall``) and by a gather and a chunk
+    over CPU ranks; the count sees either, in this rank's bytes."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed.sharding import P, place_tensor
+    from repro_torch.launch.mesh import fake_mesh
+
+    x = torch.empty(4, 16, 16, device="meta")
+    with fake_mesh((2, 2), ("data", "model"), device_type=device_type) as m:
+        placed = place_tensor(x, P(None, "model"), m)
+        cost = hlo_analysis.step_cost(lambda t: t.redistribute(
+            m.device_mesh, [Replicate(), Shard(2)]), placed)
+    local = 4 * 16 * 8 * 4
+    assert dict(cost["collectives"].by_kind) == {kind: factor * local}
+
+
 def test_roofline_terms_keep_the_reference_keys():
     cost = {"flops": 2e12, "bytes_stream": 5e10, "bytes_fused": 1e10}
     mine = hlo_analysis.roofline_terms(cost, 256, model_flops=4e14,
@@ -290,7 +311,16 @@ def test_session_dryrun_on_a_reduced_cell():
     assert mem["argument_bytes"] == dryrun.cell_memory(
         specs.cell_config(sess.config, "decode_32k"), "decode_32k",
         make_production_mesh())["argument_bytes"]
-    assert mem["temp_bytes"] is None and mem["temp_bytes_reason"]
+    # the placed step's count: one chip's peak and its collectives
+    assert rec["sharded"] and mem["temp_bytes"] > 0
+    assert mem["peak_estimate_bytes"] == (
+        mem["argument_bytes"] + mem["temp_bytes"] + mem["output_bytes"]
+        - mem["alias_bytes"])
+    roof = rec["roofline"]
+    assert roof["collective_bytes_per_chip"] == sum(
+        roof["collective_by_kind"].values()) > 0
+    assert roof["t_collective_s"] == (roof["collective_bytes_per_chip"]
+                                      / roof["link_bytes_per_s"])
     assert rec["roofline"]["n_chips"] == 256
     assert sess.replace(mesh="multi").dryrun("decode_32k")["mesh"] == "2x16x16"
     # one chip: the counter's peak prices the step

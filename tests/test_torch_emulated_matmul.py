@@ -21,7 +21,7 @@ from repro_torch.core import afpm as t_afpm
 from repro_torch.core import numerics as t_numerics
 from repro_torch.core.registry import afpm_config, get_multiplier
 from repro_torch.kernels import afpm_bitwise as k2
-from repro_torch.kernels import autograd, dispatch
+from repro_torch.kernels import custom_ops, dispatch
 from repro_torch.numerics import NumericsConfig, numerics_scope
 
 ULP_BOUND = 64
@@ -162,7 +162,7 @@ def test_plan_modes_and_limits():
 
 @pytest.mark.parametrize("design", ["AC5-5", "ACL5"])
 def test_emulated_matmul_grad_matches_jax(design):
-    """EmulatedMatmul (its forward the plain version on the CPU) against
+    """The emulated-matmul op (its forward the plain version on the CPU) against
     jax.grad of the reference's afpm_matmul_emulated (straight-through)."""
     cfg = DESIGNS[design]
     x, w = _operands(3, (2, 6), 100, 7)
@@ -175,7 +175,7 @@ def test_emulated_matmul_grad_matches_jax(design):
     jgx, jgw = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
     tx = torch.from_numpy(x).requires_grad_()
     tw = torch.from_numpy(w).requires_grad_()
-    out = autograd.EmulatedMatmul.apply(tx, tw, cfg, 16)
+    out = custom_ops.emulated_matmul(tx, tw, cfg, 16)
     assert out.grad_fn is not None
     (out * torch.from_numpy(g)).sum().backward()
     for got, want in ((tx.grad, jgx), (tw.grad, jgw)):

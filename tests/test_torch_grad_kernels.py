@@ -3,12 +3,13 @@ SSD scan) against ``jax.grad`` of the JAX package's references.
 
 The JAX package has no backward kernel: ``jax.grad`` differentiates
 ``repro.kernels.ref.afpm_matmul_ref`` and ``ssd_scan_chunked_ref``.  The
-port's ``torch.autograd.Function``s (``repro_torch.kernels.autograd``) run
-the kernel forward, which on CPU tensors is the plain version, so the
+port's custom ops (``repro_torch.kernels.custom_ops``, their backwards in
+``repro_torch.kernels.autograd``) run the kernel forward, which on CPU
+tensors is the plain version, so the
 backward is what these tests hold.  The last tests drive the reduced
 qwen3-4b and mamba2-130m losses with the kernel route taken on the CPU
 (``dispatch`` told that the operands are the card's), so every segmented
-projection and every scan goes through the Functions, and hold loss and
+projection and every scan goes through the ops, and hold loss and
 gradients to ``jax.value_and_grad`` of the JAX model.
 """
 import dataclasses
@@ -29,7 +30,7 @@ from repro_torch.compat import params_from_numpy
 from repro_torch.configs import get_arch
 from repro_torch.core.numerics import NumericsConfig
 from repro_torch.data.synthetic import DataConfig, lm_batch
-from repro_torch.kernels import autograd, dispatch
+from repro_torch.kernels import custom_ops, dispatch
 from repro_torch.kernels import ssd_scan as k3
 from repro_torch.models import transformer as ttr
 
@@ -76,7 +77,7 @@ def test_segmented_matmul_grad_matches_jax(passes, x_dtype):
 
     xt = torch.tensor(x).to(getattr(torch, x_dtype)).requires_grad_(True)
     wt = torch.tensor(w).requires_grad_(True)
-    out = autograd.SegmentedMatmul.apply(xt, wt, passes)
+    out = custom_ops.segmented_matmul(xt, wt, passes)
     (out * torch.tensor(g)).sum().backward()
 
     assert xt.grad.dtype == xt.dtype
@@ -87,21 +88,21 @@ def test_segmented_matmul_grad_matches_jax(passes, x_dtype):
 
 
 def test_segmented_matmul_forward_is_the_kernel_wrapper(monkeypatch):
-    """The Function's forward is K1's wrapper (on the card: the kernel),
+    """The op's forward is K1's wrapper (on the card: the kernel),
     never the plain route chosen because a tensor requires grad."""
     calls = []
-    real = autograd.afpm_matmul
+    real = custom_ops.afpm_matmul
 
     def counted(x, w, passes, tile=None):
         calls.append(passes)
         return real(x, w, passes, tile)
 
-    monkeypatch.setattr(autograd, "afpm_matmul", counted)
+    monkeypatch.setattr(custom_ops, "afpm_matmul", counted)
     x = torch.randn(4, 64, requires_grad=True)
     w = torch.randn(64, 8, requires_grad=True)
-    autograd.segmented_matmul(x, w, 3).sum().backward()
+    custom_ops.segmented_matmul(x, w, 3).sum().backward()
     with torch.no_grad():
-        autograd.segmented_matmul(x, w, 2)
+        custom_ops.segmented_matmul(x, w, 2)
     assert calls == [3, 2]
     assert x.grad is not None and w.grad is not None
 
@@ -127,7 +128,7 @@ def test_ssd_scan_grad_matches_jax(L, H, P, N, chunk, batch):
     want = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(
         *(jnp.asarray(t) for t in (x, dt, A, B, C)))
     ins = [torch.tensor(t, requires_grad=True) for t in (x, dt, A, B, C)]
-    y = autograd.SSDScan.apply(*ins, chunk)
+    y = custom_ops.ssd(*ins, chunk)
     np.testing.assert_array_equal(
         y.detach().numpy(),
         k3.ssd_scan_plain(*(t.detach() for t in ins), chunk).numpy())
@@ -145,23 +146,22 @@ def test_ssd_scan_grad_only_where_asked():
     A = torch.tensor([-1.0, -0.5])
     B = torch.randn(1, 32, 8)
     C = torch.randn(1, 32, 8, requires_grad=True)
-    autograd.ssd(x, dt, A, B, C, 16).sum().backward()
+    custom_ops.ssd(x, dt, A, B, C, 16).sum().backward()
     assert x.grad is not None and C.grad is not None
     assert dt.grad is None and B.grad is None
 
 
 @pytest.fixture
 def kernel_route(monkeypatch):
-    """The kernel route of ``dispatch`` on CPU tensors: the Functions run,
-    with the kernels' plain forward (their wrappers' CPU branch)."""
+    """The kernel route of ``dispatch`` on CPU tensors: the ops run, with
+    the kernels' plain forward (their wrappers' CPU branch)."""
     counts = {"matmul": 0, "ssd": 0}
-    for cls, key in ((autograd.SegmentedMatmul, "matmul"),
-                     (autograd.SSDScan, "ssd")):
-        def counted(*a, _real=cls.apply, _key=key):
+    for name, key in (("segmented_matmul", "matmul"), ("ssd", "ssd")):
+        def counted(*a, _real=getattr(custom_ops, name), _key=key):
             counts[_key] += 1
             return _real(*a)
 
-        monkeypatch.setattr(cls, "apply", counted)
+        monkeypatch.setattr(custom_ops, name, counted)
     monkeypatch.setattr(dispatch, "resolve_backend",
                         lambda backend, x: "hopper")
     return counts
