@@ -154,7 +154,10 @@ run with a nonzero exit and no result line:
    remat full) through the kernels and through the plain route on the
    same params and batch: with fp32 activations under exact (K3) and
    segmented3 (K1 and K3) every leaf's gradient within 2**-6 of the plain
-   route's largest; with the config's bf16 activations under segmented3
+   route's largest (the plain K1 takes K1's own backward), and under
+   segmented3 also of PyTorch's autograd of the plain version, a
+   reference independent of that backward; with the config's bf16
+   activations under segmented3
    finite gradients, the difference printed beside the plain route's own
    spread when its K1 outputs move by one ulp (the early layers'
    gradients are chaotic there at init); K1 and K3 launches a step (the
@@ -275,6 +278,7 @@ import re
 import subprocess
 import sys
 import time
+import unittest.mock
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -3135,7 +3139,7 @@ def phase_train_grad():
 
     from repro_torch import tree as tree_util
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import autograd, ref
     from repro_torch.models import transformer
     from repro_torch.numerics import NumericsConfig
 
@@ -3173,6 +3177,25 @@ def phase_train_grad():
                     f"train-grad {key}: {worst[key][0]} kernel-route "
                     f"gradient {worst[key][1]:.3g} of the plain route's "
                     f"largest > {LOGIT_BOUND}")
+            if (mode, dtype) == ("segmented3", "float32"):
+                # the plain route's K1 takes K1's own backward: hold the
+                # kernel route against PyTorch's autograd of the plain
+                # version as well, a reference independent of that code
+                with unittest.mock.patch.object(
+                        autograd.PlainSegmentedMatmul, "apply",
+                        staticmethod(ref.afpm_matmul_ref)):
+                    c = dataclasses.replace(cfg, dtype=dtype, numerics=(
+                        NumericsConfig(backend="torch", **kw)))
+                    auto = _step_grads(params, c, batch)[1]
+                errs = _leaf_errs(names, run["hopper"][1], auto)
+                worst["autograd/float32"] = max(errs.items(),
+                                                key=lambda kv: kv[1])
+                if worst["autograd/float32"][1] > LOGIT_BOUND:
+                    raise AssertionError(
+                        f"train-grad {key}: {worst['autograd/float32'][0]} "
+                        f"kernel-route gradient "
+                        f"{worst['autograd/float32'][1]:.3g} of autograd's "
+                        f"of the plain version > {LOGIT_BOUND}")
             if dtype == "bfloat16":
                 # the plain route against itself, its K1 outputs one ulp up
                 real = ref.afpm_matmul_ref
@@ -3201,6 +3224,9 @@ def phase_train_grad():
                       f"), K1 {counts[k][0]} and K3 {counts[k][1]} launches "
                       f"a step, worst leaf {worst[k][0]} {worst[k][1]:.3g} of "
                       f"the plain route's largest" for k in losses)
+          + f"; segmented3/float32 against PyTorch's autograd of the "
+          f"plain version: worst leaf {worst['autograd/float32'][0]} "
+          f"{worst['autograd/float32'][1]:.3g}"
           + f" (bound {LOGIT_BOUND:.3g} with fp32 activations; not held "
           f"with bf16, where the plain route's own gradients move by "
           f"{worst['plain one-ulp spread/bfloat16'][1]:.3g} (worst leaf "
@@ -4128,6 +4154,51 @@ def phase_launch(sess):
 #: the fake group (its all-to-alls) on the 16 x 16 mesh
 DRYRUN_GIANTS = (("llama4-maverick-400b-a17b", "train_4k"),
                  ("deepseek-v3-671b", "prefill_32k"))
+#: the JAX package's dry-run of the same cells (``repro.launch.dryrun.
+#: lower_cell`` on a CPU, jax 0.9.0): per-chip FLOPs, peak estimate bytes
+#: and collective bytes by kind, kept as constants (this script imports no
+#: JAX) to print beside the card's count
+DRYRUN_JAX = {
+    "qwen3-4b train_4k 16x16": (191291937783808.0, 14714858496, {
+        "all-gather": 284059500544, "all-reduce": 152925499552,
+        "all-to-all": 17003708416, "collective-permute": 7493615616}),
+    "qwen3-4b train_4k 2x16x16": (97239133323264.0, 13610200064, {
+        "all-gather": 198839238656, "all-reduce": 79239966880,
+        "all-to-all": 7257194496, "collective-permute": 4135763968}),
+    "qwen3-4b prefill_32k 16x16": (108929057800192.0, 5039790264, {
+        "all-gather": 47307292672, "all-reduce": 48318402560,
+        "all-to-all": 2415919104, "collective-permute": 20480}),
+    "qwen3-4b prefill_32k 2x16x16": (54464528900096.0, 3791414360, {
+        "all-gather": 25564020736, "all-reduce": 24159201280,
+        "all-to-all": 1207959552, "collective-permute": 10240}),
+    "qwen3-4b decode_32k 16x16": (13685948416.0, 9789140436, {
+        "all-gather": 7815168, "all-reduce": 15492224,
+        "collective-permute": 73728}),
+    "qwen3-4b decode_32k 2x16x16": (6842974208.0, 5493964868, {
+        "all-gather": 3907584, "all-reduce": 7746112,
+        "collective-permute": 36864}),
+    "llama4-maverick-400b-a17b train_4k 16x16": (
+        2112686359838720.0, 39152961480, {
+            "all-gather": 2948621180928, "all-reduce": 1230490791668,
+            "all-to-all": 24159191040, "collective-permute": 50081845248}),
+    "deepseek-v3-671b prefill_32k 16x16": (1139130248396800.0, 37185061368, {
+        "all-gather": 300227231744, "all-reduce": 229243936768,
+        "all-to-all": 168980119552, "collective-permute": 57344}),
+}
+#: the port's count of the same cells over CUDA-type fake ranks on a CPU
+#: (``launch.dryrun.lower_session_cell``, torch 2.13): per-chip FLOPs.
+#: Every product's operand layout is chosen before the call, so the
+#: card's torch must count the same
+DRYRUN_CPU_FLOPS = {
+    "qwen3-4b train_4k 16x16": 164039833419776.0,
+    "qwen3-4b train_4k 2x16x16": 82019916709888.0,
+    "qwen3-4b prefill_32k 16x16": 108929057800192.0,
+    "qwen3-4b prefill_32k 2x16x16": 54464528900096.0,
+    "qwen3-4b decode_32k 16x16": 13685948416.0,
+    "qwen3-4b decode_32k 2x16x16": 6842974208.0,
+    "llama4-maverick-400b-a17b train_4k 16x16": 1658941855498240.0,
+    "deepseek-v3-671b prefill_32k 16x16": 1139130248396800.0,
+}
 
 
 def phase_dryrun(train):
@@ -4135,10 +4206,15 @@ def phase_dryrun(train):
     meshes, and for llama4's train_4k and deepseek-v3's prefill_32k on
     16 x 16 (one subprocess a cell, all at once; each counts the placed
     step over a fake group of 256 or 512 CUDA ranks: one chip's peak and
-    collective bytes); then at a 1 x 1 mesh the dry-run of
+    collective bytes), each sharded cell printed beside the JAX package's
+    figures (:data:`DRYRUN_JAX`), its FLOPs equal to a CPU's count of the
+    same tree (:data:`DRYRUN_CPU_FLOPS`), qwen3-4b train_4k's peak under
+    the card's memory on both meshes; then at a 1 x 1 mesh the dry-run of
     [train-qwen3]'s step (8 x 128 tokens, AdamW): its argument bytes ==
     the bytes of the tensors that phase's step took, and its peak
     estimate beside that phase's measured peak."""
+    import torch
+
     from repro_torch.launch import dryrun, specs
     from repro_torch.launch.mesh import Mesh
     from repro_torch.session import Session
@@ -4185,6 +4261,7 @@ def phase_dryrun(train):
         raise AssertionError(f"[dryrun] 1 x 1 argument_bytes "
                              f"{mem['argument_bytes']} != [train-qwen3]'s "
                              f"step tensors {train['step_bytes']}")
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
     for (a, s, tag), rec in recs.items():
         if rec["status"] == "ok":
             r, m = rec["roofline"], rec["memory"]
@@ -4195,14 +4272,30 @@ def phase_dryrun(train):
                     or r["t_collective_s"] is None:
                 raise AssertionError(f"[dryrun] {a} {s} {tag}: no sharded "
                                      f"peak or collective term: {m} {r}")
-            coll = ", ".join(f"{k} {v / 1e9:.4g}" for k, v in sorted(
-                r["collective_by_kind"].items()))
-            print(f"[dryrun]   {a} {s} {tag}: args/chip "
+            cell = f"{a} {s} {tag}"
+            flops, peak = r["hlo_flops_per_chip"], m["peak_estimate_bytes"]
+            # the placed training step fits the card (the reference's plan
+            # needs 14.7 GB a chip)
+            if s == "train_4k" and a == "qwen3-4b" and peak >= card_bytes:
+                raise AssertionError(f"[dryrun] {cell}: peak/chip {peak} "
+                                     f">= the card's {card_bytes} bytes")
+            if flops != DRYRUN_CPU_FLOPS[cell]:
+                raise AssertionError(f"[dryrun] {cell}: {flops!r} FLOP/chip "
+                                     f"on the card, {DRYRUN_CPU_FLOPS[cell]!r}"
+                                     f" counted on a CPU")
+            jf, jpeak, jcoll = DRYRUN_JAX[cell]
+
+            def kinds(by_kind):
+                return ", ".join(f"{k} {v / 1e9:.4g}"
+                                 for k, v in sorted(by_kind.items()))
+            print(f"[dryrun]   {cell}: args/chip "
                   f"{m['argument_bytes'] / 1e9:.3f} GB, peak/chip "
-                  f"{m['peak_estimate_bytes'] / 1e9:.3f} GB (temp "
-                  f"{m['temp_bytes'] / 1e9:.3f}), "
-                  f"{r['hlo_flops_per_chip']:.4g} FLOP/chip, collectives/chip "
-                  f"{r['collective_bytes_per_chip'] / 1e9:.4g} GB ({coll}), "
+                  f"{peak / 1e9:.3f} GB (temp {m['temp_bytes'] / 1e9:.3f}; "
+                  f"JAX {jpeak / 1e9:.3f}), {flops:.4g} FLOP/chip (JAX "
+                  f"{jf:.4g}, x{flops / jf:.3f}; == the CPU count), "
+                  f"collectives/chip {r['collective_bytes_per_chip'] / 1e9:.4g}"
+                  f" GB ({kinds(r['collective_by_kind'])}; JAX "
+                  f"{sum(jcoll.values()) / 1e9:.4g}: {kinds(jcoll)}), "
                   f"t_compute {r['t_compute_s'] * 1e3:.4g} ms, t_memory "
                   f"{r['t_memory_s'] * 1e3:.4g} ms, t_collective "
                   f"{r['t_collective_s'] * 1e3:.4g} ms ({r['dominant']}), "

@@ -45,8 +45,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.distributed.sharding import (inner_sharded, reduced,
-                                              reshape, rows)
+from repro_torch.distributed.sharding import placed_product, reduced
 
 from . import scope as _scope
 from .afpm import AFPMConfig, chunked_emulated_matmul
@@ -123,8 +122,9 @@ def nmatmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``(full path, x, w)`` first.  A placed product's partial sums (a
     contraction over a sharded dim) are reduced here, in the product's
     dtype (:func:`~repro_torch.distributed.sharding.reduced`), scattered
-    over the sequence of a (B, S, N) product, whose rows run as one
-    product (:func:`~repro_torch.distributed.sharding.rows`).
+    over the sequence of a (B, S, N) product.  Where a placed product's
+    operands are laid out, and whether it runs on each rank's rows, is
+    :func:`~repro_torch.distributed.sharding.placed_product`'s choice.
     """
     if _OPERAND_TAP is not None:
         # a scoped-policy ambient carries a prefix: the tap sees the
@@ -133,13 +133,7 @@ def nmatmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         _OPERAND_TAP(amb.full_path(rel) if hasattr(amb, "full_path") else rel,
                      x, w)
     cfg = _scope.resolve_here()
-    if inner_sharded(x):
-        # placed (B, S, K) with the sequence sharded: one product over the
-        # rows, the sequence gathered first
-        out = _nmatmul(rows(x), w, cfg)
-        out = reshape(out, *x.shape[:-1], out.shape[-1])
-    else:
-        out = _nmatmul(x, w, cfg)
+    out = placed_product(lambda a, b: _nmatmul(a, b, cfg), x, w)
     # a row-parallel product's partial sums scatter over the sequence of
     # a (B, S, N) output, where the residual stream is sharded next
     return reduced(out, 1 if out.dim() >= 3 else None)

@@ -299,6 +299,26 @@ def broadcast(x, mesh, axis, src: int = 0):
     return _Broadcast.apply(x, mesh, axis, src, _stats())
 
 
+def exchange_rows(x, mesh, axes, send, recv):
+    """An all-to-all of rows with uneven counts over ``axes`` (no
+    gradient: a batch's rows): ``x``'s rows in order, ``send[j]`` of them
+    to the ``j``-th rank, and ``recv[j]`` rows from the ``j``-th rank,
+    concatenated in rank order."""
+    grp, members, at = _group(mesh, axes)
+    pieces = x.split(list(send))
+    out = x.new_empty((sum(recv), *x.shape[1:]))
+    # the group's own rank order is ascending global rank
+    dist.all_to_all_single(out, torch.cat([pieces[j] for j in at]),
+                           [recv[j] for j in at], [send[j] for j in at],
+                           group=grp)
+    _record(_stats(), "all-to-all", out)
+    got = out.split([recv[j] for j in at])
+    by_index = [None] * len(members)
+    for g, j in enumerate(at):
+        by_index[j] = got[g]
+    return torch.cat(by_index)
+
+
 # ---------------------------------------------------------------------------
 # shard_map
 # ---------------------------------------------------------------------------
@@ -418,6 +438,8 @@ def _placed(o, mesh, spec):
     """The DTensor of this rank's output block ``o`` laid out by
     ``spec``; its cotangent is divided by the ranks that hold the same
     block (the ``_Assemble`` convention)."""
+    # the global stride below is a contiguous tensor's
+    o = o.contiguous()
     dims = _spec_axes(spec, o.dim())
     named = {a for axes in dims for a in axes}
     reps = math.prod(n for a, n in mesh.shape.items() if a not in named)

@@ -31,7 +31,7 @@ import threading
 from typing import Optional, Sequence
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
 # -- default rule tables ------------------------------------------------------
@@ -252,6 +252,13 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def is_split(x) -> bool:
+    """A DTensor that some rank does not hold whole (a ``Shard`` or a
+    ``Partial`` placement): a DTensor on a mesh of one rank, or replicated
+    on every dim, is not."""
+    return is_dtensor(x) and not all(p.is_replicate() for p in x.placements)
+
+
 def reduced(x, dim=None):
     """``x`` with every pending ``Partial`` sum of a DTensor reduced in
     ``x``'s dtype: scattered over ``dim`` (a reduce-scatter) where that
@@ -339,6 +346,10 @@ def place_tensor(t, spec, mesh):
                               shape=t.shape, stride=t.stride())
 
 
+def _contiguous_stride(shape) -> tuple:
+    return tuple(math.prod(shape[k + 1:]) for k in range(len(shape)))
+
+
 def zeros_by_rules(axes_of, device):
     """``zeros(key, shape, dtype)`` for a placed step's fresh state: the
     leaf's logical axes ``axes_of(key, rank)`` under the ambient rules,
@@ -350,10 +361,10 @@ def zeros_by_rules(axes_of, device):
         spec = spec_for(axes_of(key, len(shape)), shape, mesh, rules)
         local = torch.zeros(local_shape(shape, spec, mesh), dtype=dtype,
                             device=device)
-        stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
         return DTensor.from_local(local, mesh.device_mesh,
                                   placements_for(spec, mesh), run_check=False,
-                                  shape=tuple(shape), stride=stride)
+                                  shape=tuple(shape),
+                                  stride=_contiguous_stride(shape))
 
     return zeros
 
@@ -451,11 +462,235 @@ def reduction_pieces(t, n: int):
     return [flat[i:i + n] for i in range(0, flat.numel(), n)]
 
 
+def micro_batch(x, i: int, n: int):
+    """Micro-batch ``i`` of ``n`` of a batch tensor ``x``: its rows
+    ``[i * m, (i + 1) * m)`` (``m`` = rows / ``n``), as the reference's
+    ``(n, rows / n)`` reshape cuts them.  A DTensor sharded on dim 0 comes
+    back laid out as ``x``: each rank's block of the micro-batch comes from
+    the rank that holds those rows
+    (:func:`~repro_torch.distributed.collectives.exchange_rows`: the
+    micro-batch's rows move, nothing else).  Where ``m`` rows do not split
+    over the ranks of dim 0, they are sliced from ``x`` gathered."""
+    m = x.shape[0] // n
+    if n == 1:
+        return x
+    if not is_dtensor(x) or not any(p.is_shard(0) for p in x.placements):
+        return x[i * m:(i + 1) * m]
+    from repro_torch.distributed import collectives
+
+    block = x.to_local()
+    b = block.shape[0]
+    ranks = x.shape[0] // b
+    if ranks * b != x.shape[0] or m % ranks:
+        return x[i * m:(i + 1) * m]
+    mesh, _ = placement_context()
+    c, lo = m // ranks, _block_start(x, 0)
+    # rank t's rows of the micro-batch, [i * m + t * c, + c), lie in one
+    # rank's block (c divides b)
+    send = [c if (i * m + t * c) // b == lo // b else 0 for t in range(ranks)]
+    src = (i * m + (lo // b) * c) // b
+    recv = [c if s == src else 0 for s in range(ranks)]
+    first = next((t for t in range(ranks) if send[t]), 0)
+    start = i * m + first * c - lo if any(send) else 0
+    local = collectives.exchange_rows(block[start:start + sum(send)], mesh,
+                                      spec_of(x, mesh)[0], send, recv)
+    shape = (m, *x.shape[1:])
+    return DTensor.from_local(local, x.device_mesh, x.placements,
+                              run_check=False, shape=shape,
+                              stride=_contiguous_stride(shape))
+
+
+def loss_pieces(x, t, n: int) -> list:
+    """The ``n`` pieces ``(x_i, t_i)`` of ``x (B, S, ...)`` and ``t (B,
+    S)`` for a sum over their rows and positions (a loss's chunks): rows
+    ``[i * c, (i + 1) * c)`` of plain tensors.  Placed, ``t`` is first laid
+    out as ``x`` on its two dims, and each rank's piece ``i`` is piece
+    ``i`` of its own block, laid out as ``x``: of its rows where they split
+    ``n`` ways, else of its positions where those do.  Nothing is gathered,
+    where a row slice of a batch-sharded DTensor gathers the slice onto
+    every rank.  The pieces hold other rows than a plain split's (a sum
+    over all of them is the same up to its order); on one rank they are
+    the same.  Where neither splits, the rows are sliced whole."""
+    c = x.shape[0] // n
+
+    def rows_of():
+        return [(x[i * c:(i + 1) * c], t[i * c:(i + 1) * c])
+                for i in range(n)]
+
+    if n == 1 or not is_dtensor(x):
+        return rows_of()
+    want = [p if p.is_shard() and p.dim < t.dim() else Replicate()
+            for p in x.placements]
+    if not is_dtensor(t):
+        t = DTensor.from_local(t, x.device_mesh, [Replicate()] * len(want),
+                               run_check=False)
+    if tuple(t.placements) != tuple(want):
+        t = t.redistribute(x.device_mesh, want)
+    local = x.to_local().shape
+    dim = next((d for d in range(t.dim()) if local[d] % n == 0), None)
+    if dim is None:
+        return rows_of()
+    return [(_piece(x, dim, i, n), _piece(t, dim, i, n)) for i in range(n)]
+
+
+def _piece(x, dim: int, i: int, n: int):
+    """Piece ``i`` of ``n`` of each rank's block of ``x`` on ``dim``,
+    laid out as ``x``."""
+    block = x.to_local()
+    c = block.shape[dim] // n
+    shape = list(x.shape)
+    shape[dim] //= n
+    return DTensor.from_local(block.narrow(dim, i * c, c).contiguous(),
+                              x.device_mesh, x.placements, run_check=False,
+                              shape=tuple(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def take_last(x, idx):
+    """``torch.gather(x, -1, idx)`` (``idx (..., 1)``: one entry a row,
+    the gold logit of a loss).  On a DTensor ``x`` each rank takes from
+    its own block (``idx`` laid out as ``x``, whole on the last dim), and
+    where ``x``'s last dim is sharded the ranks that do not hold an entry
+    give 0, a ``Partial`` sum, as the reference partitions a
+    ``take_along_axis``; the gradient is scattered into each rank's block.
+    DTensor's own gather would take the gradient at the whole tensor's
+    shape on every rank (a chunk of full-vocabulary logits)."""
+    if not is_split(x):
+        return torch.gather(x, -1, idx)
+    return _TakeLast.apply(x, idx)
+
+
+class _TakeLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, idx):
+        d = x.dim() - 1
+        mesh, placements = x.device_mesh, tuple(x.placements)
+        idx = _with(idx, x, d).to_local()
+        lo, n = _block_start(x, d), x.to_local().shape[d]
+        j = idx - lo
+        inside = (j >= 0) & (j < n)
+        j = j.clamp(0, n - 1)
+        val = torch.gather(x.to_local(), d, j).masked_fill(~inside, 0)
+        ctx.save_for_backward(j, inside)
+        ctx.like = (mesh, placements, tuple(x.shape), x.to_local().shape)
+        out_shape = (*x.shape[:-1], 1)
+        return DTensor.from_local(
+            val, mesh, [Partial() if p == Shard(d) else p for p in placements],
+            run_check=False, shape=out_shape,
+            stride=_contiguous_stride(out_shape))
+
+    @staticmethod
+    def backward(ctx, g):
+        j, inside = ctx.saved_tensors
+        mesh, placements, shape, local_shape = ctx.like
+        d = len(shape) - 1
+        g = g.redistribute(mesh, [Replicate() if p == Shard(d) else p
+                                  for p in placements]).to_local()
+        gx = g.new_zeros(local_shape).scatter_(d, j,
+                                               g.masked_fill(~inside, 0))
+        return DTensor.from_local(gx, mesh, placements, run_check=False,
+                                  shape=shape,
+                                  stride=_contiguous_stride(shape)), None
+
+
 def inner_sharded(x) -> bool:
     """A DTensor ``x (B, ..., K)`` sharded on a leading dim past the first
     (the sequence of a residual-stream activation)."""
     return is_dtensor(x) and any(p.is_shard() and 0 < p.dim < x.dim() - 1
                                  for p in x.placements)
+
+
+def spec_of(x, mesh) -> PartitionSpec:
+    """The :class:`PartitionSpec` of the DTensor ``x``'s layout over
+    ``mesh`` (the inverse of :func:`placements_for`); raises on a pending
+    ``Partial`` sum."""
+    parts = [[] for _ in range(x.dim())]
+    for axes, p in zip(mesh.device_axes, x.placements):
+        if p.is_partial():
+            raise ValueError("a Partial DTensor has no PartitionSpec")
+        if p.is_shard():
+            parts[p.dim].extend(axes)
+    return P(*(None if not a else a[0] if len(a) == 1 else tuple(a)
+               for a in parts))
+
+
+def column_parallel(w) -> bool:
+    """A DTensor weight ``w (K, N)`` sharded on its output dim."""
+    return is_dtensor(w) and any(p.is_shard(w.dim() - 1)
+                                 for p in w.placements)
+
+
+def on_row_blocks(fn, x, w):
+    """``fn(x, w)`` for ``x (..., K)`` whose inner leading dims are
+    sharded (a sequence-sharded activation) and a weight ``w (K, N)``
+    whose output dim is not: each rank multiplies its own rows by the
+    whole weight (gathered where it is sharded on K), and the output keeps
+    ``x``'s layout, as GSPMD runs such a product on the residual's
+    sequence shard where gathering the sequence would make every rank of
+    its axis compute the same rows.  ``fn`` runs on plain tensors (a
+    kernel's wrapper directly); the weight's gradient is summed over the
+    ranks."""
+    from repro_torch.distributed import collectives
+
+    mesh, _ = placement_context()
+    spec = spec_of(x, mesh)
+    return collectives.shard_map(fn, mesh, (spec, P()), spec)(x, w)
+
+
+def product_operands(x, w):
+    """``x (..., K)`` and ``w (K, N)`` laid out for a product that moves
+    nothing, chosen here from their layouts, mesh dim by mesh dim, so that
+    DTensor's cost-based choice among the product's strategies (which
+    differs between torch versions) decides nothing:
+
+    - ``w`` sharded on K: a replicated ``x`` is cut on K too (a local
+      chunk; the product is a ``Partial`` sum), an ``x`` sharded on K
+      stays, and an ``x`` sharded on its rows takes the whole weight (the
+      weight gathered on that dim: FSDP, as GSPMD gathers a ZeRO-3 weight);
+    - ``w`` sharded on N: ``x`` replicated on that dim (a column-parallel
+      product), or, where ``x`` is sharded there, the weight gathered;
+    - ``w`` replicated: ``x`` as it is.
+
+    A pending ``Partial`` sum of ``x`` is reduced first.  Plain tensors,
+    or a mix of a DTensor and a plain tensor, are returned as they are."""
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return x, w
+    x = reduced(x)
+    k = x.dim() - 1
+    px, pw = list(x.placements), list(w.placements)
+    for m, (a, b) in enumerate(zip(px, pw)):
+        if b.is_shard(0):
+            if a.is_replicate():
+                px[m] = Shard(k)
+            elif not a.is_shard(k):
+                pw[m] = Replicate()
+        elif b.is_shard(1) and not a.is_replicate():
+            pw[m] = Replicate()
+    if px != list(x.placements):
+        x = x.redistribute(x.device_mesh, px)
+    if pw != list(w.placements):
+        w = w.redistribute(w.device_mesh, pw)
+    return x, w
+
+
+def placed_product(fn, x, w):
+    """``fn(x, w)`` for a product ``x (..., K) @ w (K, N)``, its operands
+    laid out here, from their layouts alone (plain tensors pass as they
+    are):
+
+    - ``x (B, S, K)`` with the sequence sharded and ``w``'s output dim
+      unsharded: each rank's rows by the whole weight
+      (:func:`on_row_blocks`), as GSPMD runs such a product on the
+      residual's sequence shard;
+    - the same ``x`` with ``w`` column-parallel: one product over the
+      rows, the sequence gathered (:func:`rows`), the output reshaped back;
+    - any other ``x``: as :func:`product_operands` lays the pair out."""
+    if inner_sharded(x) and not column_parallel(w):
+        return on_row_blocks(fn, x, w)
+    if inner_sharded(x):
+        out = fn(*product_operands(rows(x), w))
+        return reshape(out, *x.shape[:-1], out.shape[-1])
+    return fn(*product_operands(x, w))
 
 
 def rows(x):
@@ -476,7 +711,7 @@ def reshape(x, *shape):
     DTensor cannot carry sharded (a dim of 1024 split into 8 heads of 128
     over 16 ranks) is first gathered on those dims, as GSPMD reshards
     such a reshape in the reference; the next constraint lays the result
-    out again.  Its gradient is reshaped back the same way."""
+    out again.  Its gradient is reshaped back and laid out as ``x``."""
     if not is_dtensor(x):
         return x.reshape(*shape)
     return _Reshape.apply(x, _resolved(tuple(x.shape), shape))
@@ -505,11 +740,18 @@ class _Reshape(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, shape):
         ctx.shape = tuple(x.shape)
+        ctx.layout = (x.device_mesh, tuple(x.placements))
         return _reshaped(x, shape)
 
     @staticmethod
     def backward(ctx, g):
-        return _reshaped(g, ctx.shape), None
+        # laid out as the input was: where the forward gathered a dim, the
+        # gradient is cut again (a local chunk), so the product before it
+        # differentiates on its own block, not on the whole tensor
+        g = _reshaped(g, ctx.shape)
+        if is_dtensor(g) and tuple(g.placements) != ctx.layout[1]:
+            g = g.redistribute(*ctx.layout)
+        return g, None
 
 
 def _resolved(old, shape) -> tuple:

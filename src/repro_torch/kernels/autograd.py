@@ -80,6 +80,28 @@ def segmented_matmul_grads(x, w, passes: int, g, needs=(True, True)):
     return dx, dw
 
 
+class PlainSegmentedMatmul(torch.autograd.Function):
+    """K1's plain version (``ref.afpm_matmul_ref``) with K1's backward
+    (:func:`segmented_matmul_grads`): the plain route under autograd.
+    PyTorch's autograd of the plain version would run six products where
+    ``jax.grad`` of the reference and the kernel route run four (the
+    products of the cotangent with ``hi(w)`` and ``hi(x)`` serve both
+    segments)."""
+
+    @staticmethod
+    def forward(ctx, x, w, passes: int):
+        ctx.save_for_backward(x, w)
+        ctx.passes = passes
+        return ref.afpm_matmul_ref(x, w, passes)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = segmented_matmul_grads(x, w, ctx.passes, g,
+                                        ctx.needs_input_grad[:2])
+        return dx, dw, None
+
+
 def emulated_matmul_grads(x, w, g, needs=(True, True)):
     """``(dx, dw)`` of ``x (..., K) @ w (K, N)`` through K2's emulated
     matmul: the straight-through product rule of the reference's

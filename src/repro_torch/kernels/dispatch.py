@@ -24,7 +24,10 @@ otherwise.  Under
 autograd the kernel route of ``matmul``, ``emulated_matmul`` and ``ssd``
 is differentiable (:mod:`.autograd`): the forward is still the kernel,
 and the backward computes what ``jax.grad`` of the JAX package's
-reference computes.  The plain route is differentiated by PyTorch's
+reference computes.  The plain route of ``matmul`` takes the same
+backward (:class:`.autograd.PlainSegmentedMatmul`: four products, as
+``jax.grad`` runs, where PyTorch's autograd of the plain version would
+run six); the other plain routes are differentiated by PyTorch's
 autograd.
 """
 from __future__ import annotations
@@ -34,7 +37,7 @@ import torch
 from repro_torch.core.afpm import AFPMConfig, afpm_matmul_emulated
 from repro_torch.core.numerics import BACKENDS
 
-from . import autotune, custom_ops, ref
+from . import autograd, autotune, custom_ops, ref
 from .autotune import shape_bucket
 
 
@@ -92,7 +95,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor, passes: int = 3, *,
     if vec:
         x = x[None, :]
     if backend == "torch":
-        out = ref.afpm_matmul_ref(x, w, passes)
+        out = autograd.PlainSegmentedMatmul.apply(x, w, passes)
     else:
         out = custom_ops.segmented_matmul(x.contiguous(), w.contiguous(),
                                         passes, tile)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import tree as tree_util
+from repro_torch.distributed import sharding
 from repro_torch.models import transformer
 from repro_torch.optim import adafactor, adamw
 
@@ -50,20 +51,20 @@ def clear_grads(params):
 def make_train_step(cfg, opt_cfg=None, opt_apply=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: ``cfg.grad_accum`` micro-batches (the batch's rows cut in
-    order) whose gradients are summed and divided by their count, then one
-    optimizer update, in place.  ``metrics`` holds ``loss`` (a 0-d tensor
-    on the params' device), ``grad_norm`` and ``lr``."""
+    order, placed too: :func:`~repro_torch.distributed.sharding.
+    micro_batch`) whose gradients are summed and divided by their count,
+    then one optimizer update, in place.  ``metrics`` holds ``loss`` (a 0-d tensor on the params'
+    device), ``grad_norm`` and ``lr``."""
     accum = max(1, cfg.grad_accum)
     if opt_cfg is None or opt_apply is None:
         opt_cfg, _, opt_apply = make_optimizer(cfg)
 
     def train_step(params, opt_state, batch):
         clear_grads(params)
-        B = next(iter(batch.values())).shape[0]
-        mb = B // accum
         loss = 0.0
         for i in range(accum):
-            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            micro = {k: sharding.micro_batch(v, i, accum)
+                     for k, v in batch.items()}
             l, grads = grads_of(transformer.loss_fn, params, cfg, micro)
             loss = loss + l
         if accum > 1:

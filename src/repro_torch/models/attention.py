@@ -314,6 +314,10 @@ def _mla_expanded(q_nope, q_pe, ckv, kpe, wk_b, wv_b, dt, q_offset):
     B, L = ckv.shape[:2]
     _, H, dn = wk_b.shape
     dv, dr = wv_b.shape[-1], kpe.shape[-1]
+    # the latent's sequence gathered for the expansion into the (sharded)
+    # heads, as GSPMD gathers it
+    ckv = logical_constraint(ckv, ("batch", None, None))
+    kpe = logical_constraint(kpe, ("batch", None, None))
     q_nope = logical_constraint(q_nope, HEADS_AXES)
     k_nope = einsum_f64("bsr,rhd->bshd", ckv, wk_b.to(dt)).to(dt)
     v = einsum_f64("bsr,rhd->bshd", ckv, wv_b.to(dt)).to(dt)
@@ -344,6 +348,10 @@ def mla_apply(params, x, cfg, spec, positions, cache=None, q_offset=0):
     dn, dr, dv, r = (m.nope_head_dim, m.rope_head_dim, m.v_head_dim,
                      m.kv_lora_rank)
     decoding = cache is not None and S == 1
+    # the low-rank projections (unsharded outputs) run on the sequence
+    # shard of the latent cache they fill, where GSPMD propagates its
+    # kv_seq layout back to them; wq_b then gathers q's sequence
+    x = logical_constraint(x, LATENT_AXES)
     with layer_scope("wq_a"):
         q = nmatmul(x, params["wq_a"])
     q = rmsnorm(params["q_a_norm"], q.to(x.dtype), cfg.norm_eps, f64=decoding)

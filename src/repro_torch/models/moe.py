@@ -50,7 +50,7 @@ import torch.nn.functional as F
 from repro_torch.distributed import collectives, sharding
 from repro_torch.distributed.sharding import (current_mesh_rules,
                                               local_shape, logical_constraint,
-                                              reshape, spec_for)
+                                              spec_for)
 from repro_torch.numerics import (current_numerics, current_path, layer_scope,
                                   nmatmul, numerics_scope, operand_tap_active,
                                   resolve, scoped)
@@ -224,10 +224,12 @@ def _combine(flat, inv, gate, dtype):
 def _shared(params, x, y):
     if "shared" not in params:
         return y
-    B, S, D = x.shape
+    # over (B, S, D) as it is, where the reference flattens it to (B * S,
+    # D): the same products, row by row; a placed sequence-sharded x then
+    # runs as every projection does, where a flatten of its sharded rows
+    # is resharded otherwise by each torch's DTensor
     with layer_scope("shared"):
-        return y + reshape(mlp_apply(params["shared"], reshape(x, -1, D)).to(
-            x.dtype), B, S, D)
+        return y + mlp_apply(params["shared"], x).to(x.dtype)
 
 
 def _moe_apply(params, x, cfg, decoding):

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed import sharding
+from repro_torch.distributed import collectives, sharding
 from repro_torch.distributed.sharding import logical_constraint, reshape
 from repro_torch.kernels import ops
 from repro_torch.numerics import layer_scope, nmatmul, resolve_here
@@ -80,6 +80,29 @@ def _causal_conv(xs, w, b, state=None):
     return F.silu(out), full[:, -(W - 1):]
 
 
+#: logical axes of the scan's operands x, dt, A, B and C: heads sharded
+SCAN_AXES = (("batch", None, "heads", None), ("batch", None, "heads"),
+             ("heads",), ("batch", None, None), ("batch", None, None))
+
+
+def _scan(x, dt, A, B, C, chunk: int, backend: str):
+    """The SSD scan (:func:`repro_torch.kernels.ops.ssd_scan`).  Placed
+    over several ranks, each rank scans its own heads and batch rows
+    (:data:`SCAN_AXES`) on either route, as the reference keeps the heads
+    sharded through the scan: the plain version on DTensors would run the
+    chunk products of every head on each rank.  A DTensor that every rank
+    holds whole (a mesh of one rank) goes to the scan as it is."""
+    def scan(*ins):
+        return ops.ssd_scan(*ins, chunk=chunk, backend=backend)
+
+    if not sharding.is_split(x):
+        return scan(x, dt, A, B, C)
+    mesh, rules = sharding.placement_context()
+    specs = tuple(sharding.spec_for(axes, t.shape, mesh, rules)
+                  for axes, t in zip(SCAN_AXES, (x, dt, A, B, C)))
+    return collectives.shard_map(scan, mesh, specs, specs[0])(x, dt, A, B, C)
+
+
 def ssm_apply(params, x, cfg, cache=None, want_state=False):
     """x: (B, S, D).  ``cache`` = ``{"conv": (B, W-1, d_inner), "state":
     (B, H, N, P)}`` for a decode step (S = 1), updated IN PLACE.
@@ -112,8 +135,7 @@ def ssm_apply(params, x, cfg, cache=None, want_state=False):
         xs, conv_tail = _causal_conv(xs, params["conv_w"], params["conv_b"])
         xh = reshape(xs, B_, S, H, P)
         Bf, Cf = Bm.to(f), Cm.to(f)
-        y = ops.ssd_scan(xh, dt, A, Bf, Cf, chunk=s.chunk,
-                         backend=resolve_here("scan").backend)
+        y = _scan(xh, dt, A, Bf, Cf, s.chunk, resolve_here("scan").backend)
         new_cache = None
         if want_state:
             # S[h] = sum_l dt[l,h] e^{A_h (cum[L,h] - cum[l,h])} B[l] x[l,h]^T

@@ -607,15 +607,7 @@ def logits_fn(params, cfg, hidden):
         # product, as the plain route does, not to batch it (other bits)
         h = hidden.to(torch.bfloat16).to(torch.float32,
                                          memory_format=torch.contiguous_format)
-        if sharding.inner_sharded(h):
-            # placed with the sequence sharded: one product over the rows
-            # (sharding.rows), as the plain route folds them
-            lead = h.shape[:-1]
-            logits = sharding.reshape(torch.matmul(sharding.rows(h),
-                                                   bf16_round(w)),
-                                      *lead, w.shape[-1])
-        else:
-            logits = torch.matmul(h, bf16_round(w))
+        logits = sharding.placed_product(torch.matmul, h, bf16_round(w))
     else:
         # a policy resolves the head as ``lm_head`` like any projection
         with numerics_scope(cfg.numerics), layer_scope("lm_head"):
@@ -634,14 +626,15 @@ def loss_fn(params, cfg, batch, batch_chunks=None) -> torch.Tensor:
     Chunked over the BATCH dim into ``cfg.loss_batch_chunks`` pieces (one
     piece when they do not divide it), each piece's logits recomputed in
     the backward instead of kept: a full-width vocabulary makes them the
-    largest activation."""
+    largest activation.  Placed, each rank's share of each piece is cut
+    from its own block (:func:`~repro_torch.distributed.sharding.
+    loss_pieces`)."""
     hidden, _ = backbone(params, cfg, batch, train=True)
     targets = batch["targets"]
     B = targets.shape[0]
     if batch_chunks is None:
         batch_chunks = cfg.loss_batch_chunks
     nb = batch_chunks if B % batch_chunks == 0 else 1
-    bc = B // nb
 
     def chunk_loss(h, t):
         lg = logits_fn(params, cfg, h)
@@ -650,21 +643,19 @@ def loss_fn(params, cfg, batch, batch_chunks=None) -> torch.Tensor:
                                            for p in lg.placements):
             # over vocab-sharded logits: the max and the sum of exps as
             # partial reductions (DTensor's logsumexp would gather the
-            # whole vocabulary); a gather over them is a masked partial
-            # sum, which DTensor reduces only at the gather's own rank
+            # whole vocabulary)
             m = lg.amax(dim=-1, keepdim=True).detach()
             lse = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
-            nll = (lse[..., None] - torch.gather(lg, -1, idx))[..., 0]
         else:
             lse = torch.logsumexp(lg, dim=-1)
-            nll = lse - torch.gather(lg, -1, idx)[..., 0]
+        # the gold logit from each rank's block (sharding.take_last)
+        nll = lse - sharding.take_last(lg, idx)[..., 0]
         valid = (t >= 0).to(torch.float32)
         return (nll * valid).sum(), valid.sum()
 
     tot = cnt = 0.0
-    for i in range(nb):
-        nll, n = checkpointed(chunk_loss, hidden[i * bc:(i + 1) * bc],
-                              targets[i * bc:(i + 1) * bc])
+    for h, t in sharding.loss_pieces(hidden, targets, nb):
+        nll, n = checkpointed(chunk_loss, h, t)
         tot, cnt = tot + nll, cnt + n
     return tot / torch.clamp(cnt, min=1.0)
 

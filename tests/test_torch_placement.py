@@ -8,19 +8,25 @@ sharding rules, against the JAX package's sharded steps.
   ``tree_shardings`` and executed.  Cells: reduced qwen3-4b (a prefill at
   B 2, S 64 into a cache of 72, then one decode step at position 64,
   under exact and segmented3), reduced mamba2-130m and reduced
-  deepseek-v3 prefills under segmented3.  It writes the params, the
-  logits, and ``memory_analysis()``, ``collective_bytes`` and
-  ``loop_aware_cost`` flops of the dry-run's own jits (a prefill into a
-  cache of S, a decode step that donates its state).
+  deepseek-v3 prefills under segmented3, and a train cell (reduced
+  qwen3-4b with the full config's training settings, ``TRAIN_SETTINGS``,
+  at B 4, compiled only).  It writes the params, the logits, and
+  ``memory_analysis()``, ``collective_bytes`` and ``loop_aware_cost``
+  flops of the dry-run's own jits (a prefill into a cache of S, a decode
+  step that donates its state, a train step that donates params and
+  optimizer state).
 - The port runs the same cells on 4 gloo ranks spawned on the CPU, the
   weights carried across by ``compat.params_from_numpy``: each step once
   unplaced and once on ``distributed.sharding.place``'d params and batch
   under ``use_mesh_rules``, its collectives counted; qwen3-4b's
   segmented3 cell once more with K1 through its custom op (the kernel
-  route, whose CPU implementation is the plain version), and its train
-  step placed by the train rules against unplaced.  The ranks also
-  hold each kernel op's sharding rules on CPU DTensors against the
-  unsharded op.
+  route, whose CPU implementation is the plain version), its train
+  step placed by the train rules against unplaced, the train cell's
+  gradients placed against unplaced and its step's collectives, and
+  reduced llama4's train step at grad_accum 2 (its micro-batches) placed
+  against unplaced.  The
+  ranks also hold each kernel op's sharding rules on CPU DTensors against
+  the unsharded op.
 - One more spawned process counts the same cells on meta tensors over a
   fake process group of CPU ranks (``launch.dryrun.lower_session_cell``
   of a CPU session, placed), and the 1 x 1 placed count against the
@@ -71,14 +77,24 @@ TEMP_BOUND = (0.5, 1.0)
 TEMP_RATIO = {"qwen3-4b/exact/decode": 64688 / 230584,
               "qwen3-4b/segmented3/decode": 64688 / 344952}
 # per-chip FLOPs of the placed count over JAX's per-device loop_aware_cost
-# where the two partition a dot differently (ROADMAP queue 3); 1.0 where
-# they agree.  mamba2: the SSD scan's chunk-local products
-# (ssd_scan_chunked_ref) run on both ranks of 'model', 819,200 FLOPs more;
-# deepseek: MLA's wq_a and wkv_a (low-rank, unsharded outputs) run on the
-# gathered sequence on both ranks of 'model', where GSPMD keeps the
-# residual's sequence shard, 4,325,376 more.
-FLOPS_RATIO = {"mamba2-130m/segmented3/prefill": 12533760 / 11714560,
-               "deepseek-v3-671b/segmented3/prefill": 189480960 / 185155584}
+# where the two partition a product differently (ROADMAP queue 3); 1.0
+# where they agree.  mamba2: the SSD scan's C·Bᵀ of each chunk (Q x Q,
+# the same for every head): GSPMD contracts it over the state dim N, which
+# in_proj's output leaves sharded over 'model', and all-reduces the
+# partial sums; the port's scan runs each rank's heads with B and C whole,
+# as K3 takes them, and forms C·Bᵀ whole on both ranks of 'model': 8
+# products of 2 x 16 x 16 x 8 FLOPs more, 32,768.
+FLOPS_RATIO = {"mamba2-130m/segmented3/prefill": 11747328 / 11714560}
+# the train cell: reduced qwen3-4b with the full config's training
+# settings (remat full, the sequence sharded on the residual stream, bf16
+# activations, the loss in 2 batch chunks, each rank taking its share of
+# each), exact numerics, a batch of TRAIN_B x S tokens, the train rules
+TRAIN_B = 4
+TRAIN_SETTINGS = dict(remat="full", seq_shard_activations=True,
+                      dtype="bfloat16", loss_batch_chunks=2)
+TRAIN_KEY = "qwen3-4b/exact/train"
+# the micro-batch cell: reduced llama4 (MoE) at this grad_accum, B TRAIN_B
+ACCUM = 2
 JOIN_S = 300
 
 
@@ -195,6 +211,25 @@ def _jax_reference(out_path):
                         donate_argnums=(1,)), *args)
                     logits, _ = dec(*args)
                     out[f"{tag}/decode"] = np.asarray(logits, np.float32)
+    # the train cell: the dry-run's train kind (lower_session_cell), fp32
+    # params and AdamW state donated, compiled only
+    cfg = dataclasses.replace(get_arch("qwen3-4b").reduced(),
+                              numerics=num["exact"], **TRAIN_SETTINGS)
+    rules = rules_for(cfg, "train")
+    with use_mesh_rules(mesh, rules):
+        params_abs, pspecs = specs.abstract_params(cfg, dtype=jnp.float32)
+        opt_cfg, opt_init, opt_apply, opt_specs = steps.make_optimizer(cfg)
+        opt_abs = jax.eval_shape(lambda p: opt_init(p, opt_cfg), params_abs)
+        batch = {k: specs.SDS((TRAIN_B, S), jnp.int32)
+                 for k in ("tokens", "targets")}
+        record(TRAIN_KEY, jax.jit(
+            steps.make_train_step(cfg, opt_cfg, opt_apply),
+            in_shardings=(tree_shardings(pspecs, params_abs, mesh, rules),
+                          tree_shardings(opt_specs(pspecs), opt_abs, mesh,
+                                         rules),
+                          tree_shardings(specs.batch_axes_tree(batch), batch,
+                                         mesh, rules)),
+            donate_argnums=(0, 1)), params_abs, opt_abs, batch)
     out["rec"] = np.asarray(json.dumps(rec))
     np.savez(out_path, **out)
 
@@ -428,6 +463,64 @@ def _rank_main(rank, store, ref_path, out_dir):
             float(all(isinstance(t, DTensor) for t in tree_util.leaves(pp))),
             float(all(not torch.equal(a, b) for a, b in zip(after, before)
                       if a.numel() > 1))])
+    # the train cell (TRAIN_SETTINGS): gradients placed against unplaced,
+    # then the dry-run's step (make_train_step with AdamW) placed, its
+    # collectives counted
+    cfg = dataclasses.replace(get_arch("qwen3-4b").reduced(),
+                              numerics=_port_numerics("exact"),
+                              **TRAIN_SETTINGS)
+    tokens = np.random.default_rng(17).integers(0, cfg.vocab, (TRAIN_B, S))
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)),
+             "targets": torch.from_numpy(np.roll(tokens, -1, 1)
+                                         .astype(np.int32))}
+    loss, grads = steps.grads_of(transformer.loss_fn,
+                                 params_from_numpy(tree, cfg, "cpu"), cfg,
+                                 batch)
+    rules = rules_for(cfg, "train")
+    opt_cfg, opt_init, opt_apply = steps.make_optimizer(cfg)
+    with use_mesh_rules(mesh, rules):
+        params = params_from_numpy(tree, cfg, "cpu")
+        opt = place(opt_init(params, opt_cfg), specs.opt_state_specs(
+            opt_init(params, opt_cfg), pspecs), mesh, rules)
+        pp = place(params, pspecs, mesh, rules)
+        bb = place(batch, specs.batch_axes_tree(batch), mesh, rules)
+        ploss, pgrads = steps.grads_of(transformer.loss_fn, pp, cfg, bb)
+        out["chunked_train_loss"] = np.asarray([float(loss),
+                                                float(ploss.full_tensor())])
+        out["chunked_train_grad_err"] = np.asarray([
+            float((g.full_tensor() - w).abs().max() / w.abs().max())
+            for g, w in zip(tree_util.leaves(pgrads), tree_util.leaves(grads))])
+        steps.clear_grads(pp)
+        with count_collectives() as stats:
+            steps.make_train_step(cfg, opt_cfg, opt_apply)(pp, opt, bb)
+        counts[f"placed/{TRAIN_KEY}"] = dict(stats.by_kind)
+    # reduced llama4 (MoE) at grad_accum ACCUM, its rows holding different
+    # numbers of valid targets: make_train_step placed against unplaced
+    cfg = dataclasses.replace(get_arch("llama4-maverick-400b-a17b").reduced(),
+                              grad_accum=ACCUM)
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab, (TRAIN_B, S))
+    targets = np.roll(tokens, -1, 1)
+    for r in range(TRAIN_B):
+        targets[r, S - 13 * r:] = -1
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)),
+             "targets": torch.from_numpy(targets.astype(np.int32))}
+    opt_cfg, opt_init, opt_apply = steps.make_optimizer(cfg)
+    params = transformer.init(cfg, seed=0, device="cpu")
+    _, _, metrics = steps.make_train_step(cfg, opt_cfg, opt_apply)(
+        params, opt_init(params, opt_cfg), batch)
+    pspecs = transformer.unflatten(transformer.param_specs(cfg))
+    rules = rules_for(cfg, "train")
+    with use_mesh_rules(mesh, rules):
+        params = transformer.init(cfg, seed=0, device="cpu")
+        opt = opt_init(params, opt_cfg)
+        opt = place(opt, specs.opt_state_specs(opt, pspecs), mesh, rules)
+        pp = place(params, pspecs, mesh, rules)
+        bb = place(batch, specs.batch_axes_tree(batch), mesh, rules)
+        _, _, placed = steps.make_train_step(cfg, opt_cfg, opt_apply)(
+            pp, opt, bb)
+    out["accum_train"] = np.asarray([
+        float(v.full_tensor() if isinstance(v, DTensor) else v)
+        for m in (metrics, placed) for v in (m["loss"], m["grad_norm"])])
     out["counts"] = np.asarray(json.dumps(counts))
     out["rules"] = np.asarray(json.dumps(rules_out))
     np.savez(pathlib.Path(out_dir) / f"rank{rank}.npz", **out)
@@ -440,6 +533,7 @@ def _count_main(out_path):
     import torch
 
     torch.set_num_threads(1)
+    from repro_torch.configs import get_arch
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import Mesh
     from repro_torch.session import Session
@@ -459,6 +553,15 @@ def _count_main(out_path):
                 "coll": rec["roofline"]["collective_by_kind"],
                 "flops": rec["roofline"]["hlo_flops_per_chip"],
                 "memory": rec["memory"], "sharded": rec["sharded"]}
+    cfg = dataclasses.replace(get_arch("qwen3-4b").reduced(),
+                              numerics=_port_numerics("exact"),
+                              **TRAIN_SETTINGS)
+    rec = dryrun.lower_session_cell(Session(cfg, device="cpu"),
+                                    dict(kind="train", seq=S, batch=TRAIN_B),
+                                    mesh=mesh)
+    res[TRAIN_KEY] = {"coll": rec["roofline"]["collective_by_kind"],
+                      "flops": rec["roofline"]["hlo_flops_per_chip"],
+                      "memory": rec["memory"], "sharded": rec["sharded"]}
     one = Mesh((1, 1), ("data", "model"))
     for arch in ("qwen3-4b", "mamba2-130m"):
         sess = Session(arch, policy="segmented3", device="cpu")
@@ -516,6 +619,9 @@ def _rel(got, want):
 PHASES = [(a, m, ph) for a, m, d in CELLS
           for ph in (("prefill", "decode") if d else ("prefill",))]
 IDS = [f"{a}-{m}-{ph}" for a, m, ph in PHASES]
+# the counted cells: the serving phases and the train cell
+COUNTED = PHASES + [tuple(TRAIN_KEY.split("/"))]
+COUNTED_IDS = [f"{a}-{m}-{ph}" for a, m, ph in COUNTED]
 
 
 # ---------------------------------------------------------------------------
@@ -599,11 +705,36 @@ def test_placed_train_step_matches_the_unplaced_step(ranks):
     assert finite == still_placed == moved == 1.0
 
 
+def test_placed_train_step_in_chunks_matches_the_unplaced_step(ranks):
+    """The train cell's settings on the gloo ranks: the sequence sharded,
+    each block recomputed, the loss in batch chunks of each rank's own
+    block (sharding.loss_pieces) and its gold logits taken from each rank's
+    block (sharding.take_last): the loss and every leaf's gradient against
+    the unplaced step's."""
+    rank0 = ranks[0][0]
+    loss, placed = rank0["chunked_train_loss"]
+    assert placed == pytest.approx(loss, rel=LOSS_RTOL)
+    errs = rank0["chunked_train_grad_err"]
+    assert len(errs) > 10 and float(errs.max()) <= GRAD_BOUND
+
+
+def test_placed_micro_batches_match_the_unplaced_step(ranks):
+    """make_train_step at grad_accum 2 on reduced llama4 (MoE), the
+    batch's rows holding 64, 51, 38 and 25 valid targets: each
+    micro-batch's loss is a mean over its own rows, so the placed
+    micro-batches must hold the unplaced step's rows, the reference's
+    ``(accum, B / accum)`` cut (sharding.micro_batch): the loss and the
+    gradient norm against unplaced."""
+    loss, norm, placed_loss, placed_norm = ranks[0][0]["accum_train"]
+    assert placed_loss == pytest.approx(loss, rel=LOSS_RTOL)
+    assert placed_norm == pytest.approx(norm, rel=PLACED_BOUND)
+
+
 # ---------------------------------------------------------------------------
 # the sharded count
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch,mode,phase", PHASES, ids=IDS)
+@pytest.mark.parametrize("arch,mode,phase", COUNTED, ids=COUNTED_IDS)
 def test_fake_group_collectives_equal_what_the_gloo_ranks_counted(
         ranks, arch, mode, phase):
     key = f"{_tag(arch, mode)}/{phase}"
@@ -613,7 +744,7 @@ def test_fake_group_collectives_equal_what_the_gloo_ranks_counted(
         assert r["counts"][f"placed/{key}"] == counted["coll"]
 
 
-@pytest.mark.parametrize("arch,mode,phase", PHASES, ids=IDS)
+@pytest.mark.parametrize("arch,mode,phase", COUNTED, ids=COUNTED_IDS)
 def test_per_chip_flops_against_jax_loop_aware_cost(ranks, jax_ref, arch, mode,
                                                     phase):
     ref, _ = jax_ref
@@ -623,7 +754,7 @@ def test_per_chip_flops_against_jax_loop_aware_cost(ranks, jax_ref, arch, mode,
         FLOPS_RATIO.get(key, 1.0), rel=1e-12, abs=0), (got, want)
 
 
-@pytest.mark.parametrize("arch,mode,phase", PHASES, ids=IDS)
+@pytest.mark.parametrize("arch,mode,phase", COUNTED, ids=COUNTED_IDS)
 def test_sharded_peak_is_counted(ranks, jax_ref, arch, mode, phase):
     key = f"{_tag(arch, mode)}/{phase}"
     mem = ranks[1][key]["memory"]
