@@ -7,11 +7,16 @@ resolves its :class:`NumericsConfig` from the ambient
 Modes
 -----
 ``exact``
-    bf16 operands, fp32 accumulation (``compute_dtype`` / ``accum_dtype``).
-    Computed as an fp32 matmul of the bf16-rounded operands cast back up
-    to fp32: every bf16 x bf16 product is exact in fp32, so this is the
-    reference's bf16 dot with fp32 accumulation (``torch.matmul`` on bf16
-    tensors would round its result to bf16).
+    bf16 operands, fp32 accumulation (``compute_dtype`` / ``accum_dtype``):
+    the reference's bf16 dot, which is the segmented matmul at one pass
+    (AC only), so it runs through
+    :func:`repro_torch.kernels.dispatch.matmul` with ``passes=1`` under
+    ``backend``: on the card the Hopper kernel, whose rows do not depend
+    on how many rows a call has; on the CPU its plain version, an fp32
+    matmul of the bf16-rounded operands (every bf16 x bf16 product is
+    exact in fp32).  Other dtypes (fp32 operands: ResNet's default) run
+    ``torch.matmul`` on the operands cast to ``compute_dtype`` and
+    ``accum_dtype``.
 ``segmented``
     Split-float (hi/lo bf16) matmul with term skipping, ``seg_passes`` =
     1, 2 or 3 tensor-core passes, backed by
@@ -143,6 +148,10 @@ def _nmatmul(x, w, cfg):
     if cfg.mode == "exact":
         cdt = torch_dtype(cfg.compute_dtype)
         adt = torch_dtype(cfg.accum_dtype)
+        if (cdt, adt) == (torch.bfloat16, torch.float32):
+            from repro_torch.kernels import dispatch  # lazy, as below
+
+            return dispatch.matmul(x, w, 1, backend=cfg.backend)
         return torch.matmul(x.to(cdt).to(adt), w.to(cdt).to(adt))
     if cfg.mode == "segmented":
         from repro_torch.kernels import dispatch  # lazy: kernels import core

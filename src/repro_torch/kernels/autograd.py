@@ -61,8 +61,8 @@ def segmented_matmul_grads(x, w, passes: int, g, needs=(True, True)):
     f, bf = torch.float32, torch.bfloat16
     g = g.to(f)
     K, N = w.shape
-    xh, xl = ref.split_hi_lo_ref(x)
-    wh, wl = ref.split_hi_lo_ref(w)
+    xh, xl = ref.split_hi_lo_ref(x, needs[1] and passes >= 2)
+    wh, wl = ref.split_hi_lo_ref(w, needs[0] and passes >= 3)
     dx = dw = None
     if needs[0]:
         Z = torch.matmul(g, wh.to(f).T).to(bf)

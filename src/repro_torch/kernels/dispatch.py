@@ -24,11 +24,12 @@ otherwise.  Under
 autograd the kernel route of ``matmul``, ``emulated_matmul`` and ``ssd``
 is differentiable (:mod:`.autograd`): the forward is still the kernel,
 and the backward computes what ``jax.grad`` of the JAX package's
-reference computes.  The plain route of ``matmul`` takes the same
-backward (:class:`.autograd.PlainSegmentedMatmul`: four products, as
-``jax.grad`` runs, where PyTorch's autograd of the plain version would
-run six); the other plain routes are differentiated by PyTorch's
-autograd.
+reference computes.  The plain route of ``matmul`` at two or three
+passes takes the same backward (:class:`.autograd.PlainSegmentedMatmul`:
+four products, as ``jax.grad`` runs, where PyTorch's autograd of the
+plain version would run six); at one pass (the exact tier's product) and
+on the other plain routes PyTorch's autograd differentiates the plain
+version.
 """
 from __future__ import annotations
 
@@ -94,7 +95,11 @@ def matmul(x: torch.Tensor, w: torch.Tensor, passes: int = 3, *,
     vec = x.dim() == 1
     if vec:
         x = x[None, :]
-    if backend == "torch":
+    if backend == "torch" and passes == 1:
+        # one product: PyTorch's autograd of it runs jax.grad's two, and a
+        # checkpointed block's recompute may stop before it
+        out = ref.afpm_matmul_ref(x, w, 1)
+    elif backend == "torch":
         out = autograd.PlainSegmentedMatmul.apply(x, w, passes)
     else:
         out = custom_ops.segmented_matmul(x.contiguous(), w.contiguous(),

@@ -23,12 +23,14 @@ import torch
 from repro_torch.core.afpm import AFPMConfig, afpm_mult_f32
 
 
-def split_hi_lo_ref(x: torch.Tensor):
-    """fp32 -> (hi, lo) bf16 segments; hi = RNE bf16, lo = bf16(x - hi)."""
-    x = x.to(torch.float32)
+def split_hi_lo_ref(x: torch.Tensor, lo: bool = True):
+    """fp32 -> (hi, lo) bf16 segments; hi = RNE bf16, lo = bf16(x - hi)
+    (None unless ``lo``).  A bf16 ``x`` is its own hi segment."""
     hi = x.to(torch.bfloat16)
-    lo = (x - hi.to(torch.float32)).to(torch.bfloat16)
-    return hi, lo
+    if not lo:
+        return hi, None
+    f = torch.float32
+    return hi, (x.to(f) - hi.to(f)).to(torch.bfloat16)
 
 
 def afpm_matmul_ref(x: torch.Tensor, w: torch.Tensor,
@@ -37,10 +39,13 @@ def afpm_matmul_ref(x: torch.Tensor, w: torch.Tensor,
 
     passes=3: AC + AD + BC (BD omitted, the paper's Eq. 6)
     passes=2: AC + AD (weight low bits dropped)
-    passes=1: AC only (ACL-like)
+    passes=1: AC only (ACL-like): the exact tier's bf16 dot, fp32 sums
+
+    A segment is formed only where a pass reads it, so passes 1 makes one
+    fp32 copy of each operand's rounding, as ``bf16(x) @ bf16(w)`` does.
     """
-    xh, xl = split_hi_lo_ref(x)
-    wh, wl = split_hi_lo_ref(w)
+    xh, xl = split_hi_lo_ref(x, passes >= 2)
+    wh, wl = split_hi_lo_ref(w, passes >= 3)
     f = torch.float32
     out = torch.matmul(xh.to(f), wh.to(f))
     if passes >= 2:

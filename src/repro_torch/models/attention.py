@@ -6,13 +6,15 @@ cross-attention.
 Numerics: q/k/v/o projections route through ``nmatmul`` (the paper's
 configurable multiplier); the score and PV products stay bf16 operands
 with fp32 accumulation, as in the JAX package, computed as fp32 einsums
-of bf16-rounded operands (exact products, fp32 sums); a decode step's
-self-attention runs the scores, the softmax and the PV sum in fp64 and
-rounds once (:func:`~.layers.einsum_f64`), so a row's attention does not
-depend on the batch it is decoded in (the cross-attention keeps the
-blockwise form in decode, as the reference does).  The
-reference's algorithm is kept (no ``scaled_dot_product_attention``) so
-the bits stay comparable.
+of bf16-rounded operands (exact products, fp32 sums).  Under the serving
+path's sums (:func:`~.layers.fp64_sums`: a prefill, a chunked prefill, a
+decode step) the scores, the softmax and the PV sum run in fp64 and
+round once (:func:`~.layers.einsum_f64`), so a row's attention does not
+depend on how many rows share the call: a decode step's self-attention
+(its own grouped form) and the blockwise form alike (the
+cross-attention keeps the blockwise form in decode, as the reference
+does).  The reference's algorithm is kept (no
+``scaled_dot_product_attention``) so the bits stay comparable.
 
 Caches are updated in place: the port's serving state is mutable, which
 saves the copy a functional update would make of every layer's cache.
@@ -29,7 +31,8 @@ from repro_torch.numerics import layer_scope, nmatmul
 
 import torch.nn.functional as F
 
-from .layers import apply_rope, bf16_round, einsum_f64, rmsnorm, softcap
+from .layers import (apply_rope, bf16_round, einsum_f64, fp64_sums_on,
+                     rmsnorm, softcap)
 
 NEG_INF = -1e30
 
@@ -106,7 +109,11 @@ def blockwise_attention(q, k, v, **kwargs):
     q: (B, Sq, H, D); k/v: (B, Sk, H, D) (kv already head-repeated);
     ``q_offset`` is the absolute position of the first query.  bf16
     operands, fp32 online softmax, the JAX package's chunking.  Returns
-    (B, Sq, H, D) fp32.
+    (B, Sq, H, D) fp32, or under :func:`~.layers.fp64_sums` fp64 (every
+    sum in fp64, for the caller to round once).  The key blocks start at
+    multiples of ``kv_chunk`` (or cover every key in one block), so a
+    whole prefill and a chunked one over a longer cache give a query the
+    same blocks, their extra keys masked to exact zeros.
 
     Placed (DTensor operands) each rank attends its own rows and heads,
     laid out by :data:`HEADS_AXES` (heads are independent, so this is the
@@ -139,9 +146,14 @@ def _blockwise(q, k, v, *, causal=True, window=None, attn_cap=None,
     kc = min(kv_chunk, Sk)
     nq, nk = -(-Sq // qc), -(-Sk // kc)
     pad_q, pad_k = nq * qc - Sq, nk * kc - Sk
-    qs = bf16_round(torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q)))
-    ks = bf16_round(torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k)))
-    vs = bf16_round(torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k)))
+    f64 = fp64_sums_on()
+    f = torch.float64 if f64 else torch.float32
+    # bf16 operands: fp32 copies for fp32 sums, or as they are, widened
+    # inside each fp64 product
+    rnd = (lambda t: t.to(torch.bfloat16)) if f64 else bf16_round
+    qs = rnd(_pad_rows(q, pad_q))
+    ks = rnd(_pad_rows(k, pad_k))
+    vs = rnd(_pad_rows(v, pad_k))
     dev = q.device
     q_pos = int(q_offset) + torch.arange(nq * qc, device=dev).reshape(nq, qc)
     k_pos = torch.arange(nk * kc, device=dev).reshape(nk, kc)
@@ -150,16 +162,20 @@ def _blockwise(q, k, v, *, causal=True, window=None, attn_cap=None,
     outs = []
     for i in range(nq):
         qb = qs[:, i * qc:(i + 1) * qc]
-        m = torch.full((B, H, qc), NEG_INF, dtype=torch.float32, device=dev)
-        l = torch.zeros((B, H, qc), dtype=torch.float32, device=dev)
-        o = torch.zeros((B, qc, H, D), dtype=torch.float32, device=dev)
+        m = torch.full((B, H, qc), NEG_INF, dtype=f, device=dev)
+        l = torch.zeros((B, H, qc), dtype=f, device=dev)
+        o = torch.zeros((B, qc, H, D), dtype=f, device=dev)
         for j in range(nk):
             kb = ks[:, j * kc:(j + 1) * kc]
             vb = vs[:, j * kc:(j + 1) * kc]
+            mask = _mask_for(q_pos[i], k_pos[j], k_valid[j], causal, window)
+            if f64:
+                m, l, o = _block_f64(qb, kb, vb, mask, m, l, o, scale,
+                                     attn_cap)
+                continue
             s = torch.einsum("bqhd,bkhd->bhqk", qb, kb) * scale
             if attn_cap is not None:
                 s = softcap(s, attn_cap)
-            mask = _mask_for(q_pos[i], k_pos[j], k_valid[j], causal, window)
             s = s.masked_fill(~mask, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1)).detach()
             alpha = torch.exp(m - m_new)
@@ -171,6 +187,29 @@ def _blockwise(q, k, v, *, causal=True, window=None, attn_cap=None,
         l = torch.clamp_min(l, 1e-30)
         outs.append(o / l.transpose(1, 2)[..., None])
     return torch.cat(outs, dim=1)[:, :Sq]
+
+
+def _pad_rows(t, pad: int):
+    """``t`` (B, S, H, D) with ``pad`` zero rows after its S."""
+    return torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) if pad else t
+
+
+def _block_f64(qb, kb, vb, mask, m, l, o, scale, cap):
+    """One key block of :func:`_blockwise`'s online softmax under the
+    serving path's sums: the bf16 operands widened inside each product
+    (exact products, fp64 sums), the softmax in fp64, the score block and
+    the running sums updated in place (the serving path takes no
+    gradient).  Returns the new ``(m, l, o)``."""
+    s = einsum_f64("bqhd,bkhd->bhqk", qb, kb).mul_(scale)
+    if cap is not None:
+        s.div_(cap).tanh_().mul_(cap)
+    s.masked_fill_(~mask, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = s.sub_(m_new[..., None]).exp_()
+    l = l.mul_(alpha).add_(p.sum(dim=-1))
+    pv = einsum_f64("bhqk,bkhd->bqhd", p.to(torch.bfloat16), vb)
+    return m_new, l, o.mul_(alpha.transpose(1, 2)[..., None]).add_(pv)
 
 
 def gqa_apply(params, x, cfg, spec, positions, cache=None, q_offset=0,
@@ -188,8 +227,8 @@ def gqa_apply(params, x, cfg, spec, positions, cache=None, q_offset=0,
         v = reshape(nmatmul(x, params["wv"]), B, S, KH, hd)
     decoding = cache is not None and S == 1
     if cfg.qk_norm:
-        q = rmsnorm(params["q_norm"], q, cfg.norm_eps, f64=decoding)
-        k = rmsnorm(params["k_norm"], k, cfg.norm_eps, f64=decoding)
+        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     # heads sharded, the sequence whole (the reference's TP region); the
@@ -354,15 +393,14 @@ def mla_apply(params, x, cfg, spec, positions, cache=None, q_offset=0):
     x = logical_constraint(x, LATENT_AXES)
     with layer_scope("wq_a"):
         q = nmatmul(x, params["wq_a"])
-    q = rmsnorm(params["q_a_norm"], q.to(x.dtype), cfg.norm_eps, f64=decoding)
+    q = rmsnorm(params["q_a_norm"], q.to(x.dtype), cfg.norm_eps)
     with layer_scope("wq_b"):
         q = reshape(nmatmul(q, params["wq_b"]), B, S, H, dn + dr)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
     with layer_scope("wkv_a"):
         kv = nmatmul(x, params["wkv_a"])
-    ckv = rmsnorm(params["kv_a_norm"], kv[..., :r].to(x.dtype), cfg.norm_eps,
-                  f64=decoding)
+    ckv = rmsnorm(params["kv_a_norm"], kv[..., :r].to(x.dtype), cfg.norm_eps)
     k_pe = reshape(apply_rope(reshape(kv[..., r:], B, S, 1, dr), positions,
                               cfg.rope_theta), B, S, dr)
     wk_b = reshape(params["wk_b"], r, H, dn)

@@ -6,6 +6,9 @@ layout (``wq`` is ``(d, H * hd)``; stacked layers carry a leading
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 import torch.nn.functional as F
 
@@ -17,6 +20,31 @@ def bf16_round(t: torch.Tensor) -> torch.Tensor:
     """``t`` rounded to bf16 and cast back to fp32: operands for an fp32
     matmul whose products are exact, i.e. a bf16 dot accumulated in fp32."""
     return t.to(torch.bfloat16).to(torch.float32)
+
+
+_FP64_SUMS = contextvars.ContextVar("fp64_sums", default=False)
+
+
+@contextlib.contextmanager
+def fp64_sums(on: bool = True):
+    """The serving path's sums: while on, the reductions whose order the
+    library picks by shape (``rmsnorm``, the blockwise attention's scores,
+    softmax and PV sums, the MoE router) run in fp64 and round once, so a
+    row's result does not depend on how many rows share the call (see
+    :func:`einsum_f64`).  ``transformer.prefill`` and
+    ``transformer.decode_step`` (which also runs a chunked prefill) turn
+    it on; ``transformer.loss_fn`` turns it off, so training keeps the
+    reference's fp32 sums."""
+    token = _FP64_SUMS.set(bool(on))
+    try:
+        yield
+    finally:
+        _FP64_SUMS.reset(token)
+
+
+def fp64_sums_on() -> bool:
+    """Whether :func:`fp64_sums` is on here."""
+    return _FP64_SUMS.get()
 
 
 def einsum_f64(eq: str, *operands: torch.Tensor) -> torch.Tensor:
@@ -48,15 +76,13 @@ def normal(gen: torch.Generator, shape, scale: float,
 # norms
 # ---------------------------------------------------------------------------
 
-def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6, *,
-            f64: bool = False) -> torch.Tensor:
-    """RMSNorm in fp32, or with ``f64`` in fp64 and rounded once to
-    ``x``'s dtype.  A decode step passes ``f64``: a reduction's order
-    changes with the number of rows on the card (see :func:`einsum_f64`),
-    and in fp64 a row's result does not depend on the batch it is decoded
-    in, at no launch more."""
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in fp32, or under :func:`fp64_sums` in fp64 and rounded
+    once to ``x``'s dtype: a reduction's order changes with the number of
+    rows on the card (see :func:`einsum_f64`), and in fp64 a row's result
+    does not depend on the batch it is served in, at no launch more."""
     dt = x.dtype
-    ct = torch.float64 if f64 else torch.float32
+    ct = torch.float64 if fp64_sums_on() else torch.float32
     xf = x.to(ct)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)

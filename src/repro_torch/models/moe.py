@@ -23,15 +23,18 @@ Every routed expert's three projections resolve under their own
 ``expert{k}.{wi,wg,wo}`` paths (``blocks.{i}.mlp.expert3.wi``), so a
 policy can put experts on different multipliers; the shared expert
 resolves under ``shared.*``.  When every expert resolves to ``exact`` and
-no calibration tap is recording, the experts run as one fused einsum over
-the stack in the activation dtype, the reference's datapath.  The
+no calibration tap is recording, the experts of CPU (or meta) tensors run
+as one fused einsum over the stack in the activation dtype, the
+reference's datapath; on the card each expert projection is one
+``nmatmul`` (the Hopper kernel at one pass, whose rows do not depend on
+the batch), as the other tiers run them.  The
 expert-parallel path runs one config for all experts (a policy that
 gives experts different configs takes the group-local path), under a
 nested ``numerics_scope`` and no ``expert{k}`` scope, as the reference's
-does.  The router is control logic: fp32 whatever the numerics (fp64 in
-a decode step, rounded once to fp32, so that a row's expert choice does
-not depend on the batch it is decoded in; see
-:func:`~.layers.einsum_f64`).
+does.  The router is control logic: fp32 whatever the numerics (fp64
+under the serving path's sums, rounded once to fp32, so that a row's
+expert choice does not depend on the batch it is served in; see
+:func:`~.layers.fp64_sums`).
 
 Two traps of a port are closed here: ``torch.argsort`` is not stable
 unless asked (``jnp.argsort`` is), and ``torch.topk`` promises no order
@@ -55,7 +58,7 @@ from repro_torch.numerics import (current_numerics, current_path, layer_scope,
                                   nmatmul, numerics_scope, operand_tap_active,
                                   resolve, scoped)
 
-from .layers import einsum_f64, mlp_apply
+from .layers import einsum_f64, fp64_sums_on, mlp_apply
 
 
 #: logical axes of the group-local dispatch buffer (B, E, C, D): the
@@ -169,12 +172,11 @@ def dispatch_plan(eidx: torch.Tensor, n_experts: int, C: int):
     return src, inv.reshape(B, S, K)
 
 
-def moe_apply(params, x: torch.Tensor, cfg, ncfg=None,
-              decoding: bool = False) -> torch.Tensor:
+def moe_apply(params, x: torch.Tensor, cfg, ncfg=None) -> torch.Tensor:
     """x (B, S, D) -> (B, S, D) under the ambient numerics (the caller
     sets this block's ``mlp`` scope); ``ncfg`` optionally sets the scope
-    for this call.  ``decoding`` (a decode step) computes the router's
-    logits in fp64, rounded once to fp32.  Expert parallel where a mesh
+    for this call.  Under the serving path's sums the router's logits are
+    computed in fp64, rounded once to fp32.  Expert parallel where a mesh
     with ranks shards the experts (module docstring), else group-local."""
     ctx = (numerics_scope(ncfg) if ncfg is not None
            else contextlib.nullcontext())
@@ -184,15 +186,14 @@ def moe_apply(params, x: torch.Tensor, cfg, ncfg=None,
             mesh, rules = state
             if spec_for(("experts", None, None), params["wi"].shape, mesh,
                         rules)[0] is not None:
-                return _moe_apply_shardmap(params, x, cfg, mesh, rules,
-                                           decoding)
-        return _moe_apply(params, x, cfg, decoding)
+                return _moe_apply_shardmap(params, x, cfg, mesh, rules)
+        return _moe_apply(params, x, cfg)
 
 
-def _route(x, router, cfg, C: int, decoding: bool):
+def _route(x, router, cfg, C: int):
     """Routing of the groups of ``x`` (G, S, D): ``(gate, eidx)`` (G, S,
     K) and the plan ``(src, inv)`` of :func:`dispatch_plan`."""
-    if decoding:
+    if fp64_sums_on():
         logits = einsum_f64("bsd,de->bse", x, router).to(torch.float32)
     else:
         logits = torch.einsum("bsd,de->bse", x.to(torch.float32),
@@ -232,7 +233,7 @@ def _shared(params, x, y):
         return y + mlp_apply(params["shared"], x).to(x.dtype)
 
 
-def _moe_apply(params, x, cfg, decoding):
+def _moe_apply(params, x, cfg):
     if sharding.is_dtensor(x):
         # placed: each rank routes its own rows (a row is a routing group),
         # every expert on every rank, as GSPMD partitions the reference's
@@ -240,17 +241,19 @@ def _moe_apply(params, x, cfg, decoding):
         mesh, rules = sharding.placement_context()
         xs = spec_for(("batch", None, None), x.shape, mesh, rules)
         return collectives.shard_map(
-            lambda xl, p: _moe_apply(p, xl, cfg, decoding), mesh,
+            lambda xl, p: _moe_apply(p, xl, cfg), mesh,
             (xs, sharding.P()), xs)(x, params)
     B, S, D = x.shape
     E = cfg.moe.n_experts
     C = capacity(cfg, S)
-    gate, _, src, inv = _route(x, params["router"], cfg, C, decoding)
+    gate, _, src, inv = _route(x, params["router"], cfg, C)
     buf = _dispatch(x, src).reshape(B, E, C, D)
     buf = logical_constraint(buf, BUF_AXES)
 
     cfgs = routed_expert_configs(_ambient_view(), E)
-    if _all_exact(cfgs) and not operand_tap_active():
+    # on the card each exact expert projection is a K1 launch, as under
+    # the other tiers: the fused einsum's rows depend on the batch there
+    if _all_exact(cfgs) and not operand_tap_active() and not x.is_cuda:
         # the reference's fused all-expert datapath, in x's dtype
         h = torch.einsum("becd,edf->becf", buf, params["wi"].to(x.dtype))
         g = torch.einsum("becd,edf->becf", buf, params["wg"].to(x.dtype))
@@ -266,7 +269,7 @@ def _moe_apply(params, x, cfg, decoding):
     return _shared(params, x, y)
 
 
-def _moe_apply_shardmap(params, x, cfg, mesh, rules, decoding):
+def _moe_apply_shardmap(params, x, cfg, mesh, rules):
     """Expert parallelism (the reference's ``_moe_apply_shardmap``):
     route the rank's ``T_loc`` tokens as one group, one ``all_to_all``
     out to the experts' ranks and one back, the local experts between."""
@@ -274,9 +277,9 @@ def _moe_apply_shardmap(params, x, cfg, mesh, rules, decoding):
     B, S, D = x.shape
     cfgs = routed_expert_configs(_ambient_view(), E)
     if any(len(set(tup)) > 1 for tup in cfgs.values()):
-        return _moe_apply(params, x, cfg, decoding)
+        return _moe_apply(params, x, cfg)
     ucfg = {name: tup[0] for name, tup in cfgs.items()}
-    exact_experts = _all_exact(cfgs)
+    exact_experts = _all_exact(cfgs) and not x.is_cuda
 
     x_spec = spec_for(("batch", "seq", None), x.shape, mesh, rules)
     w_spec = spec_for(("experts", None, None), params["wi"].shape, mesh,
@@ -294,7 +297,7 @@ def _moe_apply_shardmap(params, x, cfg, mesh, rules, decoding):
 
     def body(xl, router, wi, wg, wo):
         xt = xl.reshape(1, T_loc, D)                  # one routing group
-        gate, _, src, inv = _route(xt, router, cfg, C, decoding)
+        gate, _, src, inv = _route(xt, router, cfg, C)
         buf = _dispatch(xt, src).reshape(E, C, D)
         # (E, C, D) -> (E / nm, C * nm, D): each expert's slots from every
         # rank of the expert axes, on the rank that holds the expert

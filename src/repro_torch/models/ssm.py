@@ -163,8 +163,7 @@ def ssm_apply(params, x, cfg, cache=None, want_state=False):
 
     y = reshape(y, B_, S, d_inner).to(x.dtype)
     y = y * F.silu(z)
-    y = rmsnorm({"scale": params["norm"]}, y, cfg.norm_eps,
-                f64=cache is not None)
+    y = rmsnorm({"scale": params["norm"]}, y, cfg.norm_eps)
     with layer_scope("out_proj"):
         return nmatmul(y, params["out_proj"]).to(x.dtype), new_cache
 

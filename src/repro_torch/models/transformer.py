@@ -59,7 +59,8 @@ from repro_torch.numerics import (expert_paths, layer_scope, nmatmul,
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import bf16_round, embed_lookup, mlp_apply, normal, rmsnorm, softcap
+from .layers import (embed_lookup, fp64_sums, mlp_apply, normal, rmsnorm,
+                     softcap)
 
 
 def check_supported(cfg):
@@ -397,8 +398,7 @@ def init_state(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 
 def _block_apply(params, x, cfg, spec, positions, cache=None, q_offset=0,
                  train=False, causal=True, enc=None):
-    decoding = cache is not None and x.shape[1] == 1
-    h = rmsnorm(params["ln1"], x, cfg.norm_eps, f64=decoding)
+    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if spec.kind == "ssm":
         with layer_scope("ssm"):
             h, new_cache = ssm_mod.ssm_apply(
@@ -416,13 +416,13 @@ def _block_apply(params, x, cfg, spec, positions, cache=None, q_offset=0,
                                           q_offset=q_offset, causal=causal)
     x = logical_constraint(x + h, RESIDUAL_AXES)
     if "cross" in params and enc is not None:
-        h = rmsnorm(params["ln_cross"], x, cfg.norm_eps, f64=decoding)
+        h = rmsnorm(params["ln_cross"], x, cfg.norm_eps)
         with layer_scope("cross"):
             x = x + attn.cross_attn_apply(params["cross"], h, enc, cfg)
-    h = rmsnorm(params["ln2"], x, cfg.norm_eps, f64=decoding)
+    h = rmsnorm(params["ln2"], x, cfg.norm_eps)
     with layer_scope("mlp"):
         if spec.kind == "moe":
-            h = moe_mod.moe_apply(params["mlp"], h, cfg, decoding=decoding)
+            h = moe_mod.moe_apply(params["mlp"], h, cfg)
         else:
             h = mlp_apply(params["mlp"], h).to(x.dtype)
     return logical_constraint(x + h, RESIDUAL_AXES), new_cache
@@ -588,8 +588,7 @@ def backbone(params, cfg, batch, caches=None, q_offset=0, train=False,
                     for pi, cs in collected.items()})
             else:
                 new_caches.append(caches[si])
-        x = rmsnorm(params["final_norm"], x, cfg.norm_eps,
-                    f64=caches is not None and S == 1)
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return x, (None if train else new_caches)
 
 
@@ -597,18 +596,39 @@ def _train_block(p, x, cfg, spec, positions, enc=None):
     return _block_apply(p, x, cfg, spec, positions, train=True, enc=enc)[0]
 
 
+def _plain_head(params, cfg, hidden):
+    """A plain config's head: a bf16 dot with fp32 sums, outside nmatmul as
+    in the reference, which is the segmented matmul at one pass
+    (:func:`repro_torch.kernels.dispatch.matmul`, the Hopper kernel on the
+    card: a row's logits do not depend on how many rows the call has).
+    The tied table (V, d) is the kernel's ``x`` and the hidden's transpose
+    its ``w``: an element depends only on its row and column, so the
+    logits of a token do not depend on the other tokens either, and the
+    table is read as it lies (``embed.T`` as ``w`` would be a copy of the
+    whole table a call)."""
+    from repro_torch.kernels import dispatch   # lazy: kernels import core
+
+    backend = cfg.numerics.backend
+    if not cfg.tie_embeddings:
+        return sharding.placed_product(
+            lambda h, w: dispatch.matmul(h, w, 1, backend=backend), hidden,
+            params["unembed"])
+
+    def tied(h, w):
+        # h (..., d) and w = table.T (d, V) as placed_product lays them out
+        h_t = sharding.rows(h).to(torch.float32).T
+        out = dispatch.matmul(w.T, h_t, 1, backend=backend)   # (V, rows)
+        return sharding.reshape(out.T.contiguous(), *h.shape[:-1],
+                                w.shape[1])
+
+    return sharding.placed_product(tied, hidden, params["embed"].T)
+
+
 def logits_fn(params, cfg, hidden):
-    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     if isinstance(cfg.numerics, NumericsConfig):
-        # a plain config keeps the head a bf16 dot (fp32 accumulation)
-        # outside nmatmul, as the reference does.  The rounded hidden is
-        # made contiguous, as a gapped slice's copy is anyway: a placed
-        # one's strides then tell DTensor to fold the batch into one
-        # product, as the plain route does, not to batch it (other bits)
-        h = hidden.to(torch.bfloat16).to(torch.float32,
-                                         memory_format=torch.contiguous_format)
-        logits = sharding.placed_product(torch.matmul, h, bf16_round(w))
+        logits = _plain_head(params, cfg, hidden)
     else:
+        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
         # a policy resolves the head as ``lm_head`` like any projection
         with numerics_scope(cfg.numerics), layer_scope("lm_head"):
             logits = nmatmul(hidden, w)
@@ -620,6 +640,7 @@ def logits_fn(params, cfg, hidden):
     return softcap(logits, cfg.logit_softcap)
 
 
+@fp64_sums(False)
 def loss_fn(params, cfg, batch, batch_chunks=None) -> torch.Tensor:
     """Causal-LM cross-entropy, mean over valid targets (``targets >= 0``).
 
@@ -628,7 +649,8 @@ def loss_fn(params, cfg, batch, batch_chunks=None) -> torch.Tensor:
     the backward instead of kept: a full-width vocabulary makes them the
     largest activation.  Placed, each rank's share of each piece is cut
     from its own block (:func:`~repro_torch.distributed.sharding.
-    loss_pieces`)."""
+    loss_pieces`).  The reference's fp32 sums throughout, whatever the
+    caller's :func:`~.layers.fp64_sums`."""
     hidden, _ = backbone(params, cfg, batch, train=True)
     targets = batch["targets"]
     B = targets.shape[0]
@@ -660,10 +682,13 @@ def loss_fn(params, cfg, batch, batch_chunks=None) -> torch.Tensor:
     return tot / torch.clamp(cnt, min=1.0)
 
 
+@fp64_sums()
 def prefill(params, cfg, batch, max_len=None):
     """Process the prompt, ``tokens`` or ``embeds`` (and ``positions``, an
     encoder-decoder's ``enc_embeds``); returns (last-token logits, serving
-    state)."""
+    state).  Runs under :func:`~.layers.fp64_sums`, as
+    :func:`decode_step` does, so a prompt prefilled whole and one
+    prefilled in chunks over the cache give the same bits."""
     first = batch["tokens"] if "tokens" in batch else batch["embeds"]
     B, S = first.shape[:2]
     max_len = max_len or S
@@ -693,6 +718,7 @@ def prefill(params, cfg, batch, max_len=None):
     return logits_fn(params, cfg, hidden[:, -1:]), state
 
 
+@fp64_sums()
 def decode_step(params, cfg, batch, state, pos):
     """One step over ``batch['token']`` (B, S) at absolute position ``pos``.
 
@@ -700,7 +726,8 @@ def decode_step(params, cfg, batch, state, pos):
     S > 1 this is a chunked prefill) or a ``(B,)`` tensor when each row
     sits at its own position (the serving engine).  ``state`` is updated
     in place and returned.  An encoder-decoder's blocks cross-attend
-    ``state["enc_out"]``."""
+    ``state["enc_out"]``.  Runs under :func:`~.layers.fp64_sums`: a row's
+    logits do not depend on the rows it is decoded with."""
     hidden, _ = backbone(params, cfg, {"tokens": batch["token"]},
                          caches=state["layers"], q_offset=pos,
                          enc=state.get("enc_out"))

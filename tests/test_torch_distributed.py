@@ -337,7 +337,7 @@ def _rank_main(rank, store, ref_path, out_dir):
         d = mesh.coords["data"]
         shard = xt[2 * d:2 * d + 2].reshape(1, -1, D)
         _, eidx, _, inv = moe._route(shard, params["router"], cfg,
-                                     moe.capacity(cfg, shard.shape[1]), False)
+                                     moe.capacity(cfg, shard.shape[1]))
         out[f"eidx_{cf}"] = eidx[0].numpy()
         out[f"keep_{cf}"] = (inv[0] >= 0).numpy()
     cfg = _small_cfg(base, 8.0)

@@ -738,6 +738,7 @@ def test_one_rank_nccl_expert_parallel_decode_equals_group_local(tmp_path, rng):
     from repro_torch.distributed.sharding import rules_for, use_mesh_rules
     from repro_torch.launch.mesh import init_ranks, make_test_mesh
     from repro_torch.models import moe
+    from repro_torch.models.layers import fp64_sums
     from repro_torch.numerics import NumericsConfig
 
     base = get_arch("deepseek-v3-671b").reduced()
@@ -755,17 +756,52 @@ def test_one_rank_nccl_expert_parallel_decode_equals_group_local(tmp_path, rng):
     x = torch.from_numpy(rng.standard_normal((4, 1, D)).astype(
         np.float32)).cuda()
     seg3 = NumericsConfig(mode="segmented", seg_passes=3)
-    want = moe.moe_apply(params, x, cfg, seg3, decoding=True)
+    with fp64_sums():   # a decode step's router
+        want = moe.moe_apply(params, x, cfg, seg3)
     init_ranks("cuda", init_method=f"file://{tmp_path}/store")
     try:
         mesh = make_test_mesh((1, 1), device="cuda")
         before = k1.afpm_matmul.launches
-        with use_mesh_rules(mesh, rules_for(cfg, "serve")), \
+        with use_mesh_rules(mesh, rules_for(cfg, "serve")), fp64_sums(), \
                 collectives.count_collectives() as stats:
-            got = moe.moe_apply(params, x, cfg, seg3, decoding=True)
+            got = moe.moe_apply(params, x, cfg, seg3)
         torch.cuda.synchronize()
     finally:
         dist.destroy_process_group()
     assert k1.afpm_matmul.launches - before == 3 * E + 3
     assert stats.by_kind["all-to-all"] == 2 * E * 4 * D * 4
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_exact_tier_and_tied_head_run_k1_rows_invariant(rng):
+    """On the card the exact tier's product is K1 at one pass, one launch,
+    equal to segmented1 bit for bit; and a tied LM head (the table as K1's
+    x) gives a token the same logits at 1, 4 and 32 tokens."""
+    _need_card()
+    from repro_torch.configs import get_arch
+    from repro_torch.core.numerics import NumericsConfig
+    from repro_torch.models import transformer
+    from repro_torch.numerics import nmatmul, numerics_scope
+
+    x = torch.from_numpy(rng.standard_normal((32, 2560)).astype(
+        np.float32)).cuda().to(torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((2560, 1024)).astype(
+        np.float32)).cuda()
+    out = {}
+    seg1 = NumericsConfig(mode="segmented", seg_passes=1)
+    for name, cfg in (("exact", NumericsConfig(mode="exact")), ("seg1", seg1)):
+        before = k1.afpm_matmul.launches
+        with numerics_scope(cfg):
+            out[name] = nmatmul(x, w)
+        assert k1.afpm_matmul.launches == before + 1
+    assert torch.equal(out["exact"], out["seg1"])
+    cfg = get_arch("qwen3-4b").reduced()
+    assert cfg.tie_embeddings
+    params = transformer.init(cfg, seed=0, device="cuda")
+    h = torch.from_numpy(rng.standard_normal((1, 32, cfg.d_model)).astype(
+        np.float32)).cuda()
+    full = transformer.logits_fn(params, cfg, h)
+    for m in (1, 4):
+        assert torch.equal(transformer.logits_fn(params, cfg, h[:, :m]),
+                           full[:, :m])

@@ -30,6 +30,7 @@ from repro_torch.configs import get_arch
 from repro_torch.core.numerics import NumericsConfig
 from repro_torch.launch import steps
 from repro_torch.models import attention as tattn
+from repro_torch.models.layers import fp64_sums
 from repro_torch.models import transformer as ttr
 from repro_torch.numerics import numerics_scope
 from repro_torch.serving import TierSpec, kvcache
@@ -142,14 +143,15 @@ def test_mla_apply_three_forms_match_jax(seed, rng):
 def test_chunked_prefill_equals_whole_prefill_bit_for_bit(chunk, port_session,
                                                           rng):
     """Within the port, the reduced model's prompt run in chunks over the
-    cache (``backbone`` with caches, as ``decode_step`` with S > 1 runs
-    it) gives the whole prefill's hidden states and its ``ckv`` / ``kpe``
-    rows in all four blocks, bit for bit (exact preset: bf16 products).
-    The hidden states, not the logits: a whole prefill's head takes the
-    last row alone, a chunk's all of its rows."""
+    cache (``backbone`` with caches under the serving sums, as
+    ``decode_step`` with S > 1 runs it) gives the whole prefill's hidden
+    states and its ``ckv`` / ``kpe`` rows in all four blocks, bit for bit
+    (exact preset: bf16 products).  The hidden states, not the logits: a
+    whole prefill's head takes the last row alone, a chunk's all of its
+    rows."""
     s = port_session.replace(policy="exact")
     prompt = torch.as_tensor(rng.integers(0, 256, (1, 30)))
-    with torch.inference_mode():
+    with torch.inference_mode(), fp64_sums():
         want, _ = ttr.backbone(s.params, s.config, {"tokens": prompt})
         _, whole = ttr.prefill(s.params, s.config, {"tokens": prompt},
                                max_len=32)

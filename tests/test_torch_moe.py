@@ -214,8 +214,9 @@ def test_policy_puts_two_experts_on_different_multipliers(monkeypatch, rng):
     """Reduced llama4 under a policy with block 0's expert 0 on
     segmented1 and expert 1 on segmented3 (everything else exact): a spy
     on the segmented matmul's dispatch sees exactly those six projections,
-    each resolved under ``blocks.0.mlp.expert{k}.w*`` with its own passes;
-    and the logits differ from the all-exact run's."""
+    each resolved under ``blocks.0.mlp.expert{k}.w*`` with its own passes,
+    and the plain config's LM head (the one-pass product, outside any
+    layer scope); and the logits differ from the all-exact run's."""
     seen = []
     real = dispatch.matmul
 
@@ -236,8 +237,8 @@ def test_policy_puts_two_experts_on_different_multipliers(monkeypatch, rng):
         exact, _ = ttr.prefill(sess.params, sess.replace(
             policy=NumericsConfig(**EXACT_F32)).config, {"tokens": tokens})
     assert sorted(seen) == sorted(
-        (f"blocks.0.mlp.expert{k}.{n}", seg[k].seg_passes)
-        for k in (0, 1) for n in ("wi", "wg", "wo"))
+        [(f"blocks.0.mlp.expert{k}.{n}", seg[k].seg_passes)
+         for k in (0, 1) for n in ("wi", "wg", "wo")] + [("", 1)])
     assert not torch.equal(mixed, exact)
 
 
