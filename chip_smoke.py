@@ -3533,8 +3533,8 @@ def phase_train_grad():
                 # the plain route against itself, its K1 outputs one ulp up
                 real = ref.afpm_matmul_ref
 
-                def nudged(x, w, passes=3):
-                    out = real(x, w, passes)
+                def nudged(x, w, passes=3, sums=torch.float32):
+                    out = real(x, w, passes, sums)
                     up = torch.nextafter(out, torch.full_like(out, 1e38))
                     return out + (up - out).detach()    # the same gradient
 

@@ -89,17 +89,17 @@ class PlainSegmentedMatmul(torch.autograd.Function):
     segments)."""
 
     @staticmethod
-    def forward(ctx, x, w, passes: int):
+    def forward(ctx, x, w, passes: int, sums=torch.float32):
         ctx.save_for_backward(x, w)
         ctx.passes = passes
-        return ref.afpm_matmul_ref(x, w, passes)
+        return ref.afpm_matmul_ref(x, w, passes, sums)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         dx, dw = segmented_matmul_grads(x, w, ctx.passes, g,
                                         ctx.needs_input_grad[:2])
-        return dx, dw, None
+        return dx, dw, None, None
 
 
 def emulated_matmul_grads(x, w, g, needs=(True, True)):

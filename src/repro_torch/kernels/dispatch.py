@@ -78,13 +78,17 @@ def scan_chunk(backend: str, L: int, device=None) -> int:
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, passes: int = 3, *,
-           backend: str = "auto", tile=None) -> torch.Tensor:
+           backend: str = "auto", tile=None,
+           sums: torch.dtype = torch.float32) -> torch.Tensor:
     """Segmented approximate matmul ``x (..., K) @ w (K, N)`` -> fp32.
 
     Validation and 1-D promotion happen here, before the backend branch,
     so every backend accepts the same inputs; leading batch dims of ``x``
     are kept (the kernel flattens them into its rows).  ``tile`` is the
-    kernel's (:func:`.afpm_matmul.plan`); the plain version takes none."""
+    kernel's (:func:`.afpm_matmul.plan`); the plain version takes none.
+    ``sums`` is the plain version's: fp64 sums its products exactly and
+    returns them in fp64 for the caller to round once (after a placed
+    product's partial sums are reduced); the kernel sums in fp32."""
     backend = resolve_backend(backend, x)
     if x.dim() < 1 or w.dim() != 2:
         raise ValueError(f"need x (..., K) @ w (K, N); got "
@@ -98,9 +102,9 @@ def matmul(x: torch.Tensor, w: torch.Tensor, passes: int = 3, *,
     if backend == "torch" and passes == 1:
         # one product: PyTorch's autograd of it runs jax.grad's two, and a
         # checkpointed block's recompute may stop before it
-        out = ref.afpm_matmul_ref(x, w, 1)
+        out = ref.afpm_matmul_ref(x, w, 1, sums)
     elif backend == "torch":
-        out = autograd.PlainSegmentedMatmul.apply(x, w, passes)
+        out = autograd.PlainSegmentedMatmul.apply(x, w, passes, sums)
     else:
         out = custom_ops.segmented_matmul(x.contiguous(), w.contiguous(),
                                         passes, tile)

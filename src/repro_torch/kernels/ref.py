@@ -33,8 +33,8 @@ def split_hi_lo_ref(x: torch.Tensor, lo: bool = True):
     return hi, (x.to(f) - hi.to(f)).to(torch.bfloat16)
 
 
-def afpm_matmul_ref(x: torch.Tensor, w: torch.Tensor,
-                    passes: int = 3) -> torch.Tensor:
+def afpm_matmul_ref(x: torch.Tensor, w: torch.Tensor, passes: int = 3,
+                    sums: torch.dtype = torch.float32) -> torch.Tensor:
     """Segmented (split-float) approximate matmul ``x (..., K) @ w (K, N)``.
 
     passes=3: AC + AD + BC (BD omitted, the paper's Eq. 6)
@@ -43,10 +43,25 @@ def afpm_matmul_ref(x: torch.Tensor, w: torch.Tensor,
 
     A segment is formed only where a pass reads it, so passes 1 makes one
     fp32 copy of each operand's rounding, as ``bf16(x) @ bf16(w)`` does.
+    The passes are summed in ``sums`` and returned in it for the caller
+    to round once.  In fp64 every segment product (16 significant bits)
+    is exact, and so is the sum unless a dot's terms span more than about
+    53 - 16 - log2(3K) binades: its bits do not depend on the order of
+    the sum, nor on how K, the rows or the columns are split.
     """
     xh, xl = split_hi_lo_ref(x, passes >= 2)
     wh, wl = split_hi_lo_ref(w, passes >= 3)
-    f = torch.float32
+    f = sums
+    if f == torch.float64 and passes >= 2:
+        # exact sums, so in any order: the passes accumulate in place,
+        # one output's memory where the fp32 form holds three
+        lead = xh.shape[:-1]
+        xh, xl = xh.reshape(-1, xh.shape[-1]), xl.reshape(-1, xl.shape[-1])
+        out = torch.mm(xh.to(f), wh.to(f))
+        out.addmm_(xl.to(f), wh.to(f))
+        if passes >= 3:
+            out.addmm_(xh.to(f), wl.to(f))
+        return out.reshape(*lead, out.shape[-1])
     out = torch.matmul(xh.to(f), wh.to(f))
     if passes >= 2:
         out = out + torch.matmul(xl.to(f), wh.to(f))

@@ -141,7 +141,8 @@ def _dot_flops(func, args, out):
     pkt = func.overloadpacket
     if pkt in (aten.mm, aten.bmm, aten.mv):
         return 2 * out.numel() * args[0].shape[-1]
-    if pkt in (aten.addmm, aten.baddbmm, aten.addmv):
+    if pkt in (aten.addmm, aten.baddbmm, aten.addmv, aten.addmm_,
+               aten.baddbmm_, aten.addmv_):
         return 2 * out.numel() * args[1].shape[-1]
     if pkt in (aten.dot, aten.vdot):
         return 2 * args[0].numel()
@@ -157,8 +158,9 @@ def step_cost(fn, *abstract_args, **kwargs) -> dict:
     Returns (for the whole step, or one chip's share of a placed one):
 
     - ``flops``: 2 x output elements x contracted extent of every product
-      (``mm``, ``bmm``, ``addmm``, ``baddbmm``, ``mv``, ``dot``,
-      ``convolution``; what ``matmul`` and ``einsum`` lower to), as the
+      (``mm``, ``bmm``, ``addmm``, ``baddbmm``, ``mv`` and their
+      in-place forms, ``dot``, ``convolution``; what ``matmul`` and
+      ``einsum`` lower to), as the
       reference's ``loop_aware_cost`` counts ``dot`` and ``convolution``;
     - ``bytes_stream``: the bytes each op reads and writes (its tensor
       inputs and outputs), views excluded: memory traffic with no fusion;

@@ -6,12 +6,10 @@ layout (``wq`` is ``(d, H * hd)``; stacked layers carry a leading
 """
 from __future__ import annotations
 
-import contextlib
-import contextvars
-
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.scope import fp64_sums, fp64_sums_on  # noqa: F401
 from repro_torch.distributed.sharding import logical_constraint, reduced
 from repro_torch.numerics import layer_scope, nmatmul
 
@@ -20,31 +18,6 @@ def bf16_round(t: torch.Tensor) -> torch.Tensor:
     """``t`` rounded to bf16 and cast back to fp32: operands for an fp32
     matmul whose products are exact, i.e. a bf16 dot accumulated in fp32."""
     return t.to(torch.bfloat16).to(torch.float32)
-
-
-_FP64_SUMS = contextvars.ContextVar("fp64_sums", default=False)
-
-
-@contextlib.contextmanager
-def fp64_sums(on: bool = True):
-    """The serving path's sums: while on, the reductions whose order the
-    library picks by shape (``rmsnorm``, the blockwise attention's scores,
-    softmax and PV sums, the MoE router) run in fp64 and round once, so a
-    row's result does not depend on how many rows share the call (see
-    :func:`einsum_f64`).  ``transformer.prefill`` and
-    ``transformer.decode_step`` (which also runs a chunked prefill) turn
-    it on; ``transformer.loss_fn`` turns it off, so training keeps the
-    reference's fp32 sums."""
-    token = _FP64_SUMS.set(bool(on))
-    try:
-        yield
-    finally:
-        _FP64_SUMS.reset(token)
-
-
-def fp64_sums_on() -> bool:
-    """Whether :func:`fp64_sums` is on here."""
-    return _FP64_SUMS.get()
 
 
 def einsum_f64(eq: str, *operands: torch.Tensor) -> torch.Tensor:

@@ -220,9 +220,9 @@ def test_policy_puts_two_experts_on_different_multipliers(monkeypatch, rng):
     seen = []
     real = dispatch.matmul
 
-    def spy(x, w, passes, backend="auto"):
+    def spy(x, w, passes, backend="auto", **kw):
         seen.append((current_path(), passes))
-        return real(x, w, passes, backend=backend)
+        return real(x, w, passes, backend=backend, **kw)
 
     monkeypatch.setattr(dispatch, "matmul", spy)
     seg = {k: NumericsConfig(mode="segmented", seg_passes=p)

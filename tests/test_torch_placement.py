@@ -35,6 +35,7 @@ sharding rules, against the JAX package's sharded steps.
   ranks DTensor runs an all-to-all where gloo gathers and chunks, which
   ``tests/test_torch_dryrun.py`` counts on its own.
 """
+import contextlib
 import dataclasses
 import json
 import multiprocessing
@@ -62,7 +63,11 @@ JAX_BOUND = {("qwen3-4b", "exact"): 1e-4,
              ("mamba2-130m", "segmented3"): 2.0 ** -8,
              ("deepseek-v3-671b", "segmented3"): 2.0 ** -8}
 # the placed step against the port's unplaced step: the same products,
-# partial sums of a sharded contraction added in another order
+# partial sums of a sharded contraction added in another order where
+# they sum in fp32 (a training step, K1's op route, the LM head).  A
+# serving step's nmatmul products on the plain route sum in fp64,
+# exactly (core.scope.product_sums), so its backbone is the unplaced
+# one's bit for bit and its logits differ by the head's fp32 sums alone
 PLACED_BOUND = 1e-4
 ULPS = 64
 # one chip's temp bytes of the placed count over JAX's memory_analysis()
@@ -343,6 +348,26 @@ def _rank_main(rank, store, ref_path, out_dir):
     mesh = make_test_mesh((2, 2), ("data", "model"), device="cpu")
     ref = np.load(ref_path)
     out, counts, rules_out = {}, {}, {}
+    real_logits_fn = transformer.logits_fn
+
+    @contextlib.contextmanager
+    def head_input(key):
+        # the LM head's input (the final norm's output, last position),
+        # gathered on leaving: outside a collective count it encloses
+        seen = []
+
+        def logits_fn(p, c, h):
+            seen.append(h.detach())
+            return real_logits_fn(p, c, h)
+
+        transformer.logits_fn = logits_fn
+        try:
+            yield
+        finally:
+            transformer.logits_fn = real_logits_fn
+        h, = seen
+        out[key] = (h.full_tensor() if isinstance(h, DTensor) else h
+                    ).float().numpy()
 
     def run(cfg, params, tokens, token, decode, tag):
         rules = rules_for(cfg, "serve")
@@ -353,7 +378,8 @@ def _rank_main(rank, store, ref_path, out_dir):
         with use_mesh_rules(mesh, rules):
             pp = place(params, pspecs, mesh, rules)
             bb = place(batch, specs.batch_axes_tree(batch), mesh, rules)
-            logits, state = pre(pp, bb)
+            with head_input(f"{tag}/prefill_hidden"):
+                logits, state = pre(pp, bb)
             assert isinstance(logits, DTensor)
             out[f"{tag}/prefill"] = logits.full_tensor().float().numpy()
             # the collectives of the dry-run's prefill cell (a cache of S)
@@ -363,7 +389,8 @@ def _rank_main(rank, store, ref_path, out_dir):
             if decode:
                 tok = place(torch.from_numpy(token), specs.BATCH_AXES["token"],
                             mesh, rules)
-                with count_collectives() as stats:
+                with head_input(f"{tag}/decode_hidden"), \
+                        count_collectives() as stats:
                     logits, _ = dec(pp, state, tok, S)
                 out[f"{tag}/decode"] = logits.full_tensor().float().numpy()
                 counts[f"{tag}/decode"] = dict(stats.by_kind)
@@ -384,11 +411,14 @@ def _rank_main(rank, store, ref_path, out_dir):
             tag = _tag(arch, mode)
             cfg = dataclasses.replace(base, numerics=_port_numerics(mode))
             pre = steps.make_prefill_step(cfg, max_len=MAX_LEN)
-            logits, state = pre(params, {"tokens": torch.from_numpy(tokens)})
+            with head_input(f"{tag}/unplaced_prefill_hidden"):
+                logits, state = pre(params,
+                                    {"tokens": torch.from_numpy(tokens)})
             out[f"{tag}/unplaced_prefill"] = logits.float().numpy()
             if decode:
-                logits, _ = steps.make_decode_step(cfg)(
-                    params, state, torch.from_numpy(token), S)
+                with head_input(f"{tag}/unplaced_decode_hidden"):
+                    logits, _ = steps.make_decode_step(cfg)(
+                        params, state, torch.from_numpy(token), S)
                 out[f"{tag}/unplaced_decode"] = logits.float().numpy()
             run(cfg, params, tokens, token, decode, f"placed/{tag}")
             if mode == "segmented3" and arch == "qwen3-4b":
@@ -650,6 +680,23 @@ def test_placed_logits_match_the_unplaced_step(ranks, arch, mode, phase):
 
 
 @pytest.mark.parametrize("arch,mode,phase", PHASES, ids=IDS)
+def test_placed_head_input_is_the_unplaced_one_bit_for_bit(ranks, arch, mode,
+                                                           phase):
+    """A serving step's products on the plain route sum in fp64 and round
+    once after a placed product's partial sums are reduced
+    (core.scope.product_sums): every product, norm and attention sum
+    before the LM head is then independent of how its contraction, rows
+    or columns are split over the ranks, and the head's input (the final
+    norm's output, which the head rounds to bf16) is the unplaced one's
+    bit for bit on every rank."""
+    tag = _tag(arch, mode)
+    want = ranks[0][0][f"{tag}/unplaced_{phase}_hidden"]
+    for r in ranks[0]:
+        np.testing.assert_array_equal(r[f"placed/{tag}/{phase}_hidden"],
+                                      want)
+
+
+@pytest.mark.parametrize("arch,mode,phase", PHASES, ids=IDS)
 def test_greedy_tokens_equal(ranks, jax_ref, arch, mode, phase):
     ref, _ = jax_ref
     tag = _tag(arch, mode)
@@ -831,8 +878,10 @@ def test_one_rank_placed_prefill_runs_k1_through_its_op():
 # ---------------------------------------------------------------------------
 # a tool, not a test: where a placed prefill's logits leave the unplaced
 # step's.  The LM head of a plain config rounds its input to bf16, so an
-# input element within the ranks' fp32 differences of a bf16 rounding
-# boundary rounds to the other neighbour placed and unplaced:
+# input element within the ranks' differences of a bf16 rounding boundary
+# rounds to the other neighbour placed and unplaced (with the serving
+# sums exact there are none: test_placed_head_input_is_the_unplaced_one_
+# bit_for_bit; the tool shows what a change that breaks it moves):
 #   python tests/test_torch_placement.py head-input ARCH MODE
 # (ARCH and MODE of CELLS; the JAX reference's weights, 4 gloo ranks)
 # ---------------------------------------------------------------------------
