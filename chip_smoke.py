@@ -169,15 +169,17 @@ run with a nonzero exit and no result line:
    (``chiprun_out/chip_smoke_giants.json`` for the three);
 17. train-grad: one full-width mamba2-130m training step (8 x 128 tokens,
    remat full) through the kernels and through the plain route on the
-   same params and batch: with fp32 activations under exact (K3) and
-   segmented3 (K1 and K3) every leaf's gradient within 2**-6 of the plain
-   route's largest (the plain K1 takes K1's own backward), and under
-   segmented3 also of PyTorch's autograd of the plain version, a
-   reference independent of that backward; with the config's bf16
-   activations under segmented3
-   finite gradients, the difference printed beside the plain route's own
-   spread when its K1 outputs move by one ulp (the early layers'
-   gradients are chaotic there at init); K1 and K3 launches a step (the
+   same params and batch: with fp32 activations under segmented3 (K1
+   and K3) every leaf's gradient within 2**-6 of the plain route's
+   largest (the plain K1 takes K1's own backward), and of PyTorch's
+   autograd of the plain version, a reference independent of that
+   backward; under exact, K3 alone (K1 on both routes) within 2**-6, and
+   K1 at one pass with K3 within 2**-6 on the model cut to its first 2
+   layers; under exact at 24 layers and with the config's bf16
+   activations under segmented3 finite gradients, the difference printed
+   beside the plain route's own spread when its K1 outputs move by one
+   ulp (the early layers' gradients are chaotic there at init: every
+   product rounds its operands to bf16); K1 and K3 launches a step (the
    remat recompute runs each forward twice; the exact tier and the LM
    head of each loss chunk run K1 too);
 18. train-qwen3: four full-width qwen3-4b steps (8 x 128 tokens) through
@@ -286,10 +288,7 @@ run with a nonzero exit and no result line:
 
 Then one JSON line on the kernels, the card's name and power limit, and
 the result line.  Per-shape kernel timings go to
-``chiprun_out/chip_smoke_kernels.json``.  ``python3 chip_smoke.py
---gates-of DIR`` runs the served phases' gates and [train-qwen3] on
-another checkout's ``src/`` under ``DIR`` instead (:func:`gates_of`),
-with no result line.
+``chiprun_out/chip_smoke_kernels.json``.
 """
 from __future__ import annotations
 
@@ -412,6 +411,9 @@ RESNET_BATCH = 256
 EMULATED_BATCH = 8
 # the training phases' batch: sequences of TRAIN_SEQ tokens
 TRAIN_SEQ, TRAIN_BATCH = 128, 8
+# [train-grad]: the depth at which the exact tier's step (K1 at one pass)
+# is held against its plain route: not chaotic there, as 24 layers are
+GRAD_CUT_LAYERS = 2
 GOLDEN = ROOT / "tests" / "golden" / "afpm_golden.json"
 BENCH_CPU = ROOT / "benchmarks" / "BENCH_cpu_ci.json"
 # the timed AFPM designs and the template arguments (ACL, FULL, COND, COMP,
@@ -1046,7 +1048,8 @@ def serve_probe(sess):
     decode row (:func:`decode_row_probe`), the chunked prefill
     (:func:`chunk_probe`) and the sites at M = 1 / 4 / 32 / 150: each
     tier's product at every projection of layer 0 (its config through
-    ``nmatmul``), the LM head, ``rmsnorm`` and the blockwise attention
+    ``nmatmul``; ``attn.wo`` and ``mlp.wo`` on inputs of their own K),
+    the LM head, ``rmsnorm`` and the blockwise attention
     (queries at positions 0 .. M-1 over the 150 keys, the later ones
     masked); and the exact tier against the parent's form (an fp32 SGEMM
     of bf16-rounded operands) within :data:`ULP_BOUND` ulps of the largest
@@ -1077,12 +1080,17 @@ def serve_probe(sess):
                  {"scale": p0["ln1"]["scale"][0]}, x[:m], cfg.norm_eps),
              "blockwise": lambda m: attention._blockwise(
                  q[:, :m], k, v)[0]}
+    xin = {cfg.d_model: x}
+    for w in layer0.values():
+        if w.shape[0] not in xin:
+            xin[w.shape[0]] = torch.randn((M, w.shape[0]), generator=gen,
+                                          device="cuda").to(torch.bfloat16)
     for t in DEFAULT_TIERS:
         ncfg = sess.replace(policy=t.policy).config.numerics
-        for name in ("attn.wq", "attn.wk", "attn.wv", "mlp.wi", "mlp.wg"):
-            def product(m, ncfg=ncfg, w=layer0[name]):
+        for name, w in layer0.items():
+            def product(m, ncfg=ncfg, w=w):
                 with numerics_scope(ncfg):
-                    return nmatmul(x[:m], w)
+                    return nmatmul(xin[w.shape[0]][:m], w)
             sites[f"{t.policy} {name}"] = product
     gaps, bad = site_probe("qwen3-4b", sites)
 
@@ -3438,9 +3446,11 @@ def phase_train_grad():
     rounds its operands to bf16, and K1 at one pass and the plain fp32
     SGEMM sum in other orders.  There the step is held to finite
     gradients, and the difference is printed beside the plain route's own
-    spread when its K1 outputs are nudged by one ulp; under exact with
-    fp32 activations K3's gradient is still held within 2**-6, with K1 on
-    both routes and the scan alone kernel or plain."""
+    spread when its K1 outputs are nudged by one ulp.  Under exact with
+    fp32 activations two gates hold within 2**-6 instead: K3's gradient,
+    with K1 on both routes and the scan alone kernel or plain; and K1 at
+    one pass, forward and gradient, on the model cut to its first
+    ``GRAD_CUT_LAYERS`` layers, where the step is not chaotic."""
     import dataclasses
 
     import torch
@@ -3549,6 +3559,33 @@ def phase_train_grad():
                     ref.afpm_matmul_ref = real
                 worst[f"plain one-ulp spread/{key}"] = max(
                     spread.items(), key=lambda kv: kv[1])
+    # K1 at one pass (the exact tier), forward and gradient, where the
+    # step is not chaotic: the first GRAD_CUT_LAYERS layers, K1 and K3 on
+    # the kernel route, neither on the plain route
+    cut = dataclasses.replace(cfg, dtype="float32", segments=(
+        (GRAD_CUT_LAYERS, cfg.segments[0][1]),))
+    cut_params = transformer.init(cut, seed=0, device="cuda")
+    cut_names = [n for n, _ in tree_util.named(cut_params)]
+    run = {b: _step_grads(cut_params, dataclasses.replace(
+        cut, numerics=NumericsConfig(backend=b)), batch)
+        for b in ("hopper", "torch")}
+    key = f"exact/float32, {GRAD_CUT_LAYERS} layers"
+    losses[key] = (run["hopper"][0], run["torch"][0])
+    counts[key] = run["hopper"][2]
+    want_cut = (4 * GRAD_CUT_LAYERS + 2 * chunks, 2 * GRAD_CUT_LAYERS)
+    if counts[key] != want_cut or run["torch"][2] != (0, 0):
+        raise AssertionError(
+            f"train-grad {key}: (K1, K3) launched {counts[key]} times a "
+            f"step (plain route {run['torch'][2]}), expected {want_cut}")
+    worst[key] = max(_leaf_errs(cut_names, run["hopper"][1],
+                                run["torch"][1]).items(),
+                     key=lambda kv: kv[1])
+    if worst[key][1] > LOGIT_BOUND:
+        raise AssertionError(
+            f"train-grad {key}: {worst[key][0]} kernel-route gradient "
+            f"{worst[key][1]:.3g} of the plain route's largest > "
+            f"{LOGIT_BOUND}")
+    del cut_params, run
     print(f"[train-grad] mamba2-130m full width, one training step of "
           f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens (remat full), kernel route "
           f"against plain route on the same params and batch: every one of "
@@ -3563,9 +3600,11 @@ def phase_train_grad():
           f"both routes, the scan alone kernel or plain: worst leaf "
           f"{worst['K3 alone/exact/float32'][0]} "
           f"{worst['K3 alone/exact/float32'][1]:.3g}"
-          + f" (bound {LOGIT_BOUND:.3g}; not held where every product "
-          f"operand is rounded to bf16, exact and bf16 activations, where "
-          f"the plain route's own gradients move by "
+          + f" (bound {LOGIT_BOUND:.3g}, held at segmented3/float32, for "
+          f"K3 alone and at {GRAD_CUT_LAYERS} layers under exact; not held "
+          f"at 24 layers where every product operand is rounded to bf16, "
+          f"exact and bf16 activations, where the plain route's own "
+          f"gradients move by "
           + ", ".join(f"{v[1]:.3g} ({k.split('/', 1)[1]}, worst leaf "
                       f"{v[0]})" for k, v in worst.items()
                       if k.startswith("plain one-ulp"))
@@ -4658,47 +4697,6 @@ def phase_dryrun(train):
         f"{a} {s} {tag}": rec for (a, s, tag), rec in recs.items()})
 
 
-def gates_of(tree: pathlib.Path) -> int:
-    """``--gates-of DIR``: the served phases' gates (every tier == its solo
-    generate, the batch-invariance probe, the launch counts) and
-    [train-qwen3] on the ``src/`` of another checkout of this repository
-    unpacked under ``DIR`` (``git archive`` of a commit), each phase's
-    failure printed and the next phase run; no result line.  A tree whose
-    serving path has no ``layers.fp64_sums`` (its prefill summed in fp32)
-    runs under a no-op in its place, its router taking the decode flag as
-    an argument."""
-    import torch
-
-    sys.path.insert(0, str(tree / "src"))
-    from repro_torch.models import layers, moe
-
-    if not hasattr(layers, "fp64_sums"):
-        layers.fp64_sums = lambda on=True: contextlib.nullcontext()
-        route = moe._route
-        moe._route = (lambda x, router, cfg, C, decoding=False:
-                      route(x, router, cfg, C, decoding))
-    phase_device()
-    peaks = card_peaks(torch.cuda.get_device_name(0))
-    failed = []
-    for name, fn in (("serve", phase_serve), ("mamba2", phase_mamba2),
-                     ("zamba2", phase_zamba2), ("gemma2", phase_gemma2),
-                     ("dense-zoo", phase_dense_zoo),
-                     ("qwen2-vl", phase_qwen2_vl), ("llama4", phase_llama4),
-                     ("deepseek", lambda: phase_deepseek(peaks)),
-                     ("train-qwen3", phase_train_qwen3)):
-        t0 = time.perf_counter()
-        try:
-            fn()
-        except Exception as e:   # noqa: BLE001 - every phase is reported
-            failed.append(name)
-            print(f"[gates-of] {name} FAILED: {e}", flush=True)
-        torch.cuda.empty_cache()
-        print(f"[gates-of] {name}: {time.perf_counter() - t0:.1f} s; "
-              f"{smi('name,power.limit')}", flush=True)
-    print(f"[gates-of] {tree}: {len(failed)} phases failed {failed}")
-    return 1 if failed else 0
-
-
 def main() -> int:
     import torch
 
@@ -4706,8 +4704,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    if sys.argv[1:2] == ["--gates-of"]:
-        return gates_of(pathlib.Path(sys.argv[2]).resolve())
     name = torch.cuda.get_device_name(0)
     peaks = card_peaks(name)
     phase_device()

@@ -28,7 +28,7 @@ Modes
     ``torch``   force the plain PyTorch version
 
     On the plain route both modes sum a serving step's products in fp64
-    (:func:`~repro_torch.core.scope.product_sums`), exactly, and round
+    (under :func:`~repro_torch.core.scope.fp64_sums`), exactly, and round
     once after a placed product's partial sums are reduced: a product's
     bits then depend neither on how many rows a call has nor on how its
     contraction or its output is split over ranks.  The kernel sums in
@@ -137,9 +137,9 @@ def nmatmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     over the sequence of a (B, S, N) product.  Where a placed product's
     operands are laid out, and whether it runs on each rank's rows, is
     :func:`~repro_torch.distributed.sharding.placed_product`'s choice.
-    The plain route sums in :func:`~repro_torch.core.scope.product_sums`'
-    dtype; an fp64 product is rounded to fp32 here, after its partial
-    sums are reduced.
+    A product the plain route summed in fp64 (a serving step's,
+    :func:`~repro_torch.kernels.dispatch.matmul`) is rounded to fp32
+    here, after its partial sums are reduced.
     """
     if _OPERAND_TAP is not None:
         # a scoped-policy ambient carries a prefix: the tap sees the
@@ -148,8 +148,7 @@ def nmatmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         _OPERAND_TAP(amb.full_path(rel) if hasattr(amb, "full_path") else rel,
                      x, w)
     cfg = _scope.resolve_here()
-    sums = _scope.product_sums()
-    out = placed_product(lambda a, b: _nmatmul(a, b, cfg, sums), x, w)
+    out = placed_product(lambda a, b: _nmatmul(a, b, cfg), x, w)
     # a row-parallel product's partial sums scatter over the sequence of
     # a (B, S, N) output, where the residual stream is sharded next
     out = reduced(out, 1 if out.dim() >= 3 else None)
@@ -157,20 +156,19 @@ def nmatmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.to(torch.float32) if out.dtype == torch.float64 else out
 
 
-def _nmatmul(x, w, cfg, sums=torch.float32):
+def _nmatmul(x, w, cfg):
     if cfg.mode == "exact":
         cdt = torch_dtype(cfg.compute_dtype)
         adt = torch_dtype(cfg.accum_dtype)
         if (cdt, adt) == (torch.bfloat16, torch.float32):
             from repro_torch.kernels import dispatch  # lazy, as below
 
-            return dispatch.matmul(x, w, 1, backend=cfg.backend, sums=sums)
+            return dispatch.matmul(x, w, 1, backend=cfg.backend)
         return torch.matmul(x.to(cdt).to(adt), w.to(cdt).to(adt))
     if cfg.mode == "segmented":
         from repro_torch.kernels import dispatch  # lazy: kernels import core
 
-        return dispatch.matmul(x, w, cfg.seg_passes, backend=cfg.backend,
-                               sums=sums)
+        return dispatch.matmul(x, w, cfg.seg_passes, backend=cfg.backend)
     if cfg.mode == "emulated":
         name = cfg.multiplier.lower()
         if name.startswith(("ac", "acl")) and not name.startswith("ac-"):

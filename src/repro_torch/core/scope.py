@@ -15,17 +15,13 @@ import contextlib
 import contextvars
 import threading
 
-import torch
-
 __all__ = [
     "current_numerics",
     "current_path",
     "fp64_sums",
     "fp64_sums_on",
-    "kernel_sums",
     "layer_scope",
     "numerics_scope",
-    "product_sums",
     "resolve_here",
     "restored",
     "snapshot",
@@ -86,11 +82,12 @@ _FP64_SUMS = contextvars.ContextVar("fp64_sums", default=False)
 def fp64_sums(on: bool = True):
     """The serving path's sums: while on, the reductions whose order the
     library picks by shape or by placement (``rmsnorm``, the blockwise
-    attention's scores, softmax and PV sums, the MoE router, and
-    ``nmatmul``'s products on the plain route) run in fp64 and round
-    once, so a row's result does not depend on how many rows share the
-    call, nor a placed product's on how many ranks share its contraction
-    (see :func:`repro_torch.models.layers.einsum_f64`).
+    attention's scores, softmax and PV sums, the MoE router, and the
+    segmented matmul's plain route, :func:`repro_torch.kernels.dispatch.
+    matmul`) run in fp64 and round once, so a row's result does not
+    depend on how many rows share the call, nor a placed product's on how
+    many ranks share its contraction (see
+    :func:`repro_torch.models.layers.einsum_f64`).
     ``transformer.prefill`` and ``transformer.decode_step`` (which also
     runs a chunked prefill) turn it on; ``transformer.loss_fn`` turns it
     off, so training keeps the reference's fp32 sums."""
@@ -104,30 +101,6 @@ def fp64_sums(on: bool = True):
 def fp64_sums_on() -> bool:
     """Whether :func:`fp64_sums` is on here."""
     return _FP64_SUMS.get()
-
-
-_KERNEL_SUMS = contextvars.ContextVar("kernel_sums", default=False)
-
-
-@contextlib.contextmanager
-def kernel_sums():
-    """The plain route's products summed in fp32, as the Hopper kernel
-    sums them, whatever :func:`fp64_sums` says: where the plain versions
-    stand in for the kernels (``launch.dryrun``'s count of a card's
-    step)."""
-    token = _KERNEL_SUMS.set(True)
-    try:
-        yield
-    finally:
-        _KERNEL_SUMS.reset(token)
-
-
-def product_sums():
-    """The dtype ``nmatmul``'s plain-route products sum in here: fp64
-    under :func:`fp64_sums` (outside :func:`kernel_sums`), else fp32."""
-    if _FP64_SUMS.get() and not _KERNEL_SUMS.get():
-        return torch.float64
-    return torch.float32
 
 
 def current_numerics():

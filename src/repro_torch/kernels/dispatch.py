@@ -37,6 +37,8 @@ import torch
 
 from repro_torch.core.afpm import AFPMConfig, afpm_matmul_emulated
 from repro_torch.core.numerics import BACKENDS
+from repro_torch.core.scope import fp64_sums_on
+from repro_torch.distributed.sharding import current_mesh_rules
 
 from . import autograd, autotune, custom_ops, ref
 from .autotune import shape_bucket
@@ -77,18 +79,36 @@ def scan_chunk(backend: str, L: int, device=None) -> int:
     return tuned if tuned is not None else SCAN_CHUNKS[(backend, bucket)]
 
 
+def _plain_sums(x: torch.Tensor) -> torch.dtype:
+    """The dtype the segmented matmul's plain version sums in: fp64 under
+    :func:`~repro_torch.core.scope.fp64_sums` (a serving step), where every
+    segment product and its sum are exact, so that a product's bits depend
+    neither on how many rows a call has nor on how its contraction or its
+    output is split over ranks; else fp32.  Meta blocks over CUDA ranks
+    (the dry-run's count of a card's placed step) stand in for the
+    kernel's fp32 sums; an unplaced count has no ranks to say which device
+    it stands for and sums as the CPU does."""
+    if not fp64_sums_on():
+        return torch.float32
+    state = current_mesh_rules()
+    dmesh = getattr(state[0], "device_mesh", None) if state else None
+    if x.is_meta and dmesh is not None and dmesh.device_type == "cuda":
+        return torch.float32
+    return torch.float64
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor, passes: int = 3, *,
-           backend: str = "auto", tile=None,
-           sums: torch.dtype = torch.float32) -> torch.Tensor:
+           backend: str = "auto", tile=None) -> torch.Tensor:
     """Segmented approximate matmul ``x (..., K) @ w (K, N)`` -> fp32.
 
     Validation and 1-D promotion happen here, before the backend branch,
     so every backend accepts the same inputs; leading batch dims of ``x``
     are kept (the kernel flattens them into its rows).  ``tile`` is the
     kernel's (:func:`.afpm_matmul.plan`); the plain version takes none.
-    ``sums`` is the plain version's: fp64 sums its products exactly and
-    returns them in fp64 for the caller to round once (after a placed
-    product's partial sums are reduced); the kernel sums in fp32."""
+    The plain version sums as :func:`_plain_sums` says: a serving step's
+    products in fp64, returned in fp64 for the caller to round once,
+    after a placed product's partial sums are reduced.  The kernel sums
+    in fp32."""
     backend = resolve_backend(backend, x)
     if x.dim() < 1 or w.dim() != 2:
         raise ValueError(f"need x (..., K) @ w (K, N); got "
@@ -102,9 +122,10 @@ def matmul(x: torch.Tensor, w: torch.Tensor, passes: int = 3, *,
     if backend == "torch" and passes == 1:
         # one product: PyTorch's autograd of it runs jax.grad's two, and a
         # checkpointed block's recompute may stop before it
-        out = ref.afpm_matmul_ref(x, w, 1, sums)
+        out = ref.afpm_matmul_ref(x, w, 1, _plain_sums(x))
     elif backend == "torch":
-        out = autograd.PlainSegmentedMatmul.apply(x, w, passes, sums)
+        out = autograd.PlainSegmentedMatmul.apply(x, w, passes,
+                                                  _plain_sums(x))
     else:
         out = custom_ops.segmented_matmul(x.contiguous(), w.contiguous(),
                                         passes, tile)

@@ -48,7 +48,6 @@ port; ``--device cpu`` on a host without a card):
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import os
@@ -59,7 +58,6 @@ import traceback
 import torch
 
 from repro_torch.configs import list_archs
-from repro_torch.core.scope import kernel_sums
 from repro_torch.distributed.sharding import (local_bytes, place, rules_for,
                                               use_mesh_rules)
 from repro_torch.launch import hlo_analysis, specs, steps
@@ -68,7 +66,7 @@ from repro_torch.launch.mesh import Mesh, fake_mesh, make_production_mesh
 ARTIFACT_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
                 / "repro_torch" / "dryrun")
 
-_COUNTS: dict = {}   # (config, shape, device type, mesh or None) -> cost
+_COUNTS: dict = {}   # (config, shape, mesh or None) -> the step's cost
 
 
 def _cell(cfg, shape):
@@ -199,9 +197,8 @@ def lower_session_cell(session, shape, multi_pod: bool = False, *,
     overrides the production mesh (e.g. ``Mesh((1, 1), ("data",
     "model"))`` for one card).  The step runs the plain versions of the
     kernels (meta tensors reach no kernel): the same products, summed as
-    the session's route sums them (a card's in fp32, as its kernels do; a
-    CPU session's serving products in fp64,
-    :func:`~repro_torch.core.scope.product_sums`).  On a mesh
+    :func:`~repro_torch.kernels.dispatch._plain_sums` says (over CUDA
+    ranks in fp32, as K1 sums).  On a mesh
     of more than one chip it runs placed, over fake ranks of the
     session's device type: a card's session counts what NCCL ranks run,
     a CPU session what gloo ranks run (DTensor gathers and chunks there
@@ -226,15 +223,10 @@ def lower_session_cell(session, shape, multi_pod: bool = False, *,
     kind, fn, args, arg_specs, out_specs = _cell(count_cfg, shape)
     rules = rules_for(cfg, "train" if kind == "train" else "serve")
     arg_specs = _with_token_spec(kind, args, arg_specs, mesh)
-    key = (repr(count_cfg), repr(specs.shape_of(shape)), device_type,
-           mesh.tag if placed else None)
+    key = (repr(count_cfg), repr(specs.shape_of(shape)),
+           (mesh.tag, device_type) if placed else None)
     if key not in _COUNTS:
-        # a card's products sum in fp32 (K1), where the CPU's plain route
-        # sums a serving step's in fp64
-        with (kernel_sums() if device_type == "cuda"
-              else contextlib.nullcontext()):
-            cost = _count(fn, args, arg_specs, mesh, rules, placed,
-                          device_type)
+        cost = _count(fn, args, arg_specs, mesh, rules, placed, device_type)
         result = cost.pop("result")
         outs, ospecs, (aliased, aspecs) = out_specs(result)
         cost["outputs"] = (outs, ospecs, aliased, aspecs)

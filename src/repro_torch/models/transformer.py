@@ -596,8 +596,10 @@ def _train_block(p, x, cfg, spec, positions, enc=None):
     return _block_apply(p, x, cfg, spec, positions, train=True, enc=enc)[0]
 
 
+@fp64_sums(False)
 def _plain_head(params, cfg, hidden):
-    """A plain config's head: a bf16 dot with fp32 sums, outside nmatmul as
+    """A plain config's head: a bf16 dot with fp32 sums (in a serving step
+    too, on either route: K1's sums), outside nmatmul as
     in the reference, which is the segmented matmul at one pass
     (:func:`repro_torch.kernels.dispatch.matmul`, the Hopper kernel on the
     card: a row's logits do not depend on how many rows the call has).

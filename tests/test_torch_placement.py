@@ -65,9 +65,10 @@ JAX_BOUND = {("qwen3-4b", "exact"): 1e-4,
 # the placed step against the port's unplaced step: the same products,
 # partial sums of a sharded contraction added in another order where
 # they sum in fp32 (a training step, K1's op route, the LM head).  A
-# serving step's nmatmul products on the plain route sum in fp64,
-# exactly (core.scope.product_sums), so its backbone is the unplaced
-# one's bit for bit and its logits differ by the head's fp32 sums alone
+# serving step's products on the plain route sum in fp64, exactly
+# (core.scope.fp64_sums, kernels.dispatch.matmul), so its backbone is the
+# unplaced one's bit for bit, and its logits differ by where the head's
+# partial sums are rounded
 PLACED_BOUND = 1e-4
 ULPS = 64
 # one chip's temp bytes of the placed count over JAX's memory_analysis()
@@ -684,7 +685,8 @@ def test_placed_head_input_is_the_unplaced_one_bit_for_bit(ranks, arch, mode,
                                                            phase):
     """A serving step's products on the plain route sum in fp64 and round
     once after a placed product's partial sums are reduced
-    (core.scope.product_sums): every product, norm and attention sum
+    (core.scope.fp64_sums, kernels.dispatch.matmul): every product, norm
+    and attention sum
     before the LM head is then independent of how its contraction, rows
     or columns are split over the ranks, and the head's input (the final
     norm's output, which the head rounds to bf16) is the unplaced one's
@@ -875,96 +877,5 @@ def test_one_rank_placed_prefill_runs_k1_through_its_op():
         dist.destroy_process_group()
 
 
-# ---------------------------------------------------------------------------
-# a tool, not a test: where a placed prefill's logits leave the unplaced
-# step's.  The LM head of a plain config rounds its input to bf16, so an
-# input element within the ranks' differences of a bf16 rounding boundary
-# rounds to the other neighbour placed and unplaced (with the serving
-# sums exact there are none: test_placed_head_input_is_the_unplaced_one_
-# bit_for_bit; the tool shows what a change that breaks it moves):
-#   python tests/test_torch_placement.py head-input ARCH MODE
-# (ARCH and MODE of CELLS; the JAX reference's weights, 4 gloo ranks)
-# ---------------------------------------------------------------------------
-
-def _head_input_main(rank, store, ref_path, arch, mode):
-    import torch
-
-    torch.set_num_threads(1)
-    import torch.distributed as dist
-    from torch.distributed.tensor import DTensor
-
-    from repro_torch import tree as tree_util
-    from repro_torch.compat import params_from_numpy
-    from repro_torch.configs import get_arch
-    from repro_torch.distributed.sharding import (place, rules_for,
-                                                  use_mesh_rules)
-    from repro_torch.launch import specs, steps
-    from repro_torch.launch.mesh import init_ranks, make_test_mesh
-    from repro_torch.models import transformer
-
-    init_ranks("cpu", rank, WORLD, f"file://{store}")
-    mesh = make_test_mesh((2, 2), ("data", "model"), device="cpu")
-    base = get_arch(arch).reduced()
-    ref = np.load(ref_path)
-    prefix = f"param/{arch}/"
-    params = tree_util.map(
-        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t,
-        params_from_numpy(_unflatten({k[len(prefix):]: ref[k] for k in
-                                      ref.files if k.startswith(prefix)}),
-                          base, "cpu"))
-    cfg = dataclasses.replace(base, numerics=_port_numerics(mode))
-    batch = {"tokens": torch.from_numpy(_tokens(base.vocab)[0])}
-    inputs = []
-    real = transformer.logits_fn
-
-    def logits_fn(p, c, h):
-        inputs.append(h.full_tensor() if isinstance(h, DTensor) else h)
-        return real(p, c, h)
-
-    transformer.logits_fn = logits_fn
-    pre = steps.make_prefill_step(cfg, max_len=MAX_LEN)
-    want, _ = pre(params, batch)
-    rules = rules_for(cfg, "serve")
-    with use_mesh_rules(mesh, rules):
-        got, _ = pre(place(params, transformer.unflatten(
-            transformer.param_specs(cfg)), mesh, rules),
-            place(batch, specs.batch_axes_tree(batch), mesh, rules))
-        got = got.full_tensor()
-    if rank == 0:
-        u, q = (t.float() for t in inputs)
-        flips = u.to(torch.bfloat16) != q.to(torch.bfloat16)
-        print(f"{arch}/{mode} prefill: logits "
-              f"{_rel(got.float().numpy(), want.float().numpy()):.3g} of "
-              f"the largest apart; the head's input "
-              f"{_rel(q.numpy(), u.numpy()):.3g}, {int(flips.sum())} of "
-              f"{u.numel()} elements rounding to other bf16 values")
-        for a, b in zip(u[flips].tolist(), q[flips].tolist()):
-            print(f"  unplaced {a!r} placed {b!r}")
-    dist.destroy_process_group()
-
-
-def _head_input(arch, mode):
-    import tempfile
-
-    tmp = pathlib.Path(tempfile.mkdtemp())
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               PYTHONPATH=os.pathsep.join(
-                   [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
-    subprocess.run([sys.executable, __file__, str(tmp / "ref.npz")],
-                   env=env, check=True, capture_output=True)
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_head_input_main, args=(
-        r, str(tmp / "store"), str(tmp / "ref.npz"), arch, mode))
-        for r in range(WORLD)]
-    for p in procs:
-        p.start()
-    for p in procs:
-        p.join()
-
-
 if __name__ == "__main__":
-    if sys.argv[1] == "head-input":
-        _head_input(*sys.argv[2:4])
-    else:
-        _jax_reference(sys.argv[1])
+    _jax_reference(sys.argv[1])
