@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twenty-six phases, each printing a line or a few; any failed check ends the
+Twenty-nine phases, each printing a line or a few; any failed check ends the
 run with a nonzero exit and no result line:
 
 1. device: the card, its power limit, torch and the kernels' build time
@@ -284,7 +284,32 @@ run with a nonzero exit and no result line:
    the host ms of each placed step beside the unplaced one, DTensor's
    host microseconds an ATen op of a decode step, and K1's host
    microseconds a call on plain tensors through its wrapper (the route of
-   an unplaced step) and through its op.
+   an unplaced step) and through its op;
+27. train-zamba2 (right after phase 19): full-width zamba2-7b cut to 7 of
+   its 13 (5 SSD + shared attention) repeats and its 3-block SSD tail (45
+   layers, 3.40 B params) seeded on the card and trained 4 steps of 8 x
+   128 tokens as ``launch.train.train`` trains an arch (its optimizer,
+   AdamW with fp32 moments here, ``steps.make_train_step``, remat full,
+   the config's loss pieces): finite losses, every leaf moved, K1 and K3
+   launches a step equal to the count reckoned from the parameter shapes
+   (K3 at H 112, N 64); ms a step, tokens/s, peak memory beside the bytes
+   of params, gradients and optimizer state; then the gradient gate on one
+   SSD block and the shared block with fp32 activations: the kernel
+   route's gradients against the plain route's on the same params and
+   batch, every leaf within 2**-6 of the plain route's largest, under
+   segmented3 and under exact;
+28. train-llama4: full-width llama4-maverick cut to one (moe, dense)
+   repeat and 8 of its 128 experts (3.58 B params; Adafactor, 8
+   micro-batches, one K1 launch an expert projection) trained and gated
+   as phase 27 (the gate on the same two layers; both routes route every
+   token to the same expert, else the gate names the token and its router
+   margin; top-1's router gradient, rounding noise on both routes, held
+   to 1e-6 of the largest leaf's);
+29. train-deepseek: full-width deepseek-v3 cut to one dense-MLA and one
+   MoE-MLA layer with 16 of its 256 experts (3.37 B params, capacity 80
+   an expert a row) trained and gated as phase 28; then the reduced
+   config trained 20 steps with a checkpoint every 10, and a second run
+   restored from the step-10 checkpoint alone ends on the same bits.
 
 Then one JSON line on the kernels, the card's name and power limit, and
 the result line.  Per-shape kernel timings go to
@@ -414,6 +439,19 @@ TRAIN_SEQ, TRAIN_BATCH = 128, 8
 # [train-grad]: the depth at which the exact tier's step (K1 at one pass)
 # is held against its plain route: not chaotic there, as 24 layers are
 GRAD_CUT_LAYERS = 2
+# the family training phases: the cut depths and expert counts that fit
+# params, gradients and the optimizer's state in 80 GB at full width
+# (zamba2-7b 7 of 13 (5 SSD + shared) repeats and its 3-block SSD tail;
+# llama4 one (moe, dense) repeat, 8 of 128 experts; deepseek-v3 one
+# dense-MLA and one MoE-MLA layer, 16 of 256 experts), and their steps
+ZAMBA2_TRAIN_REPEATS, LLAMA4_TRAIN_EXPERTS, DSV3_TRAIN_EXPERTS = 7, 8, 16
+FAMILY_STEPS = 4
+# a leaf's gradient that is at most this much of the largest leaf's on
+# the plain route is rounding noise (top-1's router: its one gate is
+# renormalised to 1, so the router gets no gradient but for rounding):
+# held to the same floor on the kernel route, not to LOGIT_BOUND of
+# itself (tests/test_torch_moe.py holds it so against the JAX package)
+NOISE_FLOOR = 1e-6
 GOLDEN = ROOT / "tests" / "golden" / "afpm_golden.json"
 BENCH_CPU = ROOT / "benchmarks" / "BENCH_cpu_ci.json"
 # the timed AFPM designs and the template arguments (ACL, FULL, COND, COMP,
@@ -2576,7 +2614,7 @@ def phase_dense_zoo():
 def giant_shapes_of(cfg):
     """(K, N) of every projection's K1 call of one forward, in call order,
     from the model's own parameter shapes (an MoE layer's experts each
-    once a projection)."""
+    once a projection, an SSD block's in_proj and out_proj)."""
     from repro_torch.models import transformer
 
     shapes = transformer.param_shapes(cfg)
@@ -2585,6 +2623,10 @@ def giant_shapes_of(cfg):
         for _ in range(repeats):
             for pi, spec in enumerate(pattern):
                 pre = f"seg{si}_p{pi}"
+                if spec.kind == "ssm":
+                    out += [tuple(shapes[f"{pre}.ssm.{n}"][0][-2:])
+                            for n in ("in_proj", "out_proj")]
+                    continue
                 sites = (("wq_a", "wq_b", "wkv_a", "wo") if spec.attn == "mla"
                          else ("wq", "wk", "wv", "wo"))
                 out += [tuple(shapes[f"{pre}.attn.{n}"][0][-2:]) for n in sites]
@@ -3416,7 +3458,7 @@ def _step_grads(params, cfg, batch):
     return out
 
 
-def _leaf_errs(names, got, want):
+def _leaf_errs(names, got, want, tag: str = "train-grad"):
     """Each leaf's largest difference in units of ``want``'s largest;
     raises on a missing or non-finite gradient."""
     import torch
@@ -3425,8 +3467,7 @@ def _leaf_errs(names, got, want):
     for name, a, b in zip(names, got, want):
         if a is None or not (torch.isfinite(a).all()
                              and torch.isfinite(b).all()):
-            raise AssertionError(f"train-grad: {name} has no finite "
-                                 f"gradient")
+            raise AssertionError(f"{tag}: {name} has no finite gradient")
         errs[name] = rel_err(a, b) if b.abs().max() > 0 \
             else a.abs().max().item()
     return errs
@@ -3842,6 +3883,417 @@ def phase_train_mamba2():
           f"run's bit for bit after step 20, losses equal; step "
           f"{n_steps - 1} under torch.profiler " + _profile_text(profile_out))
     return dict(k3=launches[1], ms=ms, losses=losses, profile=profile_out)
+
+
+def train_launches(cfg, rows: int):
+    """(K1, K3) launches of one training step of ``cfg`` on ``rows`` rows
+    through the kernels, reckoned from the parameter shapes: each of
+    ``cfg.grad_accum`` micro-batches runs every projection of
+    :func:`giant_shapes_of` and the LM head once for each of its loss
+    pieces, twice under remat full (the forward and the backward's
+    recompute; the backwards are plain), and every SSD block's scan
+    twice."""
+    assert cfg.remat == "full"
+    accum = max(1, cfg.grad_accum)
+    micro = rows // accum
+    pieces = (cfg.loss_batch_chunks
+              if micro % cfg.loss_batch_chunks == 0 else 1)
+    scans = sum(r * sum(s.kind == "ssm" for s in p) for r, p in cfg.segments)
+    return (accum * 2 * (len(giant_shapes_of(cfg)) + pieces),
+            accum * 2 * scans)
+
+
+def _leaf_sums(params) -> list:
+    """Each leaf's fp64 sum: whether a step moved it."""
+    import torch
+
+    from repro_torch import tree as tree_util
+
+    with torch.no_grad():
+        return [float(t.sum(dtype=torch.float64))
+                for t in tree_util.leaves(params)]
+
+
+def train_cut(tag: str, cfg, n_steps: int = FAMILY_STEPS):
+    """``cfg`` (full width, cut depth) seeded on the card and trained
+    ``n_steps`` steps of TRAIN_BATCH x TRAIN_SEQ tokens as
+    ``launch.train.train`` trains an arch: the config's optimizer
+    (``steps.make_optimizer``: AdamW with fp32 moments, or Adafactor),
+    the reference's schedule, ``steps.make_train_step`` (the config's
+    micro-batches, remat and loss pieces), the synthetic token stream.
+    Gates: finite losses, every leaf moved, and the K1 and K3 launches of
+    every step equal to :func:`train_launches`.  Returns the readings."""
+    import math
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tree as tree_util
+    from repro_torch.data.synthetic import DataConfig, lm_batch
+    from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.kernels import ssd_scan as k3
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import transformer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    params = transformer.init(cfg, 0, "cuda")
+    opt_cfg, opt_init, opt_apply = steps_mod.make_optimizer(
+        cfg, lr=3e-4, total_steps=n_steps, warmup_steps=max(2, n_steps // 10))
+    opt = opt_init(params, opt_cfg)
+    train_step = steps_mod.make_train_step(cfg, opt_cfg, opt_apply)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=0)
+    before = _leaf_sums(params)
+    want = train_launches(cfg, TRAIN_BATCH)
+    losses, step_s, launches = [], [], []
+    # the last step under torch.profiler: device time by kernel group
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    for step in range(n_steps):
+        b = {k: torch.from_numpy(v).to("cuda")
+             for k, v in lm_batch(dcfg, step).items()}
+        torch.cuda.synchronize()
+        k1.afpm_matmul.launches = k3.ssd_scan.launches = 0
+        with (prof if step == n_steps - 1 else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            params, opt, metrics = train_step(params, opt, b)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        launches.append((k1.afpm_matmul.launches, k3.ssd_scan.launches))
+    profile_out = _device_groups(prof, 1e3 * step_s[-1])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved = sum(a != b for a, b in zip(before, _leaf_sums(params)))
+    leaf_bytes = sum(t.numel() * t.element_size()
+                     for t in tree_util.leaves(params))
+    opt_bytes = sum(t.numel() * t.element_size()
+                    for t in tree_util.leaves(opt)
+                    if isinstance(t, torch.Tensor))
+    n_params = sum(t.numel() for t in tree_util.leaves(params))
+    del params, opt, b, metrics
+    torch.cuda.empty_cache()
+    fails = []
+    if not all(math.isfinite(l) for l in losses):
+        fails.append(f"{tag}: losses {losses} not finite")
+    if moved != len(before):
+        fails.append(f"{tag}: {moved} of {len(before)} leaves moved")
+    if any(n != want for n in launches):
+        fails.append(f"{tag}: (K1, K3) launched {launches} a step, "
+                     f"expected {want}")
+    ms = 1e3 * statistics.median(step_s[1:n_steps - 1])
+    return dict(losses=losses, step_ms=[1e3 * s for s in step_s], ms=ms,
+                tokens_s=TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+                peak_gb=peak_gb, held_gb=held_gb, params=n_params,
+                params_gb=leaf_bytes / 1e9, grads_gb=leaf_bytes / 1e9,
+                opt_gb=opt_bytes / 1e9,
+                optimizer=type(opt_cfg).__name__.removesuffix("Config"),
+                k1=launches[0][0], k3=launches[0][1], want=want,
+                moved=moved, leaves=len(before), fails=fails,
+                profile=profile_out)
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Every MoE routing decision made while open: ``(probs, eidx)`` of
+    each ``moe.route`` call, in call order."""
+    from repro_torch.models import moe
+
+    real, calls = moe.route, []
+
+    def record(probs, top_k):
+        gate, eidx = real(probs, top_k)
+        calls.append((probs.detach(), eidx))
+        return gate, eidx
+
+    moe.route = record
+    try:
+        yield calls
+    finally:
+        moe.route = real
+
+
+def route_mismatch(tag: str, got: list, want: list, top_k: int):
+    """None when both routes chose the same experts, in the same order,
+    for every token of every routing call; else a line naming the first
+    token that differs and its router margin (the gap between the kernel
+    route's probabilities ranked k and k + 1 there, the smallest of the
+    first ``top_k``).  Also returns the smallest such margin over all
+    tokens: how near a tie the routing came."""
+    import torch
+
+    if len(got) != len(want):
+        return (f"{tag}: {len(got)} routing calls on the kernel route, "
+                f"{len(want)} on the plain route"), None
+    margin = None
+    for i, ((pa, ea), (_, eb)) in enumerate(zip(got, want)):
+        top = torch.sort(pa, dim=-1, descending=True).values[..., :top_k + 1]
+        gaps = (top[..., :-1] - top[..., 1:]).amin(-1)
+        m = float(gaps.min())
+        margin = m if margin is None else min(margin, m)
+        bad = (ea != eb).any(-1).nonzero()
+        if len(bad):
+            row, pos = (int(v) for v in bad[0])
+            return (f"{tag}: routing call {i} (the forward's and the "
+                    f"recompute's, layer by layer) sends token (row {row}, "
+                    f"position {pos}) to experts {ea[row, pos].tolist()} "
+                    f"on the kernel route and {eb[row, pos].tolist()} on "
+                    f"the plain route; its router margin "
+                    f"{float(gaps[row, pos]):.3g}"), margin
+    return None, margin
+
+
+def family_grad_gate(tag: str, cut):
+    """The kernel route's gradients against the plain route's on ``cut``
+    (``GRAD_CUT_LAYERS`` layers at full width, fp32 activations), on the
+    same params and batch, under segmented3 and under exact: the same
+    routing on both routes (else the gate names the token that moved),
+    then every leaf within LOGIT_BOUND of the plain route's largest.
+    K1 and K3 launch as :func:`train_launches` reckons on the kernel
+    route and never on the plain route.  Returns (readings, fails)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.kernels import ssd_scan as k3
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.numerics import NumericsConfig
+
+    assert cut.n_layers == GRAD_CUT_LAYERS and cut.dtype == "float32"
+    params = transformer.init(cut, seed=0, device="cuda")
+    batch = train_batch(cut, 0, TRAIN_SEQ, TRAIN_BATCH)
+    names = [n for n, _ in tree_util.named(params)]
+    want_k = train_launches(dataclasses.replace(cut, grad_accum=1),
+                            TRAIN_BATCH)
+    out, fails = {}, []
+    for mode, kw in (("segmented3", dict(mode="segmented", seg_passes=3)),
+                     ("exact", {})):
+        run = {}
+        for backend in ("hopper", "torch"):
+            c = dataclasses.replace(cut, numerics=NumericsConfig(
+                backend=backend, **kw))
+            k1.afpm_matmul.launches = k3.ssd_scan.launches = 0
+            with recorded_routes() as routes:
+                loss, g = steps.grads_of(transformer.loss_fn, params, c, batch)
+                torch.cuda.synchronize()
+            run[backend] = dict(loss=float(loss), routes=routes,
+                                k=(k1.afpm_matmul.launches,
+                                   k3.ssd_scan.launches))
+            if backend == "hopper":
+                run[backend]["g"] = [t.clone() for t in tree_util.leaves(g)]
+            else:
+                got, want = run["hopper"].pop("g"), tree_util.leaves(g)
+                errs = _leaf_errs(names, got, want, tag)
+                # a leaf whose gradient is rounding noise on the plain
+                # route (top-1's router: its one gate renormalised to 1)
+                # is held to that noise on both, as tests/test_torch_moe.py
+                # holds it
+                largest = max(float(t.abs().max()) for t in want)
+                floor = NOISE_FLOOR * largest
+                noise = {n: max(float(a.abs().max()), float(b.abs().max()))
+                         for n, a, b in zip(names, got, want)
+                         if float(b.abs().max()) <= floor}
+                del got
+            steps.clear_grads(params)
+        r = dict(loss=run["hopper"]["loss"], plain_loss=run["torch"]["loss"],
+                 k1=run["hopper"]["k"][0], k3=run["hopper"]["k"][1])
+        if run["hopper"]["k"] != want_k or run["torch"]["k"] != (0, 0):
+            fails.append(f"{tag} gradient gate {mode}: (K1, K3) launched "
+                         f"{run['hopper']['k']} (plain route "
+                         f"{run['torch']['k']}), expected {want_k}")
+        if cut.moe is not None:
+            bad, r["router_margin"] = route_mismatch(
+                f"{tag} {mode}", run["hopper"]["routes"],
+                run["torch"]["routes"], cut.moe.top_k)
+            r["routing_calls"] = len(run["hopper"]["routes"])
+            if bad:
+                # gradients of two routings are not compared
+                fails.append(bad)
+                out[mode] = r
+                continue
+        r["noise"] = {n: v / largest for n, v in noise.items()}
+        for n, v in noise.items():
+            if v > floor:
+                fails.append(f"{tag} gradient gate {mode}: {n}'s gradient "
+                             f"{v:.3g} is noise on the plain route (at most "
+                             f"{NOISE_FLOOR:g} of the largest leaf's) but "
+                             f"not on the kernel route")
+        r["worst"] = list(max(((n, e) for n, e in errs.items()
+                               if n not in noise), key=lambda kv: kv[1]))
+        if r["worst"][1] > LOGIT_BOUND:
+            fails.append(f"{tag} gradient gate {mode}: {r['worst'][0]} "
+                         f"kernel-route gradient {r['worst'][1]:.3g} of the "
+                         f"plain route's largest > {LOGIT_BOUND}")
+        out[mode] = r
+    del params
+    torch.cuda.empty_cache()
+    return out, fails
+
+
+def family_text(tag: str, cfg, tr: dict, gate: dict, extra: str = "") -> str:
+    gates = "; ".join(
+        f"{mode}: loss {v['loss']:.6f} (plain {v['plain_loss']:.6f}), K1 "
+        f"{v['k1']} / K3 {v['k3']} a step"
+        + (f", {v['routing_calls']} routing calls equal on both routes "
+           f"(smallest router margin {v['router_margin']:.3g})"
+           if 'routing_calls' in v else "")
+        + (f", worst leaf {v['worst'][0]} {v['worst'][1]:.3g}"
+           if 'worst' in v else "")
+        + "".join(f", {n} noise on both routes ({e:.3g} of the largest "
+                  f"leaf's, held to {NOISE_FLOOR:g})"
+                  for n, e in v.get("noise", {}).items())
+        for mode, v in gate.items())
+    return (f"[{tag}] {cfg.n_layers} layers at full width "
+            f"({tr['params'] / 1e9:.3f} B params), {len(tr['losses'])} steps "
+            f"of {TRAIN_BATCH} x {TRAIN_SEQ} tokens ({cfg.grad_accum} "
+            f"micro-batches, remat {cfg.remat}, {tr['optimizer']}): losses "
+            + ", ".join(f"{l:.4f}" for l in tr["losses"])
+            + f"; {tr['moved']} of {tr['leaves']} leaves moved; "
+            f"{tr['ms']:.1f} ms a step (median of steps 1-"
+            f"{len(tr['losses']) - 2}, host clock around a synced step; "
+            + ", ".join(f"{s:.1f}" for s in tr["step_ms"])
+            + f"), {tr['tokens_s']:.0f} tokens/s; peak {tr['peak_gb']:.2f} "
+            f"GB beside params {tr['params_gb']:.2f} + gradients "
+            f"{tr['grads_gb']:.2f} + optimizer state {tr['opt_gb']:.2f} GB "
+            f"(held before {tr['held_gb']:.2f}); K1 {tr['k1']} and K3 "
+            f"{tr['k3']} launches a step (reckoned {tr['want'][0]} / "
+            f"{tr['want'][1]}: micro-batches x 2 forwards x (projections + "
+            f"head calls), scans likewise); step {len(tr['losses']) - 1} "
+            f"under torch.profiler " + _profile_text(tr["profile"])
+            + f"; gradient gate on "
+            f"{GRAD_CUT_LAYERS} layers, fp32 activations, kernel route "
+            f"against plain route (bound {LOGIT_BOUND:.3g}): {gates}"
+            + extra + f"; phase {tr['phase_s']:.1f} s; {smi('name,power.limit')}")
+
+
+def train_family(tag: str, cfg, cut, after=None):
+    """A family training phase: :func:`train_cut` of ``cfg``, then
+    :func:`family_grad_gate` on ``cut`` and ``after()``, which returns
+    more text for the phase's line and more failed gates; prints the
+    line, then raises with every failed gate."""
+    t0 = time.perf_counter()
+    tr = train_cut(tag, cfg)
+    gate, fails = family_grad_gate(tag, cut)
+    text, more = after() if after is not None else ("", [])
+    tr["phase_s"] = time.perf_counter() - t0
+    print(family_text(tag, cfg, tr, gate, text))
+    fails = tr.pop("fails") + fails + more
+    if fails:
+        raise AssertionError(f"[{tag}]: " + "; ".join(fails))
+    return dict(tr, gate=gate)
+
+
+def phase_train_zamba2():
+    """Full-width zamba2-7b cut to ZAMBA2_TRAIN_REPEATS of its 13 (5 SSD +
+    shared attention) repeats and its 3-block SSD tail, trained
+    FAMILY_STEPS steps (AdamW, fp32 moments; K1 in every projection, K3
+    at H 112, N 64 in every SSD block, the shared block's gradient summed
+    over its applications under remat); the gradient gate on one SSD
+    block and the shared block."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    full = get_arch("zamba2-7b")
+    assert (full.n_layers, full.d_model, full.ssm.state_size,
+            full.segments[0][0], full.optimizer) == (81, 3584, 64, 13,
+                                                     "adamw")
+    (_, pattern), tail = full.segments
+    cfg = dataclasses.replace(full, segments=((ZAMBA2_TRAIN_REPEATS,
+                                               pattern), tail))
+    cut = dataclasses.replace(full, dtype="float32",
+                              segments=((1, (pattern[0], pattern[-1])),))
+    return train_family("train-zamba2", cfg, cut, lambda: (
+        f"; the shared block applied {ZAMBA2_TRAIN_REPEATS} times a "
+        f"forward", []))
+
+
+def phase_train_llama4():
+    """Full-width llama4-maverick cut to one (moe, dense) repeat and
+    LLAMA4_TRAIN_EXPERTS of its 128 experts, trained FAMILY_STEPS steps
+    (Adafactor, 8 micro-batches; one K1 launch an expert projection,
+    forward and recompute); the gradient gate on the same two layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    full = get_arch("llama4-maverick-400b-a17b")
+    assert (full.d_model, full.d_ff, full.moe.n_experts, full.moe.top_k,
+            full.grad_accum) == (5120, 8192, 128, 1, 8)
+    cfg = dataclasses.replace(
+        full, segments=((1, full.segments[0][1]),),
+        moe=dataclasses.replace(full.moe, n_experts=LLAMA4_TRAIN_EXPERTS))
+    return train_family("train-llama4", cfg,
+                        dataclasses.replace(cfg, dtype="float32"))
+
+
+def _restart_deepseek():
+    """The reduced deepseek-v3 (MLA, MoE) trained 20 steps with a
+    checkpoint every 10; a second run restored from the step-10
+    checkpoint alone must end on the same bits, as [train-mamba2]
+    restarts the reduced qwen3-4b.  Returns (text, failed gates)."""
+    import shutil
+
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.launch import train as train_mod
+
+    ck = ROOT / "build" / "chip_smoke_ckpt_deepseek"
+    shutil.rmtree(ck, ignore_errors=True)
+    kw = dict(steps=20, seq_len=32, batch=4, ckpt_every=10, device="cuda",
+              log_every=100)
+    p1, o1, l1 = train_mod.train("deepseek-v3-671b", ckpt_dir=str(ck / "a"),
+                                 **kw)
+    (ck / "b").mkdir(parents=True)
+    shutil.copytree(ck / "a" / "step_000000010", ck / "b" / "step_000000010")
+    p2, o2, l2 = train_mod.train("deepseek-v3-671b", ckpt_dir=str(ck / "b"),
+                                 **kw)
+    leaves1, leaves2 = tree_util.leaves((p1, o1)), tree_util.leaves((p2, o2))
+    same = sum(bool(torch.equal(a, b)) for a, b in zip(leaves1, leaves2))
+    fails = []
+    if same != len(leaves1) or l2 != l1[10:] or \
+            ckpt_io.all_steps(str(ck / "b")) != [10, 20]:
+        fails.append(f"restart: {same} of {len(leaves1)} leaves equal bit "
+                     f"for bit; losses {l1[10:]} vs {l2}")
+    shutil.rmtree(ck, ignore_errors=True)
+    return (f"; restart of the reduced config from its step-10 checkpoint: "
+            f"{same} of {len(leaves1)} leaves of params and optimizer state "
+            f"equal the uninterrupted run's bit for bit after step 20, "
+            f"losses {'equal' if l2 == l1[10:] else 'differ'}", fails)
+
+
+def phase_train_deepseek():
+    """Full-width deepseek-v3 cut to one dense-MLA and one MoE-MLA layer
+    with DSV3_TRAIN_EXPERTS of its 256 experts, trained FAMILY_STEPS
+    steps (Adafactor, 8 micro-batches, capacity 80 an expert a row); the
+    gradient gate on the same two layers; then the reduced config's
+    restart (:func:`_restart_deepseek`)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+
+    full = get_arch("deepseek-v3-671b")
+    assert (full.d_model, full.d_ff, full.moe.n_experts, full.moe.top_k,
+            full.mla.kv_lora_rank, full.grad_accum) == (7168, 2048, 256, 8,
+                                                        512, 8)
+    cfg = dataclasses.replace(
+        full, segments=tuple((1, pattern) for _, pattern in full.segments),
+        moe=dataclasses.replace(full.moe, n_experts=DSV3_TRAIN_EXPERTS))
+
+    def after():
+        text, fails = _restart_deepseek()
+        return (f"; capacity {moe.capacity(cfg, TRAIN_SEQ)} slots an expert "
+                f"a row" + text, fails)
+
+    return train_family("train-deepseek", cfg,
+                        dataclasses.replace(cfg, dtype="float32"), after)
 
 
 def phase_train_resnet():
@@ -4758,10 +5210,14 @@ def main() -> int:
         {"card": smi("name,power.limit"), "tune": tu, "launch": la,
          "dryrun": dr}, indent=1))
     tm = phase_train_mamba2()
+    tz = phase_train_zamba2()
+    tl = phase_train_llama4()
+    tds = phase_train_deepseek()
     tr = phase_train_resnet()
     (ROOT / "chiprun_out" / "chip_smoke_train.json").write_text(json.dumps(
         {"card": smi("name,power.limit"), "train_grad": tg, "qwen3": tq,
-         "mamba2": tm, "resnet": {k: tr[k] for k in (
+         "mamba2": tm, "zamba2-7b": tz, "llama4-maverick-400b-a17b": tl,
+         "deepseek-v3-671b": tds, "resnet": {k: tr[k] for k in (
              "rows", "seg", "train_s", "emu_launches", "ac55_kernel_s",
              "ac55_plain_s", "ac55_logits_rel_err", "acl5_vs_ac55_rel_err")}},
         indent=1))
@@ -4779,6 +5235,9 @@ def main() -> int:
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "resnet_launches": r["launches"], "resnet_max_ulp_err": r["max_ulp_err"],
         "resnet_conv": r["conv"], "train_grad_launches": tg["k1"],
+        "train_step_launches": {"zamba2-7b": tz["k1"],
+                                "llama4-maverick-400b-a17b": tl["k1"],
+                                "deepseek-v3-671b": tds["k1"]},
         "zamba2_launches": z["k1"], "zamba2_step": k["zamba2_step"],
         "whisper_launches": w["k1"], "gemma2_launches": g2["k1"],
         "dense_zoo_launches": dz["k1"],
@@ -4833,6 +5292,7 @@ def main() -> int:
         "plain_ms": c["plain_ms"], "library_ms": None,
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
         "train_grad_launches": tg["k3"], "train_mamba2_launches": tm["k3"],
+        "train_zamba2_step_launches": tz["k3"],
         "zamba2_launches": z["k3"], "zamba2": c["zamba2"],
         "placed_launches": pl["mamba2"]["k3"],
         "backward": "plain (repro_torch/kernels/autograd.py)"}]}))

@@ -74,22 +74,25 @@ ULPS = 64
 # one chip's temp bytes of the placed count over JAX's memory_analysis()
 # temp at the same cell: at most XLA's (its buffer assignment holds what
 # the eager count holds live, and more), at least half of it.  Pinned
-# where the plans differ (ROADMAP queue 3): in the decode cells XLA's CPU
-# backend holds fp32 copies of the bf16 weights (and, under segmented3,
-# of their hi/lo splits) across the layer loop, 163,840 of the exact
-# cell's 230,584 temp bytes; the port converts one product's operands at
-# a time.
+# where the plans differ (ROADMAP.md section 3, deliberate differences):
+# in the decode cells XLA's CPU backend holds fp32 copies of the bf16
+# weights (and, under segmented3, of their hi/lo splits) across the layer
+# loop, 163,840 of the exact cell's 230,584 temp bytes; the port converts
+# one product's operands at a time.
 TEMP_BOUND = (0.5, 1.0)
 TEMP_RATIO = {"qwen3-4b/exact/decode": 64688 / 230584,
               "qwen3-4b/segmented3/decode": 64688 / 344952}
 # per-chip FLOPs of the placed count over JAX's per-device loop_aware_cost
-# where the two partition a product differently (ROADMAP queue 3); 1.0
-# where they agree.  mamba2: the SSD scan's C·Bᵀ of each chunk (Q x Q,
-# the same for every head): GSPMD contracts it over the state dim N, which
-# in_proj's output leaves sharded over 'model', and all-reduces the
-# partial sums; the port's scan runs each rank's heads with B and C whole,
-# as K3 takes them, and forms C·Bᵀ whole on both ranks of 'model': 8
-# products of 2 x 16 x 16 x 8 FLOPs more, 32,768.
+# where the two partition a product differently (ROADMAP.md section 3,
+# deliberate differences); 1.0 where they agree.  mamba2: the SSD scan's
+# C·Bᵀ of each chunk (Q x Q, the same for every head): GSPMD contracts it
+# over the state dim N, which in_proj's output leaves sharded over
+# 'model', and all-reduces the partial sums; the port's scan runs each
+# rank's heads with B and C whole, as K3 takes them, and forms C·Bᵀ whole
+# on both ranks of 'model': 8 products of 2 x 16 x 16 x 8 FLOPs more,
+# 32,768.  Kept: a scan of B and C cut on N gives partial outputs, whose
+# sum is not the whole scan bit for bit
+# (test_scan_cut_on_the_state_dim_is_not_the_scan_bit_for_bit)
 FLOPS_RATIO = {"mamba2-130m/segmented3/prefill": 11747328 / 11714560}
 # the train cell: reduced qwen3-4b with the full config's training
 # settings (remat full, the sequence sharded on the residual stream, bf16
@@ -735,6 +738,49 @@ def test_each_op_rule_against_the_unsharded_op(ranks, name):
             assert rec["partial"] and rec["moved"] == {}, rec
             ulp = np.spacing(np.float32(np.max(np.abs(want))))
             assert np.max(np.abs(got - want)) <= ULPS * ulp
+
+
+def test_scan_cut_on_the_state_dim_is_not_the_scan_bit_for_bit():
+    """Why the port's scan takes B and C whole where GSPMD contracts C·Bᵀ
+    over the state dim N (``FLOPS_RATIO``): a scan is a sum over N, so the
+    scans of B and C's two halves of N (the reduced mamba2-130m prefill's
+    shapes at (2, 2): N 16 over 2 ranks) add up to it, but in another
+    order of fp32 sums.  The sum stays within PLACED_BOUND of the largest
+    output, the bound of a placed product whose partial sums add in
+    another order; it is not the unplaced scan bit for bit, as every
+    placed serving step of the port is."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(0)
+    b, L, H, P, N, Q = 2, 64, 16, 8, 16, 16
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    x, B, C = t(b, L, H, P), t(b, L, N), t(b, L, N)
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, (b, L, H)).astype(np.float32))
+    A = -torch.from_numpy(rng.uniform(0.5, 2.0, (H,)).astype(np.float32))
+    whole = ref.ssd_scan_chunked_ref(x, dt, A, B, C, Q).numpy()
+    h = N // 2
+    parts = (ref.ssd_scan_chunked_ref(x, dt, A, B[..., :h], C[..., :h], Q)
+             + ref.ssd_scan_chunked_ref(x, dt, A, B[..., h:], C[..., h:], Q)
+             ).numpy()
+    assert _rel(parts, whole) <= PLACED_BOUND
+    assert np.count_nonzero(parts != whole) > whole.size // 2
+
+
+def test_train_cell_moves_fewer_bytes_than_gspmd(ranks, jax_ref):
+    """The train cell's column-parallel products (the LM head among them)
+    on a sequence-sharded activation: the port gathers the sequence where
+    XLA's partitioner gathers each weight at this size (ROADMAP.md section
+    3, deliberate differences).  The same FLOPs a chip, and fewer
+    collective bytes a chip in all than XLA's."""
+    port = ranks[1][TRAIN_KEY]
+    want = jax_ref[0]["rec"][TRAIN_KEY]
+    assert port["flops"] == want["flops"]
+    assert 0 < sum(port["coll"].values()) < sum(want["coll"].values())
 
 
 # the gradients of the reference's train step (tests/test_torch_train.py's
