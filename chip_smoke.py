@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Twenty-nine phases, each printing a line or a few; any failed check ends the
+Thirty-three phases, each printing a line or a few; any failed check ends the
 run with a nonzero exit and no result line:
 
 1. device: the card, its power limit, torch and the kernels' build time
@@ -309,7 +309,27 @@ run with a nonzero exit and no result line:
    MoE-MLA layer with 16 of its 256 experts (3.37 B params, capacity 80
    an expert a row) trained and gated as phase 28; then the reduced
    config trained 20 steps with a checkpoint every 10, and a second run
-   restored from the step-10 checkpoint alone ends on the same bits.
+   restored from the step-10 checkpoint alone ends on the same bits;
+30. train-gemma2 (right after phase 29): full-width gemma2-9b cut to 7 of
+   its 21 (local 4096, global) repeats (14 layers, 3.69 B params; AdamW;
+   the attention softcap 50 and the logit softcap 30 under autograd, the
+   tied 256000 x 3584 table K1's x in the head and its gradient summed
+   over the head and the embedding gather) trained and gated as phase 27,
+   the gate on one repeat;
+31. train-gemma3: full-width gemma3-12b cut to 2 of its 8 (5 local 1024 +
+   1 global) repeats (12 layers, 3.70 B params) trained on 2 x 1280
+   tokens, rows longer than the window, so that 10 layers mask in the
+   forward and in the remat recompute (the loss one piece), and gated as
+   phase 27 at the same size on (local, global);
+32. train-minitron: full-width minitron-8b cut to 6 of its 32 layers (3.56
+   B params, the untied 256000 x 4096 head), trained and gated as phase
+   27 on 2 layers;
+33. train-qwen2-vl: full-width qwen2-vl-72b cut to 4 of its 80 layers
+   (6.00 B fp32 params, as the trainer seeds every config; Adafactor, 4
+   micro-batches, M-RoPE) trained on the token stream and gated as phase
+   27 on 2 layers, on the token path and on the image path (seeded patch
+   embeddings at 3-D positions, the token stream's targets; the token
+   table's gradient exactly 0 on both routes).
 
 Then one JSON line on the kernels, the card's name and power limit, and
 the result line.  Per-shape kernel timings go to
@@ -445,6 +465,14 @@ GRAD_CUT_LAYERS = 2
 # llama4 one (moe, dense) repeat, 8 of 128 experts; deepseek-v3 one
 # dense-MLA and one MoE-MLA layer, 16 of 256 experts), and their steps
 ZAMBA2_TRAIN_REPEATS, LLAMA4_TRAIN_EXPERTS, DSV3_TRAIN_EXPERTS = 7, 8, 16
+# and the dense ones: gemma2-9b 7 of 21 (local, global) repeats, gemma3-12b
+# 2 of 8 (5 local + 1 global) repeats on rows longer than its 1024-token
+# window (so that its local layers mask), minitron-8b 6 of 32 layers,
+# qwen2-vl-72b 4 of 80 layers (fp32 params, as the trainer seeds every
+# config: at 8 layers its params and gradients alone take 76 GB)
+GEMMA2_TRAIN_REPEATS, GEMMA3_TRAIN_REPEATS = 7, 2
+MINITRON_TRAIN_LAYERS, QWEN2VL_TRAIN_LAYERS = 6, 4
+GEMMA3_TRAIN_SEQ, GEMMA3_TRAIN_BATCH = 1280, 2
 FAMILY_STEPS = 4
 # a leaf's gradient that is at most this much of the largest leaf's on
 # the plain route is rounding noise (top-1's router: its one gate is
@@ -3914,9 +3942,10 @@ def _leaf_sums(params) -> list:
                 for t in tree_util.leaves(params)]
 
 
-def train_cut(tag: str, cfg, n_steps: int = FAMILY_STEPS):
+def train_cut(tag: str, cfg, n_steps: int = FAMILY_STEPS,
+              seq_len: int = TRAIN_SEQ, batch: int = TRAIN_BATCH):
     """``cfg`` (full width, cut depth) seeded on the card and trained
-    ``n_steps`` steps of TRAIN_BATCH x TRAIN_SEQ tokens as
+    ``n_steps`` steps of ``batch`` x ``seq_len`` tokens as
     ``launch.train.train`` trains an arch: the config's optimizer
     (``steps.make_optimizer``: AdamW with fp32 moments, or Adafactor),
     the reference's schedule, ``steps.make_train_step`` (the config's
@@ -3944,10 +3973,10 @@ def train_cut(tag: str, cfg, n_steps: int = FAMILY_STEPS):
         cfg, lr=3e-4, total_steps=n_steps, warmup_steps=max(2, n_steps // 10))
     opt = opt_init(params, opt_cfg)
     train_step = steps_mod.make_train_step(cfg, opt_cfg, opt_apply)
-    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                      global_batch=TRAIN_BATCH, seed=0)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq_len, global_batch=batch,
+                      seed=0)
     before = _leaf_sums(params)
-    want = train_launches(cfg, TRAIN_BATCH)
+    want = train_launches(cfg, batch)
     losses, step_s, launches = [], [], []
     # the last step under torch.profiler: device time by kernel group
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -3984,7 +4013,8 @@ def train_cut(tag: str, cfg, n_steps: int = FAMILY_STEPS):
                      f"expected {want}")
     ms = 1e3 * statistics.median(step_s[1:n_steps - 1])
     return dict(losses=losses, step_ms=[1e3 * s for s in step_s], ms=ms,
-                tokens_s=TRAIN_BATCH * TRAIN_SEQ / ms * 1e3,
+                rows=batch, seq_len=seq_len,
+                tokens_s=batch * seq_len / ms * 1e3,
                 peak_gb=peak_gb, held_gb=held_gb, params=n_params,
                 params_gb=leaf_bytes / 1e9, grads_gb=leaf_bytes / 1e9,
                 opt_gb=opt_bytes / 1e9,
@@ -4044,12 +4074,13 @@ def route_mismatch(tag: str, got: list, want: list, top_k: int):
     return None, margin
 
 
-def family_grad_gate(tag: str, cut):
+def family_grad_gate(tag: str, cut, batch):
     """The kernel route's gradients against the plain route's on ``cut``
     (``GRAD_CUT_LAYERS`` layers at full width, fp32 activations), on the
-    same params and batch, under segmented3 and under exact: the same
-    routing on both routes (else the gate names the token that moved),
-    then every leaf within LOGIT_BOUND of the plain route's largest.
+    same params and ``batch`` (on the card), under segmented3 and under
+    exact: the same routing on both routes (else the gate names the token
+    that moved), then every leaf within LOGIT_BOUND of the plain route's
+    largest.
     K1 and K3 launch as :func:`train_launches` reckons on the kernel
     route and never on the plain route.  Returns (readings, fails)."""
     import dataclasses
@@ -4065,10 +4096,9 @@ def family_grad_gate(tag: str, cut):
 
     assert cut.n_layers == GRAD_CUT_LAYERS and cut.dtype == "float32"
     params = transformer.init(cut, seed=0, device="cuda")
-    batch = train_batch(cut, 0, TRAIN_SEQ, TRAIN_BATCH)
     names = [n for n, _ in tree_util.named(params)]
     want_k = train_launches(dataclasses.replace(cut, grad_accum=1),
-                            TRAIN_BATCH)
+                            batch["targets"].shape[0])
     out, fails = {}, []
     for mode, kw in (("segmented3", dict(mode="segmented", seg_passes=3)),
                      ("exact", {})):
@@ -4084,7 +4114,9 @@ def family_grad_gate(tag: str, cut):
                                 k=(k1.afpm_matmul.launches,
                                    k3.ssd_scan.launches))
             if backend == "hopper":
-                run[backend]["g"] = [t.clone() for t in tree_util.leaves(g)]
+                # the gradients themselves: clear_grads below detaches them
+                # from the params, so the plain route makes its own
+                run[backend]["g"] = tree_util.leaves(g)
             else:
                 got, want = run["hopper"].pop("g"), tree_util.leaves(g)
                 errs = _leaf_errs(names, got, want, tag)
@@ -4097,7 +4129,10 @@ def family_grad_gate(tag: str, cut):
                 noise = {n: max(float(a.abs().max()), float(b.abs().max()))
                          for n, a, b in zip(names, got, want)
                          if float(b.abs().max()) <= floor}
-                del got
+                del got, want
+            # one route's gradients held at a time beside the kernel
+            # route's (qwen2-vl's 2-layer cut: 17 GB a set)
+            del g
             steps.clear_grads(params)
         r = dict(loss=run["hopper"]["loss"], plain_loss=run["torch"]["loss"],
                  k1=run["hopper"]["k"][0], k3=run["hopper"]["k"][1])
@@ -4134,8 +4169,9 @@ def family_grad_gate(tag: str, cut):
     return out, fails
 
 
-def family_text(tag: str, cfg, tr: dict, gate: dict, extra: str = "") -> str:
-    gates = "; ".join(
+def gate_text(gate: dict) -> str:
+    """One line's text of a :func:`family_grad_gate` reading."""
+    return "; ".join(
         f"{mode}: loss {v['loss']:.6f} (plain {v['plain_loss']:.6f}), K1 "
         f"{v['k1']} / K3 {v['k3']} a step"
         + (f", {v['routing_calls']} routing calls equal on both routes "
@@ -4147,9 +4183,12 @@ def family_text(tag: str, cfg, tr: dict, gate: dict, extra: str = "") -> str:
                   f"leaf's, held to {NOISE_FLOOR:g})"
                   for n, e in v.get("noise", {}).items())
         for mode, v in gate.items())
+
+
+def family_text(tag: str, cfg, tr: dict, gate: dict, extra: str = "") -> str:
     return (f"[{tag}] {cfg.n_layers} layers at full width "
             f"({tr['params'] / 1e9:.3f} B params), {len(tr['losses'])} steps "
-            f"of {TRAIN_BATCH} x {TRAIN_SEQ} tokens ({cfg.grad_accum} "
+            f"of {tr['rows']} x {tr['seq_len']} tokens ({cfg.grad_accum} "
             f"micro-batches, remat {cfg.remat}, {tr['optimizer']}): losses "
             + ", ".join(f"{l:.4f}" for l in tr["losses"])
             + f"; {tr['moved']} of {tr['leaves']} leaves moved; "
@@ -4166,18 +4205,22 @@ def family_text(tag: str, cfg, tr: dict, gate: dict, extra: str = "") -> str:
             f"under torch.profiler " + _profile_text(tr["profile"])
             + f"; gradient gate on "
             f"{GRAD_CUT_LAYERS} layers, fp32 activations, kernel route "
-            f"against plain route (bound {LOGIT_BOUND:.3g}): {gates}"
-            + extra + f"; phase {tr['phase_s']:.1f} s; {smi('name,power.limit')}")
+            f"against plain route (bound {LOGIT_BOUND:.3g}): "
+            + gate_text(gate) + extra
+            + f"; phase {tr['phase_s']:.1f} s; {smi('name,power.limit')}")
 
 
-def train_family(tag: str, cfg, cut, after=None):
-    """A family training phase: :func:`train_cut` of ``cfg``, then
-    :func:`family_grad_gate` on ``cut`` and ``after()``, which returns
-    more text for the phase's line and more failed gates; prints the
-    line, then raises with every failed gate."""
+def train_family(tag: str, cfg, cut, after=None, seq_len: int = TRAIN_SEQ,
+                 batch: int = TRAIN_BATCH):
+    """A family training phase: :func:`train_cut` of ``cfg`` on ``batch``
+    x ``seq_len`` tokens, then :func:`family_grad_gate` on ``cut`` at the
+    same size and ``after()``, which returns more text for the phase's
+    line and more failed gates; prints the line, then raises with every
+    failed gate."""
     t0 = time.perf_counter()
-    tr = train_cut(tag, cfg)
-    gate, fails = family_grad_gate(tag, cut)
+    tr = train_cut(tag, cfg, seq_len=seq_len, batch=batch)
+    gate, fails = family_grad_gate(tag, cut,
+                                   train_batch(cut, 0, seq_len, batch))
     text, more = after() if after is not None else ("", [])
     tr["phase_s"] = time.perf_counter() - t0
     print(family_text(tag, cfg, tr, gate, text))
@@ -4294,6 +4337,125 @@ def phase_train_deepseek():
 
     return train_family("train-deepseek", cfg,
                         dataclasses.replace(cfg, dtype="float32"), after)
+
+
+def phase_train_gemma2():
+    """Full-width gemma2-9b cut to GEMMA2_TRAIN_REPEATS of its 21 (local
+    4096, global) repeats, trained FAMILY_STEPS steps (AdamW): the
+    attention softcap of 50 in every block and the logit softcap of 30
+    after the tied head under autograd, the head K1 at one pass over the
+    256000 x 3584 table, whose gradient sums the head's and the embedding
+    gather's; the gradient gate on one repeat."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    full = get_arch("gemma2-9b")
+    assert (full.d_model, full.vocab, full.segments[0][0], full.attn_softcap,
+            full.logit_softcap, full.tie_embeddings, full.optimizer) == (
+        3584, 256000, 21, 50.0, 30.0, True, "adamw")
+    (_, pattern), = full.segments
+    cfg = dataclasses.replace(full, segments=((GEMMA2_TRAIN_REPEATS,
+                                               pattern),))
+    return train_family("train-gemma2", cfg, dataclasses.replace(
+        full, dtype="float32", segments=((1, pattern),)))
+
+
+def phase_train_gemma3():
+    """Full-width gemma3-12b cut to GEMMA3_TRAIN_REPEATS of its 8 (5 local
+    1024 + 1 global) repeats, trained FAMILY_STEPS steps (AdamW) on
+    GEMMA3_TRAIN_BATCH rows of GEMMA3_TRAIN_SEQ tokens: longer than the
+    window, so the local layers mask, in the forward and in the remat
+    recompute, and the loss is one piece (2 rows do not cut into 8); the
+    gradient gate on (local, global) at the same size."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    full = get_arch("gemma3-12b")
+    (_, pattern), = full.segments
+    assert (full.d_model, full.vocab, full.segments[0][0], len(pattern),
+            pattern[0].window, full.tie_embeddings, full.optimizer) == (
+        3840, 262144, 8, 6, 1024, True, "adamw")
+    assert GEMMA3_TRAIN_SEQ > pattern[0].window
+    cfg = dataclasses.replace(full, segments=((GEMMA3_TRAIN_REPEATS,
+                                               pattern),))
+    cut = dataclasses.replace(full, dtype="float32",
+                              segments=((1, (pattern[0], pattern[-1])),))
+    local = sum(s.attn == "local" for s in cfg.layer_specs())
+    return train_family("train-gemma3", cfg, cut, lambda: (
+        f"; {local} of {cfg.n_layers} layers (and the gate's first) attend "
+        f"their last {pattern[0].window} of {GEMMA3_TRAIN_SEQ} positions",
+        []), seq_len=GEMMA3_TRAIN_SEQ, batch=GEMMA3_TRAIN_BATCH)
+
+
+def phase_train_minitron():
+    """Full-width minitron-8b cut to MINITRON_TRAIN_LAYERS of its 32
+    layers, trained FAMILY_STEPS steps (AdamW; the untied 256000 x 4096
+    head, d_ff 16384); the gradient gate on 2 layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    full = get_arch("minitron-8b")
+    (_, pattern), = full.segments
+    assert (full.d_model, full.d_ff, full.vocab, full.n_layers,
+            full.tie_embeddings, full.optimizer) == (4096, 16384, 256000, 32,
+                                                     False, "adamw")
+    cfg = dataclasses.replace(full, segments=((MINITRON_TRAIN_LAYERS,
+                                               pattern),))
+    return train_family("train-minitron", cfg, dataclasses.replace(
+        full, dtype="float32", segments=((GRAD_CUT_LAYERS, pattern),)))
+
+
+def phase_train_qwen2_vl():
+    """Full-width qwen2-vl-72b cut to QWEN2VL_TRAIN_LAYERS of its 80
+    layers, trained FAMILY_STEPS steps on the token stream (Adafactor, 4
+    micro-batches, M-RoPE with the three streams at the absolute
+    position); the params fp32 as the trainer seeds every config (its
+    ``param_dtype``, bf16, is the dry-run's).  The gradient gate on 2
+    layers, on the token path and on the image path: seeded patch
+    embeddings at the 3-D positions of an image of 8 rows of 16 patches
+    with the token stream's targets, where the token table's gradient is
+    exactly 0 on both routes."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+
+    full = get_arch("qwen2-vl-72b")
+    (_, pattern), = full.segments
+    assert (full.d_model, full.d_ff, full.vocab, full.mrope_sections,
+            full.optimizer, full.grad_accum) == (8192, 29568, 152064,
+                                                 (16, 24, 24), "adafactor", 4)
+    cfg = dataclasses.replace(full, segments=((QWEN2VL_TRAIN_LAYERS,
+                                               pattern),))
+    cut = dataclasses.replace(full, dtype="float32",
+                              segments=((GRAD_CUT_LAYERS, pattern),))
+
+    def after():
+        # the model API's vision stub as [qwen2-vl] feeds it: t = 0,
+        # h = i // 16, w = i % 16
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        i = torch.arange(TRAIN_SEQ, device="cuda")
+        pos = torch.stack([torch.zeros_like(i), i // 16, i % 16], -1)
+        batch = {"embeds": torch.randn((TRAIN_BATCH, TRAIN_SEQ, cut.d_model),
+                                       generator=gen, device="cuda"),
+                 "positions": pos.expand(TRAIN_BATCH, -1, -1).contiguous(),
+                 "targets": train_batch(cut, 0, TRAIN_SEQ,
+                                        TRAIN_BATCH)["targets"]}
+        gate, fails = family_grad_gate("train-qwen2-vl image path", cut,
+                                       batch)
+        for mode, v in gate.items():
+            if v.get("noise", {}).get("embed") != 0.0:
+                fails.append(f"train-qwen2-vl image path {mode}: the token "
+                             f"table's gradient is not 0 on both routes")
+        return (f"; image path ({TRAIN_BATCH} x {TRAIN_SEQ} patch "
+                f"embeddings at 3-D positions, the token table's gradient 0 "
+                f"on both routes): " + gate_text(gate), fails)
+
+    return train_family("train-qwen2-vl", cfg, cut, after)
 
 
 def phase_train_resnet():
@@ -5213,11 +5375,15 @@ def main() -> int:
     tz = phase_train_zamba2()
     tl = phase_train_llama4()
     tds = phase_train_deepseek()
+    dense = {"gemma2-9b": phase_train_gemma2(),
+             "gemma3-12b": phase_train_gemma3(),
+             "minitron-8b": phase_train_minitron(),
+             "qwen2-vl-72b": phase_train_qwen2_vl()}
     tr = phase_train_resnet()
     (ROOT / "chiprun_out" / "chip_smoke_train.json").write_text(json.dumps(
         {"card": smi("name,power.limit"), "train_grad": tg, "qwen3": tq,
          "mamba2": tm, "zamba2-7b": tz, "llama4-maverick-400b-a17b": tl,
-         "deepseek-v3-671b": tds, "resnet": {k: tr[k] for k in (
+         "deepseek-v3-671b": tds, **dense, "resnet": {k: tr[k] for k in (
              "rows", "seg", "train_s", "emu_launches", "ac55_kernel_s",
              "ac55_plain_s", "ac55_logits_rel_err", "acl5_vs_ac55_rel_err")}},
         indent=1))
@@ -5237,7 +5403,8 @@ def main() -> int:
         "resnet_conv": r["conv"], "train_grad_launches": tg["k1"],
         "train_step_launches": {"zamba2-7b": tz["k1"],
                                 "llama4-maverick-400b-a17b": tl["k1"],
-                                "deepseek-v3-671b": tds["k1"]},
+                                "deepseek-v3-671b": tds["k1"],
+                                **{a: v["k1"] for a, v in dense.items()}},
         "zamba2_launches": z["k1"], "zamba2_step": k["zamba2_step"],
         "whisper_launches": w["k1"], "gemma2_launches": g2["k1"],
         "dense_zoo_launches": dz["k1"],

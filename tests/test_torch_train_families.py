@@ -7,8 +7,10 @@ Whole train steps (loss, global gradient norm, learning rate) are held
 against the JAX package's jitted ``make_train_step`` with
 ``tests/test_torch_train.py``'s tolerances, the MoE configs' recompute
 under remat changes no bit, and a restart of the reduced deepseek-v3
-from its step-2 checkpoint ends on the uninterrupted run's bits.  On the CPU the plain route runs; ``chip_smoke.py`` trains these
-families through the kernels on the card.
+from its step-2 checkpoint ends on the uninterrupted run's bits.  The
+dense families take the same checks in ``tests/test_torch_train_dense.py``,
+through this file's helpers.  On the CPU the plain route runs;
+``chip_smoke.py`` trains these families through the kernels on the card.
 """
 import dataclasses
 import os
@@ -72,6 +74,16 @@ def test_train_steps_match_jax(arch, tmp_path):
     sides (the one gate is renormalised to 1), which Adafactor turns into
     full-size router steps of either sign, and llama4's losses part by
     4e-4 at the third."""
+    _steps_match_jax(arch, [_batch(get_arch(arch).reduced(), s)
+                            for s in range(3)], tmp_path)
+
+
+def _steps_match_jax(arch, batches, tmp_path):
+    """One trainer step of the reduced ``arch`` for each of ``batches``
+    (numpy), each from one state on both sides (see
+    :func:`test_train_steps_match_jax`), held to the file's bounds.
+    Returns the token table before the steps and both packages' params
+    after them."""
     jcfg = dataclasses.replace(jax_get_arch(arch).reduced(),
                                numerics=JaxNumerics(**NUMERICS))
     tcfg = dataclasses.replace(get_arch(arch).reduced(),
@@ -85,12 +97,12 @@ def test_train_steps_match_jax(arch, tmp_path):
     jstep = jax.jit(jsteps.make_train_step(jcfg, jopt_cfg, japply))
     step = steps.make_train_step(tcfg, opt_cfg, apply)
     jstate, state = jinit(jparams, jopt_cfg), init(params, opt_cfg)
-    for s in range(3):
+    first = params["embed"].clone()
+    for s, b in enumerate(batches):
         if s:
             io.save(str(tmp_path), s, (params, state))
             (jparams, jstate), _ = jio.restore(str(tmp_path),
                                                (jparams, jstate), step=s)
-        b = _batch(tcfg, s)
         jparams, jstate, jm = jstep(jparams, jstate,
                                     {k: jnp.asarray(v) for k, v in b.items()})
         params, state, m = step(params, state,
@@ -102,6 +114,7 @@ def test_train_steps_match_jax(arch, tmp_path):
             float(jm["grad_norm"]), rel=FIRST_NORM_RTOL), (arch, s)
         assert m["lr"] == pytest.approx(float(jm["lr"]), rel=1e-6)
     assert all(p.grad is None for p in tree_util.leaves(params))
+    return first, params, jparams
 
 
 def test_deepseek_restart_is_exact(tmp_path):
@@ -138,8 +151,15 @@ def test_remat_full_changes_no_bit(arch):
     (capacity dispatch, MLA), and the loss and every gradient equal the
     run without checkpointing bit for bit.  zamba2-7b's shared blocks:
     tests/test_torch_hybrid.py::test_remat_of_shared_blocks_changes_no_bit."""
+    _remat_changes_no_bit(arch, 24)
+
+
+def _remat_changes_no_bit(arch, seq_len):
+    """The reduced ``arch``'s loss and gradients on a batch of rows of
+    ``seq_len`` tokens, under remat full and none, equal bit for bit."""
     cfg = get_arch(arch).reduced()
-    b = {k: torch.as_tensor(v) for k, v in _batch(cfg, 0).items()}
+    b = {k: torch.as_tensor(v)
+         for k, v in _batch(cfg, 0, seq_len).items()}
     out = {}
     for remat in ("none", "full"):
         params = ttrain.transformer.init(cfg, seed=3)
