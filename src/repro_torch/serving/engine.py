@@ -22,12 +22,15 @@ engine step:
 Greedy argmax happens outside the model call, as in ``Session.generate``,
 so a request's tokens are comparable with a solo generate of its prompt.
 
+Each step, each runner call and the runner's wait for its token are
+spans of :mod:`repro_torch.serving.trace` (``serve.step``,
+``serve.prefill``, ``serve.decode``, ``serve.sync``).
+
 The engine is model-agnostic behind the :class:`ModelRunner` duck type.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
@@ -36,7 +39,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.numerics import torch_dtype
 from repro_torch.models import transformer
-from repro_torch.serving import kvcache
+from repro_torch.serving import kvcache, trace
 from repro_torch.serving.kvcache import (PageAllocator, ServingError,
                                          SlotAllocator, pages_for)
 from repro_torch.serving.scheduler import (DEFAULT_TIERS, MonotonicClock,
@@ -173,7 +176,8 @@ class TransformerRunner(ModelRunner):
         kvcache.scatter_chunk(self.pool, self._layout, dense, trow, start,
                               end - start, self.page_size)
         if end == prompt.shape[0]:
-            return int(logits[0, -1].argmax())
+            with trace.span("serve.sync"):
+                return int(logits[0, -1].argmax())
         return None
 
     @torch.inference_mode()
@@ -187,19 +191,24 @@ class TransformerRunner(ModelRunner):
             max_len=ml)
         kvcache.write_state(self.pool, self._layout, state, slot,
                             self._tensor(table_row), self.page_size)
-        return int(logits[0, -1].argmax())
+        with trace.span("serve.sync"):
+            return int(logits[0, -1].argmax())
 
     @torch.inference_mode()
     def decode(self, tokens, pos, tables):
         tables = self._tensor(tables)
         pos = self._tensor(pos)
         dense = kvcache.gather_state(self.pool, self._layout, tables)
+        if any(self._layout):
+            # every row attends the whole view gathered through its table
+            trace.count(ctx_attended=tables.numel() * self.page_size)
         logits, dense = transformer.decode_step(
             self.params, self.cfg, {"token": self._tensor(tokens)[:, None]},
             dense, pos)
         kvcache.scatter_token(self.pool, self._layout, dense, tables, pos,
                               self.page_size)
-        return logits[:, -1].argmax(dim=-1).cpu().numpy().astype(np.int32)
+        with trace.span("serve.sync"):
+            return logits[:, -1].argmax(dim=-1).cpu().numpy().astype(np.int32)
 
     def zero_pages(self, pages) -> None:
         if len(pages) == 0:
@@ -235,8 +244,9 @@ class TierStats:
     # steps where active decoders stalled with no decode batch (must stay
     # 0: chunked prefill never preempts a lane's decode)
     n_decode_stall_steps: int = 0
-    # host wall-clock seconds in the runner's decode / prefill calls; each
-    # call ends by copying its tokens to the host, so device work is in
+    # host wall-clock seconds in the runner's decode / prefill calls (the
+    # durations of their serve.decode / serve.prefill spans); each call
+    # ends by copying its tokens to the host, so device work is in
     decode_s: float = 0.0
     prefill_s: float = 0.0
 
@@ -424,20 +434,21 @@ class Engine:
         prompt completes."""
         runner = lane.runner
         L = req.prompt.shape[0]
+        start = req.prefill_pos
         if runner.chunked:
-            end = min(req.prefill_pos + runner.prefill_chunk, L)
+            end = min(start + runner.prefill_chunk, L)
             self._grow_pages(lane, req, end)
-            t0 = time.perf_counter()
-            token = runner.prefill_chunk_step(
-                req.prompt, req.prefill_pos, end, self._table_row(runner, req))
         else:
             # the runner buffers pages_for(L) full pages: cover them all
             end = L
             self._grow_pages(lane, req, runner.pages_for(L) * runner.page_size)
-            t0 = time.perf_counter()
-            token = runner.prefill_full(req.slot, req.prompt,
-                                        self._table_row(runner, req))
-        lane.stats.prefill_s += time.perf_counter() - t0
+        with trace.span("serve.prefill", tier=req.tier) as sp:
+            row = self._table_row(runner, req)
+            if runner.chunked:
+                token = runner.prefill_chunk_step(req.prompt, start, end, row)
+            else:
+                token = runner.prefill_full(req.slot, req.prompt, row)
+        lane.stats.prefill_s += sp.t1 - sp.t0
         req.prefill_pos = end
         lane.stats.n_prefill_chunks += 1
         if token is None:
@@ -447,71 +458,81 @@ class Engine:
         lane.active[req.slot] = req
         self._land_token(events, lane, req, token)
 
+    def _decode(self, events, lane):
+        """One decode call over the lane's whole pool; lands every live
+        row's token and retires the requests it completes."""
+        runner = lane.runner
+        n = runner.n_slots
+        tokens = np.zeros(n, np.int32)
+        pos = np.zeros(n, np.int32)
+        tables = np.full((n, runner.max_pages), runner.n_pages, np.int32)
+        used = 0
+        for slot, req in lane.active.items():
+            # this step writes cache position req.pos — make sure a
+            # physical page covers it (always within the reservation)
+            self._grow_pages(lane, req, req.pos + 1)
+            tokens[slot] = req.tokens[-1]
+            pos[slot] = req.pos
+            tables[slot, :len(req.pages)] = req.pages
+            used += req.pos + 1
+        # the runner adds the positions it attends (ctx_attended)
+        with trace.span("serve.decode", tier=lane.spec.name,
+                        ctx_used=used) as sp:
+            nxt = runner.decode(tokens, pos, tables)
+        lane.stats.decode_s += sp.t1 - sp.t0
+        lane.stats.n_decode_steps += 1
+        lane.stats.occupancy_sum += len(lane.active)
+        # iterate a snapshot: retirement mutates lane.active
+        for slot, req in sorted(lane.active.items()):
+            req.pos += 1
+            self._land_token(events, lane, req, nxt[slot])
+
     def step(self) -> list:
         """One engine step: admit -> advance prefills one chunk -> decode
         every lane -> retire.  Returns the step's events."""
         self._step += 1
-        events = []
-        now = self.clock.now()
-        ran_chunks = {}
-        # decoders live BEFORE this step's prefill work: the interleave /
-        # stall accounting is about what chunked prefill does to them
-        had_active = {name: bool(lane.active)
-                      for name, lane in self._lanes.items()}
-        for name, lane in self._lanes.items():
-            # admit while a row AND the head request's full page
-            # reservation fit — head-of-line, so a big request is never
-            # starved by smaller queue-jumpers behind it
-            while lane.alloc.n_free and self.scheduler.pending(name):
-                head = self.scheduler.peek_next(name, now)
-                need = head.prompt.shape[0] + head.max_new_tokens - 1
-                n_need = lane.runner.pages_for(need)
-                if not lane.pages.can_reserve(n_need):
-                    break
-                req = self.scheduler.pop_next(name, now)
-                lane.pages.reserve(req.id, n_need)
-                req.n_reserved_pages = n_need
-                req.slot = lane.alloc.alloc(req.id)
-                req.admit_time = now
-                req.admit_step = self._step
-                lane.prefilling[req.slot] = req
-                self._emit(events, req, "admit")
-            # one prefill chunk per pending prompt, in admission order
-            ran_chunks[name] = len(lane.prefilling)
-            for req in [lane.prefilling[s] for s in list(lane.prefilling)]:
-                self._prefill_one(events, lane, req)
-        for name, lane in self._lanes.items():
-            if not lane.active:
-                # a lane whose decoders got no decode batch this step has
-                # stalled: structurally impossible here (prefill chunks
-                # never preempt decode)
-                if had_active[name]:
-                    lane.stats.n_decode_stall_steps += 1
-                continue
-            if ran_chunks[name] and had_active[name]:
-                lane.stats.n_interleave_steps += 1
-            runner = lane.runner
-            n = runner.n_slots
-            tokens = np.zeros(n, np.int32)
-            pos = np.zeros(n, np.int32)
-            tables = np.full((n, runner.max_pages), runner.n_pages, np.int32)
-            for slot, req in lane.active.items():
-                # this step writes cache position req.pos — make sure a
-                # physical page covers it (always within the reservation)
-                self._grow_pages(lane, req, req.pos + 1)
-                tokens[slot] = req.tokens[-1]
-                pos[slot] = req.pos
-                tables[slot, :len(req.pages)] = req.pages
-            t0 = time.perf_counter()
-            nxt = runner.decode(tokens, pos, tables)
-            lane.stats.decode_s += time.perf_counter() - t0
-            lane.stats.n_decode_steps += 1
-            lane.stats.occupancy_sum += len(lane.active)
-            # iterate a snapshot: retirement mutates lane.active
-            for slot, req in sorted(lane.active.items()):
-                req.pos += 1
-                self._land_token(events, lane, req, nxt[slot])
-        return events
+        with trace.span("serve.step"):
+            events = []
+            now = self.clock.now()
+            ran_chunks = {}
+            # decoders live BEFORE this step's prefill work: the interleave
+            # / stall accounting is about what chunked prefill does to them
+            had_active = {name: bool(lane.active)
+                          for name, lane in self._lanes.items()}
+            for name, lane in self._lanes.items():
+                # admit while a row AND the head request's full page
+                # reservation fit — head-of-line, so a big request is never
+                # starved by smaller queue-jumpers behind it
+                while lane.alloc.n_free and self.scheduler.pending(name):
+                    head = self.scheduler.peek_next(name, now)
+                    need = head.prompt.shape[0] + head.max_new_tokens - 1
+                    n_need = lane.runner.pages_for(need)
+                    if not lane.pages.can_reserve(n_need):
+                        break
+                    req = self.scheduler.pop_next(name, now)
+                    lane.pages.reserve(req.id, n_need)
+                    req.n_reserved_pages = n_need
+                    req.slot = lane.alloc.alloc(req.id)
+                    req.admit_time = now
+                    req.admit_step = self._step
+                    lane.prefilling[req.slot] = req
+                    self._emit(events, req, "admit")
+                # one prefill chunk per pending prompt, in admission order
+                ran_chunks[name] = len(lane.prefilling)
+                for req in [lane.prefilling[s] for s in list(lane.prefilling)]:
+                    self._prefill_one(events, lane, req)
+            for name, lane in self._lanes.items():
+                if not lane.active:
+                    # a lane whose decoders got no decode batch this step
+                    # has stalled: structurally impossible here (prefill
+                    # chunks never preempt decode)
+                    if had_active[name]:
+                        lane.stats.n_decode_stall_steps += 1
+                    continue
+                if ran_chunks[name] and had_active[name]:
+                    lane.stats.n_interleave_steps += 1
+                self._decode(events, lane)
+            return events
 
     @property
     def idle(self) -> bool:
