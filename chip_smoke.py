@@ -1200,8 +1200,9 @@ def phase_serve():
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import afpm_matmul as k1
+    from repro_torch.kernels import decode_attention as fused
     from repro_torch.models import transformer
-    from repro_torch.serving import DEFAULT_TIERS
+    from repro_torch.serving import DEFAULT_TIERS, trace
     from repro_torch.session import Session
 
     cfg = get_arch("qwen3-4b")
@@ -1223,10 +1224,15 @@ def phase_serve():
                                max_new_tokens=16))
 
     k1.afpm_matmul.launches = 0
+    fused_before = fused.decode_core.launches
+    trace.clear()
     t0 = time.perf_counter()
     stats = eng.run()
     serve_s = time.perf_counter() - t0
     launches = k1.afpm_matmul.launches
+    fused_launches = fused.decode_core.launches - fused_before
+    span_layers = sorted({s.attrs["attn_kernel_layers"]
+                          for s in trace.spans() if s.name == "serve.decode"})
 
     bad = [r.id for r in reqs if not r.done or len(r.result()) != 16]
     if bad:
@@ -1239,6 +1245,13 @@ def phase_serve():
     if launches != per_forward * forwards:
         fails.append(f"afpm_matmul launched {launches} times, expected "
                      f"{per_forward} x {forwards} forwards")
+    # every decode call's attention layers take the fused kernel, once each
+    decodes = sum(st.n_decode_steps for st in stats.values())
+    if fused_launches != cfg.n_layers * decodes or span_layers != [
+            cfg.n_layers]:
+        fails.append(f"decode attention kernel launched {fused_launches} "
+                     f"times, expected {cfg.n_layers} x {decodes} decode "
+                     f"calls; serve.decode spans counted {span_layers}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     fails += solo_mismatches("qwen3-4b", sess, reqs)
@@ -1262,7 +1275,9 @@ def phase_serve():
     print(f"[serve] qwen3-4b full width ({cfg.param_count() / 1e9:.2f} B params, "
           f"init {init_s:.1f} s): 6 requests x 16 tokens in {serve_s:.2f} s; "
           f"{'; '.join(parts)}; afpm_matmul launches {launches} = "
-          f"{per_forward} x {forwards} forwards; every tier's tokens == its "
+          f"{per_forward} x {forwards} forwards; decode attention kernel "
+          f"{fused_launches} = {cfg.n_layers} x {decodes} decode calls "
+          f"(serve.decode spans: {span_layers}); every tier's tokens == its "
           f"solo generate; peak memory {peak_gb:.2f} GB")
     print(f"[serve] batch-invariance probe, largest ulp gaps (0: bit for "
           f"bit): decode row 0 among 4 vs alone {probe['decode_row']}; "
@@ -1274,63 +1289,113 @@ def phase_serve():
           f"{probe['seg1_gap']}")
     if fails:
         raise AssertionError("[serve]: " + "; ".join(fails))
-    return launches, sess, probe
+    return launches, fused_launches, sess, probe
 
 
-def phase_decode_attention():
-    """What the decode step's fp64 sums cost as the cache grows, at
-    qwen3-4b's attention shapes (4 slots, 32 query heads over 8 KV heads
-    of 128, a bf16 cache, every slot at the cache's end):
-    ``models.attention.decode_attention`` against the same function with
-    fp32 einsums of bf16-rounded operands (its form before the fp64 sums,
-    which let a row's bits change with its batch).  Device time behind a
-    spin after a 64 MB write flush; times 36 layers for a step."""
+def decode_ties(got, want) -> tuple:
+    """(elements that differ, their largest gap in ulps): the fused decode
+    kernel and its plain chain sum in fp64 in other orders, so a rounding
+    to fp32 or bf16 may flip by one ulp where the exact value sits within
+    a few fp64 ulps of a boundary (a tie), and nowhere else."""
     import torch
 
+    width = {torch.float32: 32, torch.bfloat16: 16}[want.dtype]
+    it = {32: torch.int32, 16: torch.int16}[width]
+
+    def ordered(t):
+        b = t.contiguous().view(it).to(torch.int64)
+        mag = b & ((1 << (width - 1)) - 1)
+        return torch.where(b < 0, -mag, mag)
+
+    gap = (ordered(got) - ordered(want)).abs()
+    return int((gap > 0).sum()), int(gap.max())
+
+
+def phase_decode_attention(peaks):
+    """The fused decode attention core (``kernels/decode_attention.py``:
+    qk-norm, RoPE, the cache write and fp64-summed GQA attention in one
+    launch) at qwen3-4b's shapes, against its plain chain
+    (``attention.decode_core_plain``): 96 rows of a 640-position view at
+    batch-short's fill (rows at positions 64-422, about 38% of the view in
+    use), and 4 slots at the end of caches of 256, 4096 and 32768.  Device
+    time behind a spin after a 64 MB write flush, a layer; the host's
+    microseconds a call with the card busy; the byte bound (each attended
+    K and V row read once, q / k / v and the output once, the new cache
+    rows written) at the card's bandwidth.  The kernel's outputs and cache
+    rows must equal the plain chain's but for counted one-ulp ties."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as fused
     from repro_torch.models import attention
-    from repro_torch.models.layers import bf16_round
+    from repro_torch.models.layers import fp64_sums
 
-    def fp32_sums(q, kc, vc, pos):
-        B, _, H, Dh = q.shape
-        KH = kc.shape[2]
-        qr = q.reshape(B, KH, H // KH, Dh)
-        sc = torch.einsum("bkgd,bskd->bkgs", bf16_round(qr),
-                          bf16_round(kc)) * (Dh ** -0.5)
-        k_pos = torch.arange(kc.shape[1], device=q.device)
-        mask = k_pos[None, None, None, :] <= pos[:, None, None, None]
-        pr = torch.softmax(sc.masked_fill(~mask, attention.NEG_INF), dim=-1)
-        return torch.einsum("bkgs,bskd->bkgd", bf16_round(pr),
-                            bf16_round(vc)).reshape(B, 1, H, Dh)
-
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg = get_arch("qwen3-4b")
+    H, KH, D, layers = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, 36
+    rng = np.random.default_rng(0)
     flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
-    B, H, KH, Dh, layers = 4, 32, 8, 128, 36
-    rows, parts = [], []
-    for S in (256, 4096, 32768):
-        q = torch.randn((B, 1, H, Dh), generator=gen, device="cuda")
-        kc, vc = (torch.randn((B, S, KH, Dh), generator=gen, device="cuda")
-                  .to(torch.bfloat16) for _ in range(2))
-        pos = torch.full((B,), S - 1, device="cuda")
-        got = attention.decode_attention(q, kc, vc, pos)
-        want = fp32_sums(q, kc, vc, pos)
-        # the same function: the sums' orders differ by fp32 roundings of
-        # the scores, which may move a bf16 rounding of a softmax weight
-        # (2**-9 of it), nothing more
-        rel = ((got - want).abs().max() / want.abs().max()).item()
-        if not torch.isfinite(got).all() or rel > 2.0 ** -8:
-            raise AssertionError(f"decode_attention at cache {S}: {rel:.3g} "
-                                 f"of the largest from its fp32 sums")
-        f64_ms = timed_ms(lambda: attention.decode_attention(q, kc, vc, pos),
-                          20, flush, True)
-        f32_ms = timed_ms(lambda: fp32_sums(q, kc, vc, pos), 20, flush, True)
-        rows.append(dict(cache=S, f64_ms=f64_ms, f32_ms=f32_ms, rel=rel))
-        parts.append(f"cache {S}: fp64 sums {f64_ms:.4f} ms, fp32 "
-                     f"{f32_ms:.4f} ms a layer (a step's {layers} layers "
-                     f"+{layers * (f64_ms - f32_ms):.2f} ms; outputs within "
-                     f"{rel:.2g})")
-        del q, kc, vc, got, want
-    print(f"[decode-attn] qwen3-4b decode attention, {B} slots: "
-          f"{'; '.join(parts)}")
+    scales = tuple(torch.from_numpy((rng.standard_normal(D) * 0.1).astype(
+        np.float32)).cuda() for _ in range(2))
+    params = {"q_norm": {"scale": scales[0]}, "k_norm": {"scale": scales[1]}}
+    rows, parts, fails = [], [], []
+    shapes = [("batch-short", 96, 640, rng.integers(64, 423, 96))] + [
+        (f"cache {S}", 4, S, np.full(4, S - 1)) for S in (256, 4096, 32768)]
+    for tag, B, S, at in shapes:
+        q, k, v = (torch.from_numpy(rng.standard_normal((B, 1, h, D)).astype(
+            np.float32)).cuda() for h in (H, KH, KH))
+        cache = {n: torch.from_numpy(rng.standard_normal((B, S, KH, D)).astype(
+            np.float32)).cuda().to(torch.bfloat16) for n in ("k", "v")}
+        pos = torch.as_tensor(at, dtype=torch.int64, device="cuda")
+        positions = pos[:, None]
+        kc = {n: t.clone() for n, t in cache.items()}
+
+        def kernel():
+            return fused.decode_core(q, k, v, kc["k"], kc["v"], pos,
+                                     positions, scales=scales,
+                                     eps=cfg.norm_eps, theta=cfg.rope_theta)
+
+        def plain():
+            with fp64_sums():
+                return attention.decode_core_plain(
+                    params, q, k, v, cache, cfg, None, positions, pos)[0]
+
+        got, want = kernel(), plain().to(torch.bfloat16)
+        torch.cuda.synchronize()
+        ties = {"out": decode_ties(got, want)}
+        r = torch.arange(B, device="cuda")
+        for n in ("k", "v"):
+            ties[n] = decode_ties(kc[n][r, pos], cache[n][r, pos])
+        for what, (n, worst) in ties.items():
+            if worst > 1 or n > max(2, (got if what == "out" else q).numel()
+                                    // 10 ** 4):
+                fails.append(f"{tag} {what}: {n} elements differ, by up to "
+                             f"{worst} ulps")
+        if not torch.isfinite(got.float()).all():
+            fails.append(f"{tag}: non-finite outputs")
+        keys = int((pos + 1).sum()) * KH
+        nbytes = (2 * keys * D * 2 + (q.numel() + 2 * k.numel()) * 4
+                  + got.numel() * 2 + 2 * k.numel() * 2)
+        bound_ms = nbytes / peaks[0] * 1e3
+        kernel_ms = timed_ms(kernel, 20, flush, True)
+        plain_ms = timed_ms(plain, 5, flush, True, spin_cycles=20_000_000)
+        host = (host_us_per_call(kernel), host_us_per_call(plain, 20))
+        rows.append(dict(shape=tag, rows=B, view=S, attended=keys // KH,
+                         kernel_ms=kernel_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by="bytes",
+                         kernel_host_us=host[0], plain_host_us=host[1],
+                         ties={w: list(t) for w, t in ties.items()}))
+        parts.append(f"{tag} ({B} rows, {keys // KH} keys attended): kernel "
+                     f"{kernel_ms:.4f} ms (bound {bound_ms:.4f}, "
+                     f"{100 * bound_ms / kernel_ms:.1f}%), plain "
+                     f"{plain_ms:.4f} ms a layer (a step's {layers} layers "
+                     f"{layers * kernel_ms:.2f} / {layers * plain_ms:.2f} ms); "
+                     f"host {host[0]:.1f} / {host[1]:.1f} us a call; ties "
+                     f"{ties}")
+        del q, k, v, cache, kc, got, want
+    print(f"[decode-attn] qwen3-4b decode attention core: {'; '.join(parts)}")
+    if fails:
+        raise AssertionError("[decode-attn]: " + "; ".join(fails))
     return rows
 
 
@@ -5322,12 +5387,12 @@ def main() -> int:
     peaks = card_peaks(name)
     phase_device()
     k = phase_kernel(peaks)
-    launches, qwen3, probe = phase_serve()
+    launches, serve_fused, qwen3, probe = phase_serve()
     tu = phase_tune(qwen3)
     la = phase_launch(qwen3)
     del qwen3
     torch.cuda.empty_cache()
-    phase_decode_attention()
+    da = phase_decode_attention(peaks)
     b = phase_bitwise(peaks)
     e = phase_emulated(peaks)
     torch.cuda.empty_cache()
@@ -5462,7 +5527,14 @@ def main() -> int:
         "train_zamba2_step_launches": tz["k3"],
         "zamba2_launches": z["k3"], "zamba2": c["zamba2"],
         "placed_launches": pl["mamba2"]["k3"],
-        "backward": "plain (repro_torch/kernels/autograd.py)"}]}))
+        "backward": "plain (repro_torch/kernels/autograd.py)"}, {
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": None, "launches": serve_fused,
+        "ms": da[0]["kernel_ms"], "kernel_ms": da[0]["kernel_ms"],
+        "plain_ms": da[0]["plain_ms"], "library_ms": None,
+        "bound_ms": da[0]["bound_ms"], "bound_by": "bytes", "shapes": da,
+        "backward": None}]}))
     print(smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -16,6 +16,12 @@ cross-attention keeps the blockwise form in decode, as the reference
 does).  The reference's algorithm is kept (no
 ``scaled_dot_product_attention``) so the bits stay comparable.
 
+A decode step on the card runs its attention core (qk-norm, RoPE, the
+cache write and the grouped fp64 attention) as one hand-written kernel a
+layer (:mod:`repro_torch.kernels.decode_attention`), with the same
+roundings as :func:`decode_core_plain`, the op-by-op chain that every
+other decode step runs (:func:`takes_decode_kernel` decides).
+
 Caches are updated in place: the port's serving state is mutable, which
 saves the copy a functional update would make of every layer's cache.
 """
@@ -27,6 +33,7 @@ import torch
 
 from repro_torch.distributed import collectives, sharding
 from repro_torch.distributed.sharding import logical_constraint, reshape
+from repro_torch.kernels import decode_attention as fused
 from repro_torch.numerics import layer_scope, nmatmul
 
 import torch.nn.functional as F
@@ -225,48 +232,103 @@ def gqa_apply(params, x, cfg, spec, positions, cache=None, q_offset=0,
         k = reshape(nmatmul(x, params["wk"]), B, S, KH, hd)
     with layer_scope("wv"):
         v = reshape(nmatmul(x, params["wv"]), B, S, KH, hd)
+    window = spec.window if spec.attn == "local" else None
     decoding = cache is not None and S == 1
+    scales = (_norm_scales(params, cfg)
+              if decoding and q.device.type == "cuda" else None)
+    if decoding and takes_decode_kernel(q, k, v, cache, cfg, positions,
+                                        q_offset, x.dtype, scales):
+        # the whole attention core in one launch, the cache written in place
+        out = fused.launch(q, k, v, cache["k"], cache["v"], q_offset,
+                           positions, scales, cfg.norm_eps, cfg.rope_theta,
+                           window, cfg.attn_softcap, x.dtype)
+        new_cache = cache
+    else:
+        q, k, v = _norm_rope(params, q, k, v, cfg, positions)
+        if cache is None:
+            out = blockwise_attention(
+                q, _repeat_kv(k, H // KH), _repeat_kv(v, H // KH),
+                causal=causal, window=window, attn_cap=cfg.attn_softcap,
+                q_offset=q_offset)
+            out = logical_constraint(out, HEADS_AXES)
+            new_cache = {"k": logical_constraint(k, CACHE_AXES),
+                         "v": logical_constraint(v, CACHE_AXES)}
+        elif decoding:
+            out, new_cache = _attend_cache(q, k, v, cache, cfg, window,
+                                           q_offset)
+        else:
+            # chunked prefill (S > 1, scalar q_offset): update the cache at
+            # q_offset, then the same blockwise kernel as the no-cache
+            # prefill over the updated cache; rows past the frontier mask
+            # to exact-zero contributions
+            k_cache = _cache_update(cache["k"], k, q_offset)
+            v_cache = _cache_update(cache["v"], v, q_offset)
+            out = blockwise_attention(
+                q, _repeat_kv(k_cache, H // KH), _repeat_kv(v_cache, H // KH),
+                window=window, attn_cap=cfg.attn_softcap, q_offset=q_offset)
+            out = logical_constraint(out, HEADS_AXES)
+            new_cache = {"k": k_cache, "v": v_cache}
+
+    out = reshape(out.to(x.dtype), B, S, H * hd)
+    with layer_scope("wo"):
+        return nmatmul(out, params["wo"]).to(x.dtype), new_cache
+
+
+def _norm_rope(params, q, k, v, cfg, positions):
+    """qk-norm and RoPE of q and k, and q, k, v laid out with the heads
+    sharded and the sequence whole (the reference's TP region; the
+    residual stream re-shards at the block boundary)."""
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-    # heads sharded, the sequence whole (the reference's TP region); the
-    # residual stream re-shards at the block boundary
-    q = logical_constraint(q, HEADS_AXES)
-    k = logical_constraint(k, HEADS_AXES)
-    v = logical_constraint(v, HEADS_AXES)
-    window = spec.window if spec.attn == "local" else None
+    return (logical_constraint(q, HEADS_AXES), logical_constraint(k, HEADS_AXES),
+            logical_constraint(v, HEADS_AXES))
 
-    if cache is None:
-        out = blockwise_attention(
-            q, _repeat_kv(k, H // KH), _repeat_kv(v, H // KH),
-            causal=causal, window=window, attn_cap=cfg.attn_softcap,
-            q_offset=q_offset)
-        out = logical_constraint(out, HEADS_AXES)
-        new_cache = {"k": logical_constraint(k, CACHE_AXES),
-                     "v": logical_constraint(v, CACHE_AXES)}
-    else:
-        # decode (S == 1) or chunked prefill (S > 1, scalar q_offset):
-        # update the cache at q_offset, attend the full cache
-        k_cache = _cache_update(cache["k"], k, q_offset)
-        v_cache = _cache_update(cache["v"], v, q_offset)
-        if not decoding:
-            # chunked prefill: the same blockwise kernel as the no-cache
-            # prefill, over the updated cache; rows past the frontier mask
-            # to exact-zero contributions
-            out = blockwise_attention(
-                q, _repeat_kv(k_cache, H // KH), _repeat_kv(v_cache, H // KH),
-                window=window, attn_cap=cfg.attn_softcap, q_offset=q_offset)
-            out = logical_constraint(out, HEADS_AXES)
-        else:
-            out = decode_attention(q, k_cache, v_cache, q_offset,
-                                   window=window, attn_cap=cfg.attn_softcap)
-        new_cache = {"k": k_cache, "v": v_cache}
 
-    out = reshape(out.to(x.dtype), B, S, H * hd)
-    with layer_scope("wo"):
-        return nmatmul(out, params["wo"]).to(x.dtype), new_cache
+def _attend_cache(q, k, v, cache, cfg, window, pos):
+    """A decode step's cache update at ``pos`` (in place) and
+    :func:`decode_attention` over the updated cache: ``(out fp64, new
+    cache)``."""
+    k_cache = _cache_update(cache["k"], k, pos)
+    v_cache = _cache_update(cache["v"], v, pos)
+    out = decode_attention(q, k_cache, v_cache, pos, window=window,
+                           attn_cap=cfg.attn_softcap)
+    return out, {"k": k_cache, "v": v_cache}
+
+
+def decode_core_plain(params, q, k, v, cache, cfg, window, positions, pos):
+    """A decode step's attention core op by op, as :func:`gqa_apply` runs
+    it wherever the fused kernel does not (:func:`takes_decode_kernel`):
+    qk-norm and RoPE (:func:`_norm_rope`), the cache update at ``pos`` (in
+    place) and :func:`decode_attention`.  ``q`` (B, 1, H, D), ``k`` / ``v``
+    (B, 1, KH, D) as the projections returned them.  Returns ``(out,
+    new_cache)``, ``out`` fp64 (B, 1, H, D) for the caller to round once.
+    The plain version of :mod:`repro_torch.kernels.decode_attention`."""
+    return _attend_cache(*_norm_rope(params, q, k, v, cfg, positions), cache,
+                         cfg, window, pos)
+
+
+def _norm_scales(params, cfg):
+    """The qk-norm scales as the kernel takes them (fp32), or None."""
+    if not cfg.qk_norm:
+        return None
+    return (params["q_norm"]["scale"].to(torch.float32),
+            params["k_norm"]["scale"].to(torch.float32))
+
+
+def takes_decode_kernel(q, k, v, cache, cfg, positions, pos, out_dtype,
+                        scales=None) -> bool:
+    """Whether a decode step's attention core runs the fused kernel: on
+    CUDA operands under the serving path's fp64 sums, with plain RoPE (no
+    M-RoPE sections), an unplaced cache and the operands the kernel takes
+    (:func:`repro_torch.kernels.decode_attention.refusal`); qk-norm
+    (``scales``) on or off, a window and a softcap are the kernel's own."""
+    return (q.device.type == "cuda" and fp64_sums_on()
+            and cfg.mrope_sections is None
+            and fused.refusal(q, k, v, cache["k"], cache["v"], positions,
+                              pos, out_dtype, scales) is None)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window=None, attn_cap=None):

@@ -38,6 +38,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.numerics import torch_dtype
+from repro_torch.kernels import decode_attention
 from repro_torch.models import transformer
 from repro_torch.serving import kvcache, trace
 from repro_torch.serving.kvcache import (PageAllocator, ServingError,
@@ -202,9 +203,13 @@ class TransformerRunner(ModelRunner):
         if any(self._layout):
             # every row attends the whole view gathered through its table
             trace.count(ctx_attended=tables.numel() * self.page_size)
+        fused_before = decode_attention.decode_core.launches
         logits, dense = transformer.decode_step(
             self.params, self.cfg, {"token": self._tensor(tokens)[:, None]},
             dense, pos)
+        # the layers whose attention core took the fused kernel
+        trace.count(attn_kernel_layers=decode_attention.decode_core.launches
+                    - fused_before)
         kvcache.scatter_token(self.pool, self._layout, dense, tables, pos,
                               self.page_size)
         with trace.span("serve.sync"):

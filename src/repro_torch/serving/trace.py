@@ -10,7 +10,8 @@ attached.  The engine and the lane runner open four:
 - ``serve.decode``: one runner decode call (``tier``; ``ctx_used``, the
   positions the live rows attend, from the engine; ``ctx_attended``, the
   positions the gathered view holds over all its rows, counted by the
-  runner that gathers it);
+  runner that gathers it; ``attn_kernel_layers``, the layers whose
+  attention core took the fused decode kernel, counted by the runner);
 - ``serve.sync``: the greedy pick and its copy to the host, where a call
   waits for the device.
 

@@ -805,3 +805,240 @@ def test_exact_tier_and_tied_head_run_k1_rows_invariant(rng):
     for m in (1, 4):
         assert torch.equal(transformer.logits_fn(params, cfg, h[:, :m]),
                            full[:, :m])
+
+
+# --- the decode step's fused attention core (kernels/decode_attention.py) --
+
+def _decode_inputs(rng, B, S, H, KH, D, pos, *, cache_dtype=torch.bfloat16,
+                   norm=True):
+    """A decode layer's q, k, v (as K1 returns them), its cache (random
+    rows, so masked keys would show if read), norm scales and positions."""
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).cuda()
+
+    q, k, v = f32(B, 1, H, D), f32(B, 1, KH, D), f32(B, 1, KH, D)
+    cache = {n: f32(B, S, KH, D).to(cache_dtype) for n in ("k", "v")}
+    scales = (f32(D, scale=0.1), f32(D, scale=0.1)) if norm else None
+    if isinstance(pos, int):
+        positions = (torch.arange(1, device="cuda") + pos)[None].expand(B, 1)
+    else:
+        pos = torch.as_tensor(pos, dtype=torch.int64, device="cuda")
+        positions = pos[:, None]
+    return q, k, v, cache, scales, pos, positions
+
+
+def _plain_cfg(norm, cap=None, theta=1e6):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    return dataclasses.replace(get_arch("qwen3-4b"), qk_norm=norm,
+                               attn_softcap=cap, rope_theta=theta)
+
+
+def _decode_both(q, k, v, cache, scales, pos, positions, *, window=None,
+                 cap=None, out_dtype=torch.bfloat16):
+    """The kernel and its plain chain on the same inputs, each on its own
+    copy of the cache: (kernel out, kernel cache, plain out rounded as the
+    caller rounds it, plain cache)."""
+    from repro_torch.kernels import decode_attention as fused
+    from repro_torch.models import attention
+    from repro_torch.models.layers import fp64_sums
+
+    cfg = _plain_cfg(scales is not None, cap)
+    params = ({} if scales is None else
+              {"q_norm": {"scale": scales[0]}, "k_norm": {"scale": scales[1]}})
+    kc = {n: t.clone() for n, t in cache.items()}
+    pc = {n: t.clone() for n, t in cache.items()}
+    before = fused.decode_core.launches
+    got = fused.decode_core(q, k, v, kc["k"], kc["v"], pos, positions,
+                            scales=scales, eps=cfg.norm_eps,
+                            theta=cfg.rope_theta, window=window, cap=cap,
+                            out_dtype=out_dtype)
+    assert fused.decode_core.launches == before + 1
+    with fp64_sums():
+        want, _ = attention.decode_core_plain(params, q, k, v, pc, cfg,
+                                              window, positions, pos)
+    torch.cuda.synchronize()
+    return got, kc, want.to(out_dtype), pc
+
+
+def _ties(got, want):
+    """(elements that differ, their largest distance in ulps of the dtype).
+
+    Tolerance: the kernel and the plain chain sum every dot, norm and
+    softmax in fp64, in different orders, so their sums lie a few fp64
+    ulps apart; a rounding to fp32 or bf16 can then flip only where the
+    exact value sits that close to a rounding boundary (about 2**-40 of
+    the cases for a bf16 rounding).  Such a tie moves its element by one
+    ulp, and ties are counted, not hidden: at most 1 in 10**4 elements
+    (and 2 in any call) may be one."""
+    width = {torch.float32: 32, torch.bfloat16: 16}[want.dtype]
+    it = {32: torch.int32, 16: torch.int16}[width]
+
+    def ordered(t):
+        b = t.contiguous().view(it).to(torch.int64)
+        mag = b & ((1 << (width - 1)) - 1)
+        return torch.where(b < 0, -mag, mag)
+
+    gap = (ordered(got) - ordered(want)).abs()
+    return int((gap > 0).sum()), int(gap.max())
+
+
+def _assert_ties(got, want, what):
+    n, worst = _ties(got, want)
+    assert torch.isfinite(got.float()).all(), what
+    assert worst <= 1 and n <= max(2, got.numel() // 10 ** 4), \
+        (what, n, worst)
+
+
+# (B, S, H, KH, D, positions, norm, window, cap, cache dtype, out dtype):
+# qwen3-4b at batch-short's fill (96 rows of a 640 view, rows at their own
+# positions) and lockstep; gemma2's heads with a window and a softcap;
+# zamba2's shared block (112-wide heads, no qk-norm); llama4's group of
+# 5; fp32 caches and outputs (the reduced configs); a 4096 cache, whose
+# scores take the scratch buffer
+DECODE_CASES = {
+    "qwen3-batch-short": (96, 640, 32, 8, 128, "rows", True, None, None,
+                          "bfloat16", "bfloat16"),
+    "qwen3-lockstep": (4, 256, 32, 8, 128, 200, True, None, None,
+                       "bfloat16", "bfloat16"),
+    "gemma2-window-cap": (4, 512, 16, 8, 256, "rows", False, 100, 50.0,
+                          "bfloat16", "bfloat16"),
+    "zamba2-shared": (4, 256, 32, 32, 112, "rows", False, None, None,
+                      "bfloat16", "bfloat16"),
+    "llama4-group5": (4, 256, 40, 8, 128, "rows", False, None, None,
+                      "bfloat16", "bfloat16"),
+    "fp32-cache": (4, 256, 4, 4, 16, "rows", True, None, None, "float32",
+                   "float32"),
+    "long-4096": (4, 4096, 32, 8, 128, "rows", True, None, None, "bfloat16",
+                  "bfloat16"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_decode_attention_kernel_matches_its_plain_chain(case, rng):
+    """The kernel against ``attention.decode_core_plain`` on the same
+    inputs: the cache rows it writes and its outputs are equal but for
+    counted ties (``_ties``), and it writes nothing but row ``pos``."""
+    _need_card()
+    B, S, H, KH, D, where, norm, window, cap, cdt, odt = DECODE_CASES[case]
+    pos = (rng.integers(0, S, B).tolist() if where == "rows" else where)
+    ins = _decode_inputs(rng, B, S, H, KH, D, pos, norm=norm,
+                         cache_dtype=getattr(torch, cdt))
+    got, kc, want, pc = _decode_both(*ins, window=window, cap=cap,
+                                     out_dtype=getattr(torch, odt))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    _assert_ties(got, want, (case, "out"))
+    cache, p = ins[3], ins[5]
+    rows = torch.arange(B, device="cuda")
+    for n in ("k", "v"):
+        _assert_ties(kc[n][rows, p], pc[n][rows, p], (case, n))
+        kept = torch.ones(B, S, dtype=torch.bool, device="cuda")
+        kept[rows, p] = False
+        assert torch.equal(kc[n][kept], cache[n][kept]), (case, n)
+
+
+@pytest.mark.cuda
+def test_decode_attention_kernel_rows_do_not_depend_on_the_batch_or_view(rng):
+    """A row's output and cache row are the same bits alone and among 96
+    rows, in a 640-position view and a 4096 one (its keys past ``pos``
+    random), and a scalar position equals the same position per row."""
+    _need_card()
+    from repro_torch.kernels import decode_attention as fused
+
+    B, S, H, KH, D = 96, 640, 32, 8, 128
+    q, k, v, cache, scales, pos, positions = _decode_inputs(
+        rng, B, S, H, KH, D, rng.integers(0, S, B).tolist())
+
+    def run(rows, length, p, pp):
+        kc = {n: t[rows].clone() for n, t in cache.items()}
+        if length > S:
+            pad = torch.randn((len(rows), length - S, KH, D), device="cuda")
+            kc = {n: torch.cat([t, pad.to(t.dtype)], 1) for n, t in kc.items()}
+        out = fused.decode_core(q[rows], k[rows], v[rows], kc["k"], kc["v"],
+                                p, pp, scales=scales, theta=1e6)
+        return out, kc
+
+    full, fc = run(list(range(B)), S, pos, positions)
+    for r in (0, 37, 95):
+        for length in (S, 4096):
+            one, oc = run([r], length, pos[r:r + 1], positions[r:r + 1])
+            assert torch.equal(one[0], full[r]), (r, length)
+            for n in ("k", "v"):
+                assert torch.equal(oc[n][0, pos[r]], fc[n][r, pos[r]])
+    # lockstep: one position for every row, as a scalar or per row
+    same = torch.full((8,), 300, dtype=torch.int64, device="cuda")
+    rows = list(range(8))
+    a, _ = run(rows, S, 300, same[:, None])
+    b, _ = run(rows, S, same, same[:, None])
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_decode_attention_kernel_rejects_what_it_does_not_take(rng):
+    _need_card()
+    from repro_torch.kernels import decode_attention as fused
+
+    q, k, v, cache, scales, pos, positions = _decode_inputs(
+        rng, 4, 64, 8, 2, 128, [1, 2, 3, 4])
+
+    def call(**kw):
+        a = dict(q=q, k=k, v=v, k_cache=cache["k"], v_cache=cache["v"],
+                 pos=pos, positions=positions)
+        a.update(kw)
+        return fused.decode_core(a["q"], a["k"], a["v"], a["k_cache"],
+                                 a["v_cache"], a["pos"], a["positions"],
+                                 scales=scales)
+
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        call(q=q.cpu(), k=k.cpu(), v=v.cpu(), k_cache=cache["k"].cpu(),
+             v_cache=cache["v"].cpu(), pos=pos.cpu(), positions=positions.cpu())
+    with pytest.raises(ValueError, match="fp32"):
+        call(q=q.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        call(k_cache=cache["k"].half(), v_cache=cache["v"].half())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(k_cache=cache["k"].transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="outside a cache"):
+        call(pos=64, positions=positions)
+
+
+@pytest.mark.cuda
+def test_decode_steps_take_the_kernel_where_their_features_allow(rng):
+    """qwen3's reduced decode step launches the kernel once a layer and
+    gives the plain chain's greedy tokens; qwen2-vl's (M-RoPE) launches it
+    never."""
+    _need_card()
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as fused
+    from repro_torch.models import attention, transformer
+
+    for arch, per_step in (("qwen3-4b", 2), ("qwen2-vl-72b", 0)):
+        cfg = get_arch(arch).reduced()
+        params = transformer.init(cfg, seed=0, device="cuda")
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 12))).cuda()
+        logits = {}
+        for take in (True, False):
+            with torch.inference_mode():
+                _, state = transformer.prefill(params, cfg,
+                                               {"tokens": tok[:, :8]},
+                                               max_len=16)
+                before = fused.decode_core.launches
+                orig = attention.takes_decode_kernel
+                if not take:
+                    attention.takes_decode_kernel = lambda *a, **k: False
+                try:
+                    out = []
+                    for t in range(8, 12):
+                        lg, state = transformer.decode_step(
+                            params, cfg, {"token": tok[:, t:t + 1]}, state, t)
+                        out.append(lg)
+                finally:
+                    attention.takes_decode_kernel = orig
+                got = fused.decode_core.launches - before
+            assert got == (4 * per_step if take else 0), (arch, take, got)
+            logits[take] = torch.cat(out, 1)
+        assert torch.equal(logits[True].argmax(-1), logits[False].argmax(-1))

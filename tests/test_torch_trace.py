@@ -3,7 +3,8 @@
 On the reduced qwen3-4b engine: the engine and the lane runner record
 exactly ``serve.step`` / ``serve.prefill`` / ``serve.decode`` /
 ``serve.sync``, nested as the calls are; the decode spans' counts equal
-the requests' positions worked out by hand; ``TierStats`` holds the same
+the requests' positions worked out by hand, and no layer takes the fused
+decode kernel on the CPU; ``TierStats`` holds the same
 readings as the spans; no ``record_function`` is entered unless a
 profiler runs, and under one the profiler's events carry the spans; the
 ring keeps its last ``CAPACITY`` spans; a callee's counts land on the
@@ -93,7 +94,21 @@ def test_decode_counts_equal_the_positions_by_hand(port_session, rng):
     tables = np.full((2, 2), runner.n_pages, np.int32)
     with trace.span("outer") as sp:
         runner.decode(np.zeros(2, np.int32), np.zeros(2, np.int32), tables)
-    assert sp.attrs == {"ctx_attended": 16}
+    assert sp.attrs == {"ctx_attended": 16, "attn_kernel_layers": 0}
+
+
+def test_no_decode_layer_takes_the_fused_kernel_on_the_cpu(port_session,
+                                                           rng):
+    # the runner counts the layers whose attention core took the fused
+    # decode kernel: on the card every attention layer of a decode call,
+    # here none (the plain chain runs on CPU tensors)
+    eng = _engine(port_session)
+    got = _serve(eng, rng, [("premium", 5, 3), ("bulk", 4, 3)])
+    dec = [s.attrs["attn_kernel_layers"] for s in got
+           if s.name == "serve.decode"]
+    assert dec == [0, 0, 0, 0]
+    assert all("attn_kernel_layers" not in s.attrs for s in got
+               if s.name != "serve.decode")
 
 
 def test_tier_stats_hold_the_spans_durations(port_session, rng):
